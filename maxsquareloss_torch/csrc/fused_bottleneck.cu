@@ -2,12 +2,18 @@
 //
 // Replaces the TPU kernel experiments/retired_pallas/fused_block.py
 // (_kernel_body, launched by _call_kernel from fused_bottleneck_padded with
-// emit=False). It computes, for x and out in NHWC (channels-last) fp32,
+// emit=False, and from the training forward _fwd with emit=True). It
+// computes, for x and out in NHWC (channels-last) fp32,
 //
 //   out = relu(bn3(conv3(relu(bn2(conv2_d(relu(bn1(conv1 x))))))) + x)
 //
 // with conv1/conv3 1x1, conv2 3x3 with dilation d and zero padding d, and
-// every frozen BN folded to y*s + b. h1 and h2 never go to device memory.
+// every frozen BN folded to y*s + b. With emit off (eval), h1 and h2 never
+// go to device memory. With emit on (training), the kernel also writes
+// h1 = relu(bn1(conv1 x)) and h2 = relu(bn2(conv2 h1)) as unpadded NHWC
+// (N, H, W, Cmid), which the backward reads: each element once, by the
+// block that owns its output pixel, never from the column halo or from the
+// extra h1 rows a segment recomputes (see Emit below).
 //
 // What bounds it. Per output pixel the block does
 //   2 * (2*Cin*Cmid + 9*Cmid^2) FLOP
@@ -44,6 +50,14 @@
 //   (on an H100, 512 threads ran layers 3-4 29-31 % faster; PERF.md).
 // - Ragged edges are masked on load and store; a conv1 tile wholly past the
 //   right edge writes zeros without computing.
+// - Emit (a template flag, so the eval kernel is unchanged): a block owns
+//   the output pixels of its strip [col0, col0+TW) on the rows of its
+//   segment. h2 goes to device memory from registers where conv2 makes it,
+//   for those pixels. h1 of row j is copied from its ring slot while the
+//   slot holds it (between the two barriers of row j), from the slot's
+//   columns [d, d+TW), which are the strip itself: the halo columns and
+//   the rows j0-1 and j0+RS that a segment computes only as conv2's
+//   neighbours are never written.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -64,6 +78,8 @@ struct Args {
   const float* s3;
   const float* b3;
   float* out;
+  float* h1;  // (N, H, W, Cmid) with emit, else null
+  float* h2;  // (N, H, W, Cmid) with emit, else null
   int N, H, W, Cin, Cmid, d, TW, RS, S;
 };
 
@@ -152,10 +168,11 @@ __device__ void conv1_row(const Args& a, float* slot, int n, int r, int col0) {
   }
 }
 
-// h2 for output row j of the chain (h1 rows j-1, j, j+1 in the ring).
-template <int NT>
+// h2 for output row j of the chain (h1 rows j-1, j, j+1 in the ring); with
+// Emit also into device memory at image row r.
+template <int NT, bool Emit>
 __device__ void conv2_row(const Args& a, const float* h1, float* h2, int j,
-                          int col0) {
+                          int n, int r, int col0) {
   const int P1 = a.TW + 2 * a.d;
   const int nq = a.Cmid / 4;
   const int items = nq * (a.TW / kPx);
@@ -177,9 +194,31 @@ __device__ void conv2_row(const Args& a, const float* h1, float* h2, int j,
     const float4 s = ldg4(a.s2 + q * 4);
     const float4 b = ldg4(a.b2 + q * 4);
 #pragma unroll
-    for (int p = 0; p < kPx; ++p)
-      *reinterpret_cast<float4*>(h2 + (size_t)(t * kPx + p) * a.Cmid + q * 4) =
-          bn_relu(acc[p], s, b);
+    for (int p = 0; p < kPx; ++p) {
+      const float4 y = bn_relu(acc[p], s, b);
+      *reinterpret_cast<float4*>(h2 + (size_t)(t * kPx + p) * a.Cmid + q * 4) = y;
+      const int col = col0 + t * kPx + p;
+      if (Emit && col < a.W)
+        *reinterpret_cast<float4*>(
+            a.h2 + ((size_t)(n * a.H + r) * a.W + col) * a.Cmid + q * 4) = y;
+    }
+  }
+}
+
+// With Emit: h1 of image row r, the strip's own columns of its ring slot.
+template <int NT>
+__device__ void store_h1_row(const Args& a, const float* slot, int n, int r,
+                             int col0) {
+  const int nq = a.Cmid / 4;
+  const int items = nq * a.TW;
+  for (int item = threadIdx.x; item < items; item += NT) {
+    const int q = item % nq;
+    const int c = item / nq;
+    const int col = col0 + c;
+    if (col < a.W)
+      *reinterpret_cast<float4*>(
+          a.h1 + ((size_t)(n * a.H + r) * a.W + col) * a.Cmid + q * 4) =
+          *reinterpret_cast<const float4*>(slot + (size_t)(c + a.d) * a.Cmid + q * 4);
   }
 }
 
@@ -216,7 +255,7 @@ __device__ void conv3_row(const Args& a, const float* h2, int n, int r,
 }
 
 // grid: (column strips, N * d * S); block y = ((n * d) + residue) * S + segment.
-template <int NT>
+template <int NT, bool Emit>
 __global__ void __launch_bounds__(NT) fused_bottleneck_kernel(const Args a) {
   extern __shared__ float4 smem4[];
   float* h1 = reinterpret_cast<float*>(smem4);
@@ -240,20 +279,21 @@ __global__ void __launch_bounds__(NT) fused_bottleneck_kernel(const Args a) {
     if (r >= a.H) break;
     conv1_row<NT>(a, h1 + ring_slot(j + 1) * slot_len, n, r + a.d, col0);
     __syncthreads();
-    conv2_row<NT>(a, h1, h2, j, col0);
+    if (Emit) store_h1_row<NT>(a, h1 + ring_slot(j) * slot_len, n, r, col0);
+    conv2_row<NT, Emit>(a, h1, h2, j, n, r, col0);
     __syncthreads();
     conv3_row<NT>(a, h2, n, r, col0);
   }
 }
 
-template <int NT>
+template <int NT, bool Emit>
 cudaError_t launch(const Args& a, int smem_bytes, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(fused_bottleneck_kernel<NT>,
+  cudaError_t e = cudaFuncSetAttribute(fused_bottleneck_kernel<NT, Emit>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        smem_bytes);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.W + a.TW - 1) / a.TW, a.N * a.d * a.S);
-  fused_bottleneck_kernel<NT><<<grid, NT, smem_bytes, stream>>>(a);
+  fused_bottleneck_kernel<NT, Emit><<<grid, NT, smem_bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -261,12 +301,13 @@ cudaError_t launch(const Args& a, int smem_bytes, cudaStream_t stream) {
 
 // threads: 256 or 512 threads per block (the wrapper takes 512 where the
 // shared memory allows one block per SM, to keep 16 warps resident).
+// h1, h2: both null (eval) or both (N, H, W, Cmid) outputs (training).
 extern "C" int msl_fused_bottleneck_f32(
     const void* x, const void* w1, const void* w2, const void* w3,
     const void* s1, const void* b1, const void* s2, const void* b2,
-    const void* s3, const void* b3, void* out, int N, int H, int W, int Cin,
-    int Cmid, int d, int TW, int RS, int S, int threads, int smem_bytes,
-    void* stream) {
+    const void* s3, const void* b3, void* out, void* h1, void* h2, int N,
+    int H, int W, int Cin, int Cmid, int d, int TW, int RS, int S, int threads,
+    int smem_bytes, void* stream) {
   Args a;
   a.x = static_cast<const float*>(x);
   a.w1 = static_cast<const float*>(w1);
@@ -279,6 +320,9 @@ extern "C" int msl_fused_bottleneck_f32(
   a.s3 = static_cast<const float*>(s3);
   a.b3 = static_cast<const float*>(b3);
   a.out = static_cast<float*>(out);
+  a.h1 = static_cast<float*>(h1);
+  a.h2 = static_cast<float*>(h2);
+  if ((h1 == nullptr) != (h2 == nullptr)) return (int)cudaErrorInvalidValue;
   a.N = N;
   a.H = H;
   a.W = W;
@@ -289,8 +333,13 @@ extern "C" int msl_fused_bottleneck_f32(
   a.RS = RS;
   a.S = S;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (threads == 256) return (int)launch<256>(a, smem_bytes, s);
-  if (threads == 512) return (int)launch<512>(a, smem_bytes, s);
+  const bool emit = h1 != nullptr;
+  if (threads == 256)
+    return (int)(emit ? launch<256, true>(a, smem_bytes, s)
+                      : launch<256, false>(a, smem_bytes, s));
+  if (threads == 512)
+    return (int)(emit ? launch<512, true>(a, smem_bytes, s)
+                      : launch<512, false>(a, smem_bytes, s));
   return (int)cudaErrorInvalidValue;
 }
 

@@ -16,8 +16,13 @@ Public layout is NHWC as in the JAX package: ``forward`` takes (N, H, W, 3)
 and returns (N, H/8, W/8, C) logits. Inside, ``x.permute(0, 3, 1, 2)`` is
 an NCHW view with channels-last strides and the trunk stays in
 ``torch.channels_last``. Every stride-1 block without a downsample (29 of
-ResNet-101's 33) runs as one ``kernels.fused_block.fused_bottleneck``; the
-stem, the 4 downsample blocks and the heads are cuDNN convs.
+ResNet-101's 33) runs as one fused kernel: with grad enabled (training)
+``kernels.fused_block.FusedBottleneckFn``, whose gradient reaches
+``conv{1,2,3}.weight``; without (eval, predict)
+``kernels.fused_block.fused_bottleneck`` on HWIO copies of the weights
+that ``pack_weights`` makes. The stem, the 4 downsample blocks and the
+heads are cuDNN convs. ``param_groups`` gives the optimizer's 1x/10x
+groups.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from maxsquareloss_torch.kernels.fused_block import (
+    FusedBottleneckFn,
     fused_bottleneck,
     fused_bottleneck_reference,
 )
@@ -83,11 +89,12 @@ class Bottleneck(nn.Module):
             if downsample else None
         )
         if self.fusable:
-            # The fused kernel's weights: each conv kernel in HWIO order,
+            # The eval kernel's weights: each conv kernel in HWIO order,
             # flattened to a 2-D (kh*kw*Cin, Cout) matrix so that
             # .to(memory_format=...) leaves it contiguous. Not saved; made
-            # here and again whenever a state dict is loaded (init_deeplabv2
-            # calls pack_weights after its in-place init).
+            # here and again whenever a state dict is loaded, by
+            # init_deeplabv2 after its in-place init, and by the train steps
+            # after every optimizer step.
             for i in (1, 2, 3):
                 self.register_buffer(f"w{i}_hwio", None, persistent=False)
             self.register_load_state_dict_post_hook(
@@ -110,15 +117,19 @@ class Bottleneck(nn.Module):
         cout, cin, kh, kw = getattr(self, f"conv{i}").weight.shape
         return getattr(self, f"w{i}_hwio").view(kh, kw, cin, cout)
 
-    def forward(self, x: torch.Tensor, kernel) -> torch.Tensor:
-        """``kernel``: the fused bottleneck or its plain version, for the
-        identity blocks; the others run as cuDNN convs."""
+    def forward(self, x: torch.Tensor, kernel, train_kernel) -> torch.Tensor:
+        """``kernel`` (no grad, packed HWIO weights) and ``train_kernel``
+        (grad enabled, HWIO views of ``conv{i}.weight``): the fused
+        bottleneck or its plain version, for the identity blocks; the others
+        run as cuDNN convs."""
         if self.fusable:
-            return kernel(
-                x, self._hwio(1), self._hwio(2), self._hwio(3),
-                self.bn1.scale, self.bn1.bias, self.bn2.scale, self.bn2.bias,
-                self.bn3.scale, self.bn3.bias, self.dilation,
-            )
+            bn = (self.bn1.scale, self.bn1.bias, self.bn2.scale, self.bn2.bias,
+                  self.bn3.scale, self.bn3.bias)
+            if torch.is_grad_enabled():
+                w = (getattr(self, f"conv{i}").weight.permute(2, 3, 1, 0) for i in (1, 2, 3))
+                return train_kernel(x, *w, *bn, self.dilation)
+            return kernel(x, self._hwio(1), self._hwio(2), self._hwio(3), *bn,
+                          self.dilation)
         y = F.relu(self.bn1(self.conv1(x)))
         y = F.relu(self.bn2(self.conv2(y)))
         y = self.bn3(self.conv3(y))
@@ -149,6 +160,8 @@ class DeepLabV2(nn.Module):
 
     ``plain_blocks=True`` routes the identity blocks to the plain PyTorch
     version of the fused kernel (for holding the kernel path against it).
+    After changing conv weights in place outside the train steps, call
+    ``pack_weights`` before an eval forward.
     """
 
     def __init__(self, cfg: DeepLabV2Config = DeepLabV2Config(),
@@ -156,6 +169,9 @@ class DeepLabV2(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.block_fn = fused_bottleneck_reference if plain_blocks else fused_bottleneck
+        self.train_block_fn = (
+            fused_bottleneck_reference if plain_blocks else FusedBottleneckFn.apply
+        )
         self.conv1 = _conv(3, 64, 7, stride=2, padding=3)
         self.bn1 = FrozenBN(64)
         self.pool = max_pool_ceil()
@@ -180,8 +196,14 @@ class DeepLabV2(nn.Module):
 
     def _stage(self, layer: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
         for block in layer:
-            x = block(x, self.block_fn)
+            x = block(x, self.block_fn, self.train_block_fn)
         return x
+
+    def pack_weights(self) -> None:
+        """Refresh the eval kernel's HWIO weights from the convs."""
+        for m in self.modules():
+            if isinstance(m, Bottleneck) and m.fusable:
+                m.pack_weights()
 
     def forward(self, x: torch.Tensor, aux: bool = True):
         """(N, H, W, 3) normalized images → (aux_or_None, main), each
@@ -223,10 +245,20 @@ def init_deeplabv2(
                 nn.init.zeros_(m.bias)
             else:
                 kaiming_normal_(m.weight, generator)
-    for m in model.modules():
-        if isinstance(m, Bottleneck) and m.fusable:
-            m.pack_weights()
+    model.pack_weights()
     return model.to(device=device, memory_format=torch.channels_last).eval()
+
+
+def param_groups(model: DeepLabV2, head_mult: float = 10.0) -> list[dict]:
+    """The optimizer's two groups (counterpart of ``lr_mult_tree``): the
+    classifier heads ``layer5``/``layer6`` at ``head_mult`` x the LR, every
+    other parameter at 1x, biases included. Each group carries its
+    ``lr_mult``."""
+    backbone, heads = [], []
+    for name, p in model.named_parameters():
+        (heads if name.startswith(("layer5.", "layer6.")) else backbone).append(p)
+    return [{"params": backbone, "lr_mult": 1.0},
+            {"params": heads, "lr_mult": head_mult}]
 
 
 def valid_logits_hw(hw: tuple[int, int]) -> tuple[int, int]:

@@ -65,9 +65,11 @@ def resize_bilinear_align_corners(
     if h_rows is not None:
         wh = wh[int(h_rows[0]) : int(h_rows[1])]
     ww = interp_matrix(w_out, w_in, dtype, x.device)  # (Wo, Wi)
-    x = x.to(dtype)
-    y = torch.einsum("oh,nhwc->nowc", wh, x)
-    return torch.einsum("pw,nowc->nopc", ww, y)
+    n, c = x.shape[0], x.shape[-1]
+    # two matmuls with contiguous NHWC results (the fused loss kernels and
+    # the last-dim softmaxes read them as such)
+    y = torch.matmul(wh, x.to(dtype).reshape(n, h_in, w_in * c))  # (N, Ho, Wi*C)
+    return torch.matmul(ww, y.view(n, -1, w_in, c))                # (N, Ho, Wo, C)
 
 
 def upsample_logits(logits: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:

@@ -1,15 +1,42 @@
-"""Step helpers of the port's forward path (counterparts of
-``maxsquareloss_tpu/train/steps.py`` ``model_config``, ``_prepare_inputs``
-and ``make_eval_step``). The train steps come with the training slice.
+"""Train and eval steps of the port (counterparts of
+``maxsquareloss_tpu/train/steps.py``).
+
+A train step is eager PyTorch: forward(s) → align-corners upsample →
+loss(es) → ONE ``backward()`` of the summed loss → torch SGD over the 1x/10x
+groups at the poly LR of the iteration before the step → refresh of the
+eval kernel's packed weights. The UDA step's target loss for
+``IW_maxsquare`` and ``maxsquare`` is the fused softmax + max-square kernel
+on the upsampled target logits; the softmax that feeds the guidance, the
+histogram and the IW weights runs under ``torch.no_grad()``, as the JAX
+code's ``stop_gradient``s imply. Metrics come back as 0-d tensors on the
+model's device: the step never reads a value back to the host.
+
+Not ported yet: ``--concat_batches`` (one masked-canvas forward for both
+batches), so source and target always run as two forwards.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from maxsquareloss_torch.config import TrainConfig
 from maxsquareloss_torch.data.palette import IMAGENET_MEAN, IMAGENET_STD, IMG_MEAN
+from maxsquareloss_torch.kernels.fused_loss import (
+    fused_iw_max_square_loss,
+    fused_max_square_loss,
+)
 from maxsquareloss_torch.models.deeplabv2 import DeepLabV2Config
+from maxsquareloss_torch.ops.losses import (
+    cross_entropy,
+    entropy_loss,
+    iw_entropy_loss,
+    iw_pixel_weights,
+    self_produced_guidance,
+)
+from maxsquareloss_torch.ops.resize import upsample_logits
+from maxsquareloss_torch.optim import make_sgd, poly_lr, set_lr
 
 
 def model_config(cfg: TrainConfig) -> DeepLabV2Config:
@@ -40,6 +67,152 @@ def _prepare_inputs(x: torch.Tensor | None, y: torch.Tensor | None, cfg: TrainCo
     if y is not None and y.dtype != torch.int64:
         y = y.long()
     return x, y
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model, its optimizer and the global iteration (drives the poly
+    LR). A step updates the model and optimizer in place."""
+
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    iteration: int = 0
+
+
+def make_train_state(model: torch.nn.Module, cfg: TrainConfig) -> TrainState:
+    return TrainState(model=model, optimizer=make_sgd(model, cfg))
+
+
+def _forward_upsampled(model, x, out_hw):
+    """Forward + align-corners upsample of both heads to ``out_hw``."""
+    aux, main = model(x)
+    main = upsample_logits(main, out_hw)
+    if aux is not None:
+        aux = upsample_logits(aux, out_hw)
+    return aux, main
+
+
+def _source_loss(model, x, y, cfg: TrainConfig):
+    aux, main = _forward_upsampled(model, x, y.shape[-2:])
+    loss = cross_entropy(main, y)
+    metrics = {"loss_source": loss.detach()}
+    if aux is not None:
+        loss_aux = cross_entropy(aux, y)
+        metrics["loss_source_aux"] = loss_aux.detach()
+        loss = loss + cfg.lambda_seg * loss_aux
+    return loss, metrics
+
+
+def target_loss_fn(logits_main: torch.Tensor, logits_aux: torch.Tensor | None,
+                   cfg: TrainConfig):
+    """Mode-dispatched target loss from the upsampled target logits.
+
+    Returns (target_loss, guidance_label_or_None, metrics). With the aux
+    head the pseudo-label of the head ensemble feeds the IW histogram
+    (``--iw_hist guidance``) and the aux head's CE.
+    """
+    c = logits_main.shape[-1]
+    mode = cfg.target_mode
+    iw = mode in ("IW_maxsquare", "IW_entropy")
+    with torch.no_grad():
+        prob_main = torch.softmax(logits_main, dim=-1)
+        label = None
+        if logits_aux is not None:
+            label = self_produced_guidance(
+                prob_main, torch.softmax(logits_aux, dim=-1), cfg.threshold,
+                mask_mode=cfg.guidance_mask,
+            )
+        hist_label = label if cfg.iw_hist == "guidance" else None
+        if iw:
+            weights, pixel_w = iw_pixel_weights(prob_main, hist_label, c, cfg.ratio)
+    if mode == "maxsquare":
+        loss = fused_max_square_loss(logits_main)
+    elif mode == "IW_maxsquare":
+        loss = fused_iw_max_square_loss(logits_main, weights)
+    elif mode == "entropy":
+        loss = entropy_loss(torch.softmax(logits_main, dim=-1))
+    elif mode == "IW_entropy":
+        loss = iw_entropy_loss(torch.softmax(logits_main, dim=-1), hist_label,
+                               num_classes=c, ratio=cfg.ratio)
+    elif mode == "hard":
+        if label is None:
+            maxp, arg = prob_main.max(dim=-1)
+            label = torch.where(maxp > cfg.threshold, arg, -1)
+        # hard pseudo-label CE on the main head's log-probabilities
+        logp = torch.log(torch.softmax(logits_main, dim=-1).clamp(1e-30, 1.0))
+        valid = label != -1
+        nll = -logp.gather(-1, torch.where(valid, label, 0).unsqueeze(-1)).squeeze(-1)
+        loss = torch.where(valid, nll, 0.0).sum() / valid.sum().clamp_min(1).to(nll.dtype)
+    else:
+        raise ValueError(f"unknown target_mode {mode!r}")
+    metrics = {"loss_target_raw": loss.detach()}
+    if label is not None:
+        metrics["guidance_valid_frac"] = (label != -1).float().mean()
+    if iw:
+        # the degenerate-weight canary: 1.0 is the w_c = 1 branch firing
+        metrics["iw_pixel_w_max"] = pixel_w.max()
+        metrics["iw_pixel_w_mean"] = pixel_w.mean()
+    return loss, label, metrics
+
+
+def _apply_update(state: TrainState, loss: torch.Tensor, cfg: TrainConfig) -> float:
+    """One backward and one SGD step at the LR of ``state.iteration``
+    (before the increment); refresh the packed eval weights. The LR."""
+    lr = poly_lr(cfg.lr, state.iteration, cfg.iter_max, cfg.poly_power)
+    set_lr(state.optimizer, lr)
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    state.optimizer.step()
+    state.model.pack_weights()
+    state.iteration += 1
+    return lr
+
+
+def _finish_metrics(metrics: dict, loss: torch.Tensor, lr: float) -> dict:
+    metrics["loss"] = loss.detach()
+    metrics["lr"] = torch.full((), lr, dtype=torch.float32, device=loss.device)
+    return metrics
+
+
+def make_supervised_train_step(cfg: TrainConfig):
+    """Source-only supervised step: ``step(state, x, y) → (state, metrics)``
+    for NHWC images and (N, H, W) labels on the model's device."""
+
+    def step(state: TrainState, x: torch.Tensor, y: torch.Tensor):
+        x, y = _prepare_inputs(x, y, cfg)
+        loss, metrics = _source_loss(state.model, x, y, cfg)
+        lr = _apply_update(state, loss, cfg)
+        return state, _finish_metrics(metrics, loss, lr)
+
+    return step
+
+
+def make_uda_train_step(cfg: TrainConfig):
+    """UDA step over a (source, target) batch pair: ``step(state, xs, ys,
+    xt) → (state, metrics)``. Source CE (+ ``lambda_seg`` aux CE) +
+    ``lambda_target`` x target loss (+ ``lambda_target * lambda_seg`` x the
+    aux head's guidance CE), one backward, one SGD step. Source and target
+    run as two forwards (the JAX step's non-concat branch)."""
+
+    def step(state: TrainState, xs: torch.Tensor, ys: torch.Tensor, xt: torch.Tensor):
+        xs, ys = _prepare_inputs(xs, ys, cfg)
+        xt, _ = _prepare_inputs(xt, None, cfg)
+        src_loss, metrics = _source_loss(state.model, xs, ys, cfg)
+        aux_t, main_t = _forward_upsampled(state.model, xt, (xt.shape[1], xt.shape[2]))
+        tgt_loss, label, tmetrics = target_loss_fn(main_t, aux_t, cfg)
+        metrics.update(tmetrics)
+        total = src_loss + cfg.lambda_target * tgt_loss
+        if aux_t is not None and label is not None:
+            # self-produced guidance: the aux head learns the hard
+            # ensemble pseudo-label
+            loss_aux_t = cross_entropy(aux_t, label)
+            metrics["loss_target_aux"] = loss_aux_t.detach()
+            total = total + cfg.lambda_target * cfg.lambda_seg * loss_aux_t
+        metrics["loss_target"] = (cfg.lambda_target * tgt_loss).detach()
+        lr = _apply_update(state, total, cfg)
+        return state, _finish_metrics(metrics, total, lr)
+
+    return step
 
 
 def make_eval_step(cfg: TrainConfig, model, num_eval_classes: int | None = None):

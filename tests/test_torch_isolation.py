@@ -62,6 +62,39 @@ def test_cuda_tensor_never_takes_the_plain_path():
     assert 'if x.device.type == "cpu":\n        return fused_bottleneck_reference(' in body
 
 
+@pytest.mark.parametrize("module", ["kernels/fused_loss.py", "kernels/build.py"])
+def test_new_kernel_modules_swallow_no_error(module):
+    """No try/except in the loss kernel module or the build helper."""
+    tree = ast.parse((ROOT / "maxsquareloss_torch" / module).read_text())
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+def _function_source(module: str, name: str) -> str:
+    src = (ROOT / "maxsquareloss_torch" / module).read_text()
+    node = next(n for n in ast.parse(src).body
+                if isinstance(n, ast.FunctionDef) and n.name == name)
+    return ast.get_source_segment(src, node)
+
+
+@pytest.mark.parametrize(
+    "module,wrapper,plain,tensor",
+    [
+        ("kernels/fused_block.py", "fused_bottleneck_emit", "fused_bottleneck_emit_reference", "x"),
+        ("kernels/fused_loss.py", "fused_iw_max_square_loss",
+         "fused_iw_max_square_loss_reference", "logits"),
+        ("kernels/fused_loss.py", "fused_max_square_loss", "fused_max_square_loss_reference",
+         "logits"),
+    ],
+)
+def test_new_wrappers_take_the_plain_path_on_cpu_tensors_only(module, wrapper, plain, tensor):
+    """Each new wrapper's plain branch is keyed on its tensor's device alone,
+    and the wrapper calls its plain version there and nowhere else."""
+    body = _function_source(module, wrapper)
+    assert body.count(f"{plain}(") == 1
+    assert f'if {tensor}.device.type == "cpu":\n        return {plain}(' in body
+    assert f'if {tensor}.device.type != "cuda":\n        raise ValueError(' in body
+
+
 def _run_chip_smoke(cwd: Path):
     """chip_smoke.py in a child process with no card visible."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
