@@ -42,7 +42,27 @@ Phases, one JSON object per line on stdout:
      2 warm-up and REPS timed steps (steps/s and images/s, median, min,
      max; peak memory), one maxsquare step; the emit kernel launches 58
      times a step at checked shapes, each loss kernel once a direction;
-  8. train profile: device time by kernel name over one train step.
+  8. train profile: device time by kernel name over one train step;
+  9. probe: the matmul-chain calibration kernel against its plain version
+     at the reference's defaults (M 1728, K 1024, N 256, 72 cells, chain 3),
+     at the layer-4 widths (K 2048, N 512) and at a ragged M, each in
+     bf16 -> bf16, bf16 -> fp32 and fp32 -> fp32 (max abs error over max
+     |out|: fp32 1e-4, bf16 2e-2), bitwise equal on a second call; timed
+     beside its bound, the plain version and the same chain as batched
+     torch.matmul; then the entry point ``experiments.bench_matmul`` once,
+     counted;
+ 10. trainer: ``UDATrainer`` at the train phase's configuration over
+     ``SegDataLoader``s of in-memory data (8 workers): 6 iterations, a
+     checkpoint every 3, a validation over 2 batches of 2 at 1024x512. The
+     emit kernel launches 58 times an iteration and each loss kernel once a
+     direction, the eval kernel 29 times a validation batch; the latest
+     checkpoint loads equal to the live model; a second trainer resumes the
+     iteration-3 checkpoint with --continue_training and repeats the
+     losses of iterations 4-6 (relative 1e-4). Reports steps/s beside the
+     bare step's, the idle share over two iterations, peak memory, and the
+     checkpoint's save time and size;
+ 11. cli: when PIL is installed, ``tools.solve_gta5`` for 2 iterations on a
+     small on-disk domain-shift pair.
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 
 Exits non-zero, printing no result, when CUDA is absent or a check fails.
@@ -52,20 +72,26 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib.util
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 from maxsquareloss_torch.config import TrainConfig
+from maxsquareloss_torch.data.loader import SegDataLoader
 from maxsquareloss_torch.data.synthetic import SyntheticSegDataset, uint8_batches
 from maxsquareloss_torch.kernels import build as kernel_build
-from maxsquareloss_torch.kernels import fused_block, fused_loss
+from maxsquareloss_torch.experiments import bench_matmul
+from maxsquareloss_torch.kernels import fused_block, fused_loss, matmul_probe
 from maxsquareloss_torch.kernels.fused_block import (
     FusedBottleneckFn,
     bottleneck_backward,
@@ -80,9 +106,11 @@ from maxsquareloss_torch.kernels.fused_loss import (
     fused_max_square_loss,
     fused_max_square_loss_reference,
 )
+from maxsquareloss_torch.kernels.matmul_probe import matmul_chain, matmul_chain_plain
 from maxsquareloss_torch.models.deeplabv2 import DeepLabV2, init_deeplabv2, valid_logits_hw
 from maxsquareloss_torch.ops.histogram import class_histogram, iw_class_weights
 from maxsquareloss_torch.predict import make_predict_fn
+from maxsquareloss_torch.train import checkpoint as ckpt_lib
 from maxsquareloss_torch.train import steps as train_steps
 from maxsquareloss_torch.train.evaluator import evaluate
 from maxsquareloss_torch.train.steps import (
@@ -91,8 +119,10 @@ from maxsquareloss_torch.train.steps import (
     make_uda_train_step,
     model_config,
 )
+from maxsquareloss_torch.train.uda_trainer import UDATrainer
 
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, bf16 dense on the tensor cores
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 RTOL = ATOL = 1e-4
 IMG_HW = (512, 1024)  # Cityscapes eval protocol base size (H, W)
@@ -148,6 +178,11 @@ LOSS_RTOL, GRAD_ATOL, GRAD_RTOL_MAX = 1e-4, 1e-5, 1e-4
 # kernel's forward than in cuDNN's and passes a whole gradient element
 BACKWARD_RTOL_L2, BACKWARD_E2E_RTOL_L2 = 1e-4, 1e-3
 STEP_RTOL, STEP_PARAM_RTOL_L2 = 1e-4, 1e-3
+# the trainer: 6 iterations, a checkpoint at 3, a resume that runs 4-6 again
+# and matches the first run's losses to relative 1e-4 (cuDNN's backward is
+# left nondeterministic, as in training); validation over 2 batches of 2
+TRAINER_ITERS, TRAINER_SAVE_ITER, TRAINER_RESUME_RTOL = 6, 3, 1e-4
+VAL_BATCH = 2
 
 # the launch count of every kernel, by the name it has in the kernels line
 COUNTERS = {
@@ -157,7 +192,22 @@ COUNTERS = {
     "fused_iw_max_square_loss_backward": (fused_iw_max_square_loss, "backward_launches"),
     "fused_max_square_loss": (fused_max_square_loss, "launches"),
     "fused_max_square_loss_backward": (fused_max_square_loss, "backward_launches"),
+    "matmul_probe": (matmul_chain, "launches"),
 }
+
+# the calibration probe: (name, M, K, N, cells, chain) at the reference's
+# defaults, at the layer-4 widths and with a ragged M (not a multiple of any
+# row tile) over a few cells; each in bf16 -> bf16, bf16 -> fp32, fp32 -> fp32
+PROBE_SHAPES = (
+    ("defaults", 1728, 1024, 256, 72, 3),
+    ("layer4", 1728, 2048, 512, 72, 3),
+    ("ragged", 1000, 1024, 256, 3, 3),
+)
+BF16, F32 = torch.bfloat16, torch.float32
+PROBE_TYPES = ((BF16, BF16), (BF16, F32), (F32, F32))
+# max abs error over max |out|: fp32 sums in another order; in bf16 a link's
+# output rounded to bf16 after a sum in another order may move by one ulp
+PROBE_TOL = {F32: 1e-4, BF16: 2e-2}
 
 
 def zero_counts() -> None:
@@ -214,11 +264,11 @@ def phase_environment() -> dict:
 def phase_build() -> None:
     """One nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
-    sources = (fused_block.SOURCE, fused_loss.SOURCE)
+    sources = (fused_block.SOURCE, fused_loss.SOURCE, matmul_probe.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(kernel_build.build, sources))
-    fused_block._library()
-    fused_loss._library()
+    for module in (fused_block, fused_loss, matmul_probe):
+        module._library()
     emit({"phase": "build", "libraries": [lib.name for lib in libs],
           "seconds": time.perf_counter() - t0})
 
@@ -435,6 +485,25 @@ def phase_slice(checked: set) -> dict:
     return {"launches": launches}
 
 
+def _profile_summary(prof) -> tuple[float, list]:
+    """(device busy ms, events by device time) of a finished profile;
+    device-side events only: a CPU op's device time repeats its kernels'."""
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    return busy_ms, sorted(events, key=lambda e: e.self_device_time_total, reverse=True)
+
+
+def _emit_profile(run: str, prof, wall: float, top_n: int, **extra) -> float:
+    busy_ms, events = _profile_summary(prof)
+    idle = 1.0 - busy_ms / (wall * 1e3)
+    emit({"phase": "profile", "run": run, "wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
+          "idle_share": idle, **extra,
+          "top": [{"name": e.key[:90], "device_ms": e.self_device_time_total / 1e3,
+                   "calls": e.count} for e in events[:top_n]]})
+    return idle
+
+
 def phase_profile(run: str, fn, top_n: int) -> None:
     """Device time by kernel name over one call of ``fn`` (torch.profiler),
     after a warm call."""
@@ -447,15 +516,7 @@ def phase_profile(run: str, fn, top_n: int) -> None:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # device-side events only: a CPU op's device time repeats its kernels'
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:top_n]
-    emit({"phase": "profile", "run": run, "wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
-          "idle_share": 1.0 - busy_ms / (wall * 1e3),
-          "top": [{"name": e.key[:90], "device_ms": e.self_device_time_total / 1e3,
-                   "calls": e.count} for e in top]})
+    _emit_profile(run, prof, wall, top_n)
 
 
 def _worst(got, want) -> tuple[float, float]:
@@ -699,9 +760,10 @@ def _train_pairs():
     return [(xs, ys, xt) for (xs, ys), (xt, _) in zip(batches(SRC_HW, 3), batches(TGT_HW, 4))]
 
 
-def phase_train(emit_checked: set) -> dict[str, int]:
+def phase_train(emit_checked: set) -> tuple[dict[str, int], float]:
     """The UDA step: parity of one kernel-path and one plain-path step, then
-    the counted, timed main path. Returns the main path's launch counts."""
+    the counted, timed main path. Returns the main path's launch counts and
+    the median steps/s."""
     cfg = TRAIN_CFG
     pairs = _train_pairs()
     model = init_deeplabv2(model_config(cfg), torch.Generator().manual_seed(0), device="cuda")
@@ -793,7 +855,309 @@ def phase_train(emit_checked: set) -> dict[str, int]:
           "first_metrics": metrics[0], "last_iw_metrics": metrics[-2],
           "maxsquare_metrics": metrics[-1]})
     phase_profile("train_step", lambda: step(state, *pairs[0]), top_n=16)
+    return counts, statistics.median(steps_per_s)
+
+
+def _probe_inputs(gen, m, k, n, cells, dtype):
+    def randn(*shape):
+        return (torch.randn(*shape, generator=gen) * 0.05).to("cuda", dtype)
+
+    return (torch.full((1, 1), 1e-3, device="cuda"), randn(cells, m, k), randn(k, n),
+            randn(n, k))
+
+
+def _probe_library(t, x, a, b, chain):
+    """The same chain as batched ``torch.matmul`` in the inputs' type
+    (cuBLAS; TF32 off), the yardstick the port never calls."""
+    y = x + t.reshape(()).to(x.dtype)
+    for i in range(chain):
+        y = torch.relu(torch.matmul(y, a if i % 2 == 0 else b))
+    return y.float().sum(dim=1, keepdim=True)
+
+
+def phase_probe() -> dict:
+    """The calibration probe against its plain version at every shape and
+    type of ``PROBE_SHAPES`` x ``PROBE_TYPES`` (bitwise equal on a second
+    call), timed at the defaults and the layer-4 widths. Returns the
+    kernels-line entry (the main path's shape: the defaults in bf16)."""
+    gen = torch.Generator().manual_seed(3)
+    rows = []
+    for name, m, k, n, cells, chain in PROBE_SHAPES:
+        for dtype, odtype in PROBE_TYPES:
+            t, x, a, b = _probe_inputs(gen, m, k, n, cells, dtype)
+            got = matmul_chain(t, x, a, b, chain, odtype)
+            again = matmul_chain(t, x, a, b, chain, odtype)
+            want = matmul_chain_plain(t, x, a, b, chain, odtype)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            types = f"{str(dtype)[6:]}->{str(odtype)[6:]}"
+            check(bool(torch.isfinite(got).all()), f"probe {name} {types}: non-finite output")
+            check(scale > 0, f"probe {name} {types}: the plain output is all zero")
+            check(torch.equal(got, again), f"probe {name} {types}: two calls differ")
+            check(err <= PROBE_TOL[dtype] * scale,
+                  f"probe {name} {types}: {err:.3g} abs at max |out| {scale:.3g}")
+            row = {"shape": name, "m": m, "k": k, "n": n, "cells": cells, "chain": chain,
+                   "types": types, "row_tile": matmul_probe.plan_rows(dtype, k, n),
+                   "max_abs_err": err, "max_abs_out": scale, "err_over_max": err / scale,
+                   "tolerance": PROBE_TOL[dtype], "bitwise_repeatable": True}
+            if name != "ragged":
+                reps = 5
+
+                def kernel():
+                    return matmul_chain(t, x, a, b, chain, odtype)
+
+                def plain():
+                    return matmul_chain_plain(t, x, a, b, chain, odtype)
+
+                def library():
+                    return _probe_library(t, x, a, b, chain)
+
+                p1, k1, k2, p2 = (time_ms(f, reps) for f in (plain, kernel, kernel, plain))
+                lib_ms = time_ms(library, reps)
+                es = torch.finfo(dtype).bits // 8
+                flops = 2 * m * k * n * chain * cells
+                nbytes = es * (cells * m * k + 2 * k * n) + 4 * (cells * n + 1)
+                peak = PEAK_BF16_FLOPS if dtype == BF16 else PEAK_FP32_FLOPS
+                t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+                ms = (k1 + k2) / 2
+                row.update({"ms": ms, "plain_ms": (p1 + p2) / 2, "library_ms": lib_ms,
+                            "bound_ms": max(t_ops, t_bytes) * 1e3,
+                            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                            "tflops": flops / ms / 1e9, "library_tflops": flops / lib_ms / 1e9,
+                            "peak_tflops": peak / 1e12})
+            emit({"phase": "kernel" if "ms" in row else "kernel_check",
+                  "kernel": "matmul_probe", **row})
+            rows.append(row)
+            del t, x, a, b, got, again, want
+    torch.cuda.empty_cache()
+    main_row = next(r for r in rows if r["shape"] == "defaults" and r["types"] == "bfloat16->bfloat16")
+    return {
+        "name": "matmul_probe", "route": "cuda",
+        "source": "maxsquareloss_torch/csrc/matmul_probe.cu",
+        "replaces": "experiments/bench_pallas_matmul.py:42",
+        "launches": None,  # filled from the main path's run
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        **{key: main_row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "library": "the same chain as batched torch.matmul in the inputs' type (cuBLAS, TF32 off)",
+        "shapes": rows,
+    }
+
+
+def phase_probe_main() -> int:
+    """The probe's entry point at its defaults, counted."""
+    torch.cuda.synchronize()
+    zero_counts()
+    result = bench_matmul.main([])
+    torch.cuda.synchronize()
+    launches = matmul_chain.launches
+    others = {k: v for k, v in read_counts().items() if k != "matmul_probe" and v}
+    check(launches > 0, "bench_matmul launched no probe kernel")
+    check(not others, f"bench_matmul launched other kernels: {others}")
+    check(tuple(result["out"].shape) == (72, 1, 256) and bool(torch.isfinite(result["out"]).all()),
+          "bench_matmul: output shape or values")
+    emit({"phase": "probe_main", "entry": "maxsquareloss_torch.experiments.bench_matmul",
+          "launches": launches, "ms": result["ms"], "tflops": result["tflops"],
+          "peak_share": result["peak_share"]})
+    return launches
+
+
+def _scalars(run_dir: str) -> dict[str, dict[int, dict]]:
+    """scalars.jsonl as {tag: {step: record}} (a later record of a step wins)."""
+    out: dict[str, dict[int, dict]] = {}
+    with open(os.path.join(run_dir, "scalars.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            out.setdefault(rec["tag"], {})[rec["step"]] = rec
+    return out
+
+
+def _trainer_loaders(cfg):
+    """In-memory synthetic source (1280x640), target (1024x512) and val
+    (1024x512) loaders: one epoch of TRAINER_ITERS batch pairs, val 2 x 2."""
+    def loader(hw, n, seed, batch, train):
+        return SegDataLoader(SyntheticSegDataset(length=n, hw=hw, seed=seed), batch_size=batch,
+                             shuffle=train, num_workers=cfg.num_workers, seed=cfg.seed,
+                             drop_last=train, pad_last=not train)
+
+    n = TRAINER_ITERS * cfg.batch_size
+    return (loader(SRC_HW, n, 3, cfg.batch_size, True), loader(TGT_HW, n, 4, cfg.batch_size, True),
+            loader(TGT_HW, 2 * VAL_BATCH, 5, VAL_BATCH, False))
+
+
+def phase_trainer(bare_steps_per_s: float) -> dict[str, int]:
+    """The UDA trainer at full width over SegDataLoaders of in-memory data:
+    TRAINER_ITERS iterations with a checkpoint every TRAINER_SAVE_ITER, a
+    validation at the end; then a second trainer resumes the mid-epoch
+    checkpoint with --continue_training and must reproduce the last
+    iterations. Returns the first run's launch counts."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    try:
+        cfg = dataclasses.replace(
+            TRAIN_CFG, iter_stop=TRAINER_ITERS, save_iter=TRAINER_SAVE_ITER, num_workers=8,
+            tqdm=False, show_num_images=0, checkpoint_dir=os.path.join(root, "run"))
+        model = init_deeplabv2(model_config(cfg), torch.Generator().manual_seed(0), device="cuda")
+        trainer = UDATrainer(cfg, *_trainer_loaders(cfg), model=model)
+        resume_dir = os.path.join(root, "resume")
+        os.makedirs(resume_dir)
+        deltas = []
+        run_step, save = trainer._run_step, trainer.save_checkpoint
+
+        def counted_step(batch):
+            before = read_counts()
+            out = run_step(batch)
+            deltas.append({k: v - before[k] for k, v in read_counts().items()})
+            return out
+
+        def save_and_keep(*args, **kw):
+            path = save(*args, **kw)
+            if trainer.state.iteration == TRAINER_SAVE_ITER:  # the resume's start
+                shutil.copy(path, os.path.join(resume_dir, ckpt_lib.LATEST))
+            return path
+
+        trainer._run_step, trainer.save_checkpoint = counted_step, save_and_keep
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+
+        per_iter = {"fused_bottleneck_emit": 58, "fused_iw_max_square_loss": 1,
+                    "fused_iw_max_square_loss_backward": 1}
+        want = {k: per_iter.get(k, 0) for k in COUNTERS}
+        check(len(deltas) == TRAINER_ITERS and trainer.state.iteration == TRAINER_ITERS,
+              f"trainer ran {len(deltas)} steps to iteration {trainer.state.iteration}")
+        for i, d in enumerate(deltas):
+            check(d == want, f"trainer iteration {i + 1}: launches {d}, expected {want}")
+        val_launches = counts["fused_bottleneck"]
+        check(val_launches == 29 * 2, f"validation launched the eval kernel {val_launches} times")
+        scal = _scalars(cfg.checkpoint_dir)
+        losses = scal["train/loss"]
+        check(sorted(losses) == list(range(1, TRAINER_ITERS + 1)), f"loss steps {sorted(losses)}")
+        check(all(math.isfinite(r["value"]) for r in losses.values()), "non-finite trainer loss")
+        check("val/MIoU" in scal and math.isfinite(scal["val/MIoU"][TRAINER_ITERS]["value"]),
+              "no validation mIoU")
+        # steps/s: the intervals between the loss records of iterations 2..6
+        ts = [losses[i]["ts"] for i in range(TRAINER_SAVE_ITER - 1, TRAINER_ITERS + 1)]
+        trainer_steps_per_s = statistics.median(1.0 / (b - a) for a, b in zip(ts, ts[1:]))
+
+        # the latest checkpoint loads and equals the live model
+        latest = os.path.join(cfg.checkpoint_dir, ckpt_lib.LATEST)
+        fresh = init_deeplabv2(model_config(cfg), torch.Generator().manual_seed(1), device="cuda")
+        ckpt_lib.load_torch_pth(latest, fresh, cfg.num_classes)
+        live = trainer.model.state_dict()
+        unequal = [k for k, v in fresh.state_dict().items() if not torch.equal(v, live[k])]
+        check(not unequal, f"checkpoint differs from the live model at {unequal[:5]}")
+        del fresh
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.save_checkpoint()
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(latest)
+        del trainer, model
+        torch.cuda.empty_cache()
+
+        # resume from the iteration-3 checkpoint (--continue_training finds
+        # it as the run dir's latest); profile iterations 4 and 5
+        cfg2 = dataclasses.replace(cfg, continue_training=True, checkpoint_dir=resume_dir)
+        model2 = init_deeplabv2(model_config(cfg2), torch.Generator().manual_seed(2), device="cuda")
+        trainer2 = UDATrainer(cfg2, *_trainer_loaders(cfg2), model=model2)
+        prof = torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        window = {}
+        run_step2 = trainer2._run_step
+
+        def profiled_step(batch):
+            it = trainer2.state.iteration
+            if it in (TRAINER_SAVE_ITER, TRAINER_SAVE_ITER + 2):
+                torch.cuda.synchronize()
+                if it == TRAINER_SAVE_ITER:
+                    prof.__enter__()
+                    window["t0"] = time.perf_counter()
+                else:
+                    window["wall"] = time.perf_counter() - window["t0"]
+                    prof.__exit__(None, None, None)
+            return run_step2(batch)
+
+        trainer2._run_step = profiled_step
+        trainer2.main()
+        torch.cuda.synchronize()
+        check(trainer2.state.iteration == TRAINER_ITERS, f"resume ended at {trainer2.state.iteration}")
+        resumed = _scalars(resume_dir)["train/loss"]
+        check(sorted(resumed) == list(range(TRAINER_SAVE_ITER + 1, TRAINER_ITERS + 1)),
+              f"resumed loss steps {sorted(resumed)}")
+        rel = {i: abs(resumed[i]["value"] - losses[i]["value"]) / abs(losses[i]["value"])
+               for i in resumed}
+        check(max(rel.values()) <= TRAINER_RESUME_RTOL,
+              f"resumed losses differ from the first run's: {rel}")
+        idle = _emit_profile("trainer_2_iterations", prof, window["wall"], top_n=12,
+                             iterations=[TRAINER_SAVE_ITER + 1, TRAINER_SAVE_ITER + 2])
+        busy_per_iter_s = _profile_summary(prof)[0] / 2e3
+        del trainer2, model2
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gap = 1.0 - trainer_steps_per_s / bare_steps_per_s
+    emit({"phase": "trainer", "run": "uda_trainer_IW_maxsquare_r101", "iw_hist": cfg.iw_hist,
+          "batch": cfg.batch_size, "source_hw": list(SRC_HW), "target_hw": list(TGT_HW),
+          "iterations": TRAINER_ITERS, "save_iter": TRAINER_SAVE_ITER, "seconds": seconds,
+          "losses": {i: r["value"] for i, r in losses.items()},
+          "trainer_steps_per_s_median": trainer_steps_per_s,
+          "bare_step_steps_per_s_median": bare_steps_per_s, "gap_vs_bare_step": gap,
+          # under the profiler its own host cost shows as idle (the loop
+          # syncs once an iteration); the estimate divides the profiled
+          # device time by the unprofiled iteration time
+          "idle_share_2_iterations_profiled": idle,
+          "idle_share_estimate": 1.0 - busy_per_iter_s * trainer_steps_per_s,
+          "peak_memory_bytes": peak,
+          "peak_memory_gib": peak / 2**30, "checkpoint_save_s": save_s,
+          "checkpoint_bytes": size, "launch_counts": counts,
+          "validation_eval_launches": val_launches,
+          "resume_loss_rel_err": rel, "resume_bitwise_equal": all(v == 0.0 for v in rel.values())})
     return counts
+
+
+def phase_cli() -> None:
+    """One short ``solve_gta5`` run through the real CLI on a small on-disk
+    domain-shift pair, when PIL (which writes and reads the PNGs) is
+    installed; full-width R101 at 128x256 crops."""
+    if importlib.util.find_spec("PIL") is None:
+        emit({"phase": "cli", "skipped": "PIL is not installed on this machine"})
+        return
+    from maxsquareloss_torch.data.synthetic import write_domain_shift_pair
+    from maxsquareloss_torch.tools import solve_gta5
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        data = os.path.join(root, "data")
+        write_domain_shift_pair(data, n_source=8, n_target_train=8, n_target_val=4, hw=(128, 256))
+        zero_counts()
+        t0 = time.perf_counter()
+        trainer = solve_gta5.main([
+            "--data_root_path", data, "--checkpoint_dir", os.path.join(root, "run"),
+            "--base_size", "256,128", "--crop_size", "256,128", "--target_base_size", "256,128",
+            "--target_crop_size", "256,128", "--batch_size", "2", "--iter_stop", "2",
+            "--num_workers", "4", "--tqdm", "false", "--iw_hist", "argmax"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        check(trainer.state.iteration == 2, f"solve_gta5 ended at {trainer.state.iteration}")
+        check(os.path.exists(os.path.join(root, "run", ckpt_lib.LATEST)), "solve_gta5: no checkpoint")
+        check(counts["fused_bottleneck_emit"] == 2 * 58 and counts["fused_bottleneck"] > 0,
+              f"solve_gta5 launches {counts}")
+        miou = _scalars(os.path.join(root, "run"))["val/MIoU"][2]["value"]
+        emit({"phase": "cli", "entry": "maxsquareloss_torch.tools.solve_gta5", "seconds": seconds,
+              "iterations": 2, "val_MIoU": miou, "launch_counts": counts})
+        del trainer
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> int:
@@ -808,13 +1172,17 @@ def main() -> int:
     train_kernels = phase_train_loss_kernels()
     emit_checked, emit_kernel = phase_train_block()
     train_kernels.insert(0, emit_kernel)
-    counts = phase_train(emit_checked)
+    counts, bare_steps_per_s = phase_train(emit_checked)
     for k in train_kernels:
         k["launches"] = counts[k["name"]]
-    for k in (kernel, *train_kernels):
+    probe = phase_probe()
+    probe["launches"] = phase_probe_main()
+    phase_trainer(bare_steps_per_s)
+    phase_cli()
+    for k in (kernel, *train_kernels, probe):
         check(k["launches"] > 0, f"the main path launched no {k['name']}")
     emit({"kernels": [{key: v for key, v in k.items() if key not in ("shapes", "checks")}
-                      for k in (kernel, *train_kernels)]})
+                      for k in (kernel, *train_kernels, probe)]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

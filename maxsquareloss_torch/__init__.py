@@ -13,16 +13,25 @@ What is ported so far:
 - the supervised and UDA train steps (``train/steps.py``): source CE,
   every target mode with self-produced guidance and the IW histogram
   (``ops/``), one backward, torch SGD over the 1x/10x groups at the poly
-  LR (``optim.py``).
+  LR (``optim.py``);
+- training from the command line: the GTA5 / SYNTHIA / Cityscapes datasets,
+  transforms and ``SegDataLoader`` (``data/``), ``Trainer`` and
+  ``UDATrainer`` with validation, reference-layout ``.pth`` checkpoints,
+  resume and preemption (``train/``), the flag-for-flag config
+  (``config.py``) and the CLIs ``tools/train_source.py`` and
+  ``tools/solve_gta5.py``;
+- the matmul calibration probe (``experiments/bench_matmul.py``).
 The 29 stride-1 identity bottlenecks of ResNet-101 run in one fused CUDA
 kernel each (``kernels/fused_block.py``, ``csrc/fused_bottleneck.cu``;
 with grad enabled the kernel also writes h1/h2 for the block's backward),
-and the max-square target losses in a fused softmax + loss kernel
-(``kernels/fused_loss.py``, ``csrc/fused_loss.cu``).
+the max-square target losses in a fused softmax + loss kernel
+(``kernels/fused_loss.py``, ``csrc/fused_loss.cu``), and the probe's chain
+in ``kernels/matmul_probe.py`` / ``csrc/matmul_probe.cu``.
 
 Entry points run on the card by default: ``device=None`` means ``cuda``
 and raises when no card is present (``utils/device.py``). Pass
-``device="cpu"`` to run the plain PyTorch versions on the host.
+``device="cpu"`` (``--device cpu``) to run the plain PyTorch versions on
+the host.
 """
 
 __version__ = "0.1.0"

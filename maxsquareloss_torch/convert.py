@@ -10,6 +10,9 @@ plus the port's two loaders:
 - ``load_reference_state_dict(model, sd)``: a reference-layout state dict
   (BN as gamma/beta/running_mean/running_var, optional ``module.`` prefix)
   → folded and loaded into ``model``.
+- ``reference_state_dict(model)``: the inverse, the port's model → a
+  reference-layout state dict whose BN unfolds exactly: loading it back
+  folds to the same float32 bits.
 """
 
 from __future__ import annotations
@@ -208,6 +211,43 @@ def state_dict_from_jax(
 
     _walk(params, frozen, put_conv, put_bn)
     return sd
+
+
+def unfold_bn_exact(scale: Array, bias: Array, eps: float = BN_EPS) -> dict[str, Array]:
+    """Torch BN parameters that ``fold_bn`` turns back into ``scale`` and
+    ``bias`` bit for bit: mean 0, gamma = scale, beta = bias, and
+    running_var the float32 v for which v + eps rounds to exactly 1, so the
+    fold divides by sqrt(1). A save/load round trip leaves the model as it
+    was (``_unfold_bn``'s var = 1 moves about one value in 10^6 by an ulp)."""
+    scale = np.asarray(scale, np.float32)
+    var = np.float32(1.0 - eps)
+    while np.float32(var + np.float32(eps)) != 1.0:
+        var = np.nextafter(var, np.float32(2.0))
+    return {
+        "weight": scale.copy(),
+        "bias": np.asarray(bias, np.float32).copy(),
+        "running_mean": np.zeros_like(scale),
+        "running_var": np.full_like(scale, var),
+        "num_batches_tracked": np.asarray(0, np.int64),
+    }
+
+
+def reference_state_dict(model: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """The port's model → a reference-layout state dict on the CPU: conv
+    weights and head biases as they are, every frozen BN (folded
+    ``scale``/``bias`` buffers) as gamma/beta/running_mean/running_var."""
+    sd = model.state_dict()
+    bn_prefixes = {k[: -len(".scale")] for k in sd if k.endswith(".scale")}
+    out: dict[str, torch.Tensor] = {}
+    for k, v in sd.items():
+        prefix = k.rsplit(".", 1)[0]
+        if prefix in bn_prefixes:
+            if k.endswith(".scale"):
+                bn = unfold_bn_exact(_to_numpy(v), _to_numpy(sd[f"{prefix}.bias"]))
+                out.update({f"{prefix}.{n}": torch.from_numpy(np.array(t)) for n, t in bn.items()})
+            continue
+        out[k] = v.detach().cpu().clone().contiguous()
+    return out
 
 
 def load_reference_state_dict(model: torch.nn.Module, sd: Mapping[str, Any]):

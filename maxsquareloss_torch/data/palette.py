@@ -2,7 +2,7 @@
 
 The port's own copy of ``maxsquareloss_tpu/data/palette.py`` (host-side
 numpy, same values): ``LABEL_COLOURS``, the caffe ``IMG_MEAN`` and the
-torchvision ``IMAGENET_MEAN/STD``, and ``decode_labels``.
+torchvision ``IMAGENET_MEAN/STD``, ``decode_labels`` and ``inv_preprocess``.
 """
 
 from __future__ import annotations
@@ -53,3 +53,20 @@ def decode_labels(mask: np.ndarray, num_images: int | None = None) -> np.ndarray
         palette[i] = c
     idx = np.where((mask >= 0) & (mask < len(LABEL_COLOURS)), mask, 255)
     return palette[idx.astype(np.int64) & 0xFF]
+
+
+def inv_preprocess(
+    imgs: np.ndarray,
+    num_images: int | None = None,
+    numpy_transform: bool = True,
+) -> np.ndarray:
+    """Invert the input normalization for previews → (N, H, W, 3) float RGB
+    in [0, 1]: the caffe path (BGR − IMG_MEAN) or the torchvision one."""
+    if num_images is not None:
+        imgs = imgs[:num_images]
+    imgs = np.asarray(imgs, dtype=np.float32)
+    if numpy_transform:
+        bgr = imgs + IMG_MEAN
+        rgb = bgr[..., ::-1]
+        return np.clip(rgb / 255.0, 0.0, 1.0)
+    return np.clip(imgs * IMAGENET_STD + IMAGENET_MEAN, 0.0, 1.0)

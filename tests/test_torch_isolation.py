@@ -62,9 +62,10 @@ def test_cuda_tensor_never_takes_the_plain_path():
     assert 'if x.device.type == "cpu":\n        return fused_bottleneck_reference(' in body
 
 
-@pytest.mark.parametrize("module", ["kernels/fused_loss.py", "kernels/build.py"])
+@pytest.mark.parametrize("module", ["kernels/fused_loss.py", "kernels/build.py",
+                                    "kernels/matmul_probe.py"])
 def test_new_kernel_modules_swallow_no_error(module):
-    """No try/except in the loss kernel module or the build helper."""
+    """No try/except in the kernel modules or the build helper."""
     tree = ast.parse((ROOT / "maxsquareloss_torch" / module).read_text())
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
 
@@ -84,6 +85,7 @@ def _function_source(module: str, name: str) -> str:
          "fused_iw_max_square_loss_reference", "logits"),
         ("kernels/fused_loss.py", "fused_max_square_loss", "fused_max_square_loss_reference",
          "logits"),
+        ("kernels/matmul_probe.py", "matmul_chain", "matmul_chain_plain", "x"),
     ],
 )
 def test_new_wrappers_take_the_plain_path_on_cpu_tensors_only(module, wrapper, plain, tensor):
@@ -93,6 +95,17 @@ def test_new_wrappers_take_the_plain_path_on_cpu_tensors_only(module, wrapper, p
     assert body.count(f"{plain}(") == 1
     assert f'if {tensor}.device.type == "cpu":\n        return {plain}(' in body
     assert f'if {tensor}.device.type != "cuda":\n        raise ValueError(' in body
+
+
+def test_training_path_imports_without_pil():
+    """The trainers, the CLIs and chip_smoke.py import with PIL missing: a
+    trainer over in-memory data needs no image library."""
+    code = ("import sys; sys.modules['PIL'] = None; "
+            "import maxsquareloss_torch.tools.solve_gta5, maxsquareloss_torch.tools.train_source, "
+            "maxsquareloss_torch.experiments.bench_matmul, chip_smoke")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
 
 
 def _run_chip_smoke(cwd: Path):
