@@ -289,6 +289,18 @@ def _block_inputs(gen, n, h, w, cin, cmid):
     return (x, w1, w2, w3, *bn)
 
 
+def _tile_report(n, h, w, cin, cmid, d) -> dict:
+    """The planner's tile for one shape: its fields, the shared memory with
+    the weight and x stages, the FLOP per byte of L2 weight traffic (a block
+    reads every weight once per output row of its strip) and the threads
+    that own pixels in each conv."""
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = fused_block.plan_tiles(n, h, w, cin, cmid, d, sm_count)
+    return {"tile": plan._asdict(), "smem_bytes_with_stages": plan.smem,
+            "flop_per_l2_weight_byte": plan.flop_per_l2_weight_byte,
+            "busy_threads": plan.busy_threads(cmid, d)}
+
+
 def _hold_block(gen, name, n, h, w, cin, cmid, d) -> tuple[tuple, dict]:
     """One shape's inputs, and the kernel's errors against the plain version."""
     args = _block_inputs(gen, n, h, w, cin, cmid)
@@ -300,10 +312,9 @@ def _hold_block(gen, name, n, h, w, cin, cmid, d) -> tuple[tuple, dict]:
     max_abs = err.max().item()
     check(bool(torch.isfinite(got).all()), f"{name}: non-finite kernel output")
     check(worst <= 1.0, f"{name}: kernel vs plain {max_abs:.3g} abs, {worst:.3g}x the tolerance")
-    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     return args, {
         "layer": name, "shape": [n, h, w, cin], "cmid": cmid, "dilation": d,
-        "tile": list(fused_block.plan_tiles(n, h, w, cmid, d, sm_count)),
+        **_tile_report(n, h, w, cin, cmid, d),
         "max_abs_err": max_abs,
         "max_rel_err": (err / want.abs().clamp_min(ATOL)).max().item(),
         "max_abs_ref": want.abs().max().item(),
@@ -328,6 +339,10 @@ def phase_kernels() -> tuple[set, dict]:
     for name, n, h, w, cin, cmid, d, per_fwd in BLOCK_SHAPES:
         args, row = _hold_block(gen, name, n, h, w, cin, cmid, d)
         checked.add((n, h, w, cin, cmid, d))
+        if name == "layer3":  # no atomics: a second call gives the same bits
+            check(torch.equal(fused_bottleneck(*args, d), fused_bottleneck(*args, d)),
+                  f"{name}: two calls differ (not bitwise deterministic)")
+            row["bitwise_repeatable"] = True
         reps = 5
 
         def kernel():
@@ -653,20 +668,23 @@ def phase_train_block() -> tuple[set, dict]:
     shapes and the kernels-line entry (times per train step)."""
     gen = torch.Generator().manual_seed(2)
     checked, rows = set(), []
-    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     for name, n, h, w, cin, cmid, d, per_fwd in TRAIN_SHAPES:
         args = _block_inputs(gen, n, h, w, cin, cmid)
         got = fused_bottleneck_emit(*args, d)
         want = fused_bottleneck_emit_reference(*args, d)
         torch.cuda.synchronize()
         row = {"layer": name, "shape": [n, h, w, cin], "cmid": cmid, "dilation": d,
-               "tile": list(fused_block.plan_tiles(n, h, w, cmid, d, sm_count))}
+               **_tile_report(n, h, w, cin, cmid, d)}
         for label, a, b in zip(("out", "h1", "h2"), got, want):
             check(bool(torch.isfinite(a).all()), f"emit {name}: non-finite {label}")
             max_abs, worst = _worst(a, b)
             check(worst <= 1.0, f"emit {name} {label}: {max_abs:.3g} abs, {worst:.3g}x the tolerance")
             row[f"{label}_max_abs_err"], row[f"{label}_worst_over_tol"] = max_abs, worst
         checked.add((n, h, w, cin, cmid, d))
+        if name == "layer3":  # no atomics: a second call gives the same bits
+            check(all(torch.equal(a, b) for a, b in zip(got, fused_bottleneck_emit(*args, d))),
+                  f"emit {name}: two calls differ (not bitwise deterministic)")
+            row["bitwise_repeatable"] = True
         del got, want
 
         def kernel():

@@ -15,15 +15,23 @@
 // block that owns its output pixel, never from the column halo or from the
 // extra h1 rows a segment recomputes (see Emit below).
 //
-// What bounds it. Per output pixel the block does
-//   2 * (2*Cin*Cmid + 9*Cmid^2) FLOP
-// against 8*Cin bytes of x read and out written: layer3 (Cin 1024, Cmid 256,
-// d 2) is 2.23 MFLOP per 8 KB, 272 FLOP/B; layer1 (256/64) 68 FLOP/B. The
-// fp32 CUDA-core ridge of an H100 is 67 TFLOP/s / 3.35 TB/s = 20 FLOP/B, so
-// every layer is compute-bound. The weights (w2 alone is 9.4 MB at layer4)
-// stay in L2 and are streamed from there.
+// What bounds it. Against device memory every layer is compute-bound: per
+// output pixel 2 * (2*Cin*Cmid + 9*Cmid^2) FLOP for 8*Cin bytes of x read
+// and out written (layer3, Cin 1024, Cmid 256: 272 FLOP/B; the fp32 ridge of
+// an H100 is 67 TFLOP/s / 3.35 TB/s = 20 FLOP/B). The traffic that counts is
+// the weights': they stay in L2 (w2 alone is 9.4 MB at layer4) and a block
+// streams all of w1, w2 and w3 from there once per output row of its strip,
+// so one pass over 4 * (2*Cin*Cmid + 9*Cmid^2) bytes serves TW pixels:
+// TW / 2 FLOP per byte of L2 traffic. With the tiles below that is 32 FLOP/B
+// at layers 1-2 (TW 64), 24-28 at layer3 (TW 48 or 56, whichever wastes less
+// of the width) and 12 at layer4 (TW 24, pinned by its 3 x 32 x 2 KB h1
+// ring). Measured on an H100 (PERF.md): layer3 runs at about 30 TFLOP/s of
+// issued work, drawing 1.2 TB/s from L2, and is bound by operations (the FMA
+// issue rate and the shared-memory reads that feed it); layer4 at about 25,
+// drawing 2 TB/s, is bound by L2 weight traffic (the same inner loop on a
+// resident tile of 16 rows reads 3.1 TB/s and stops at 25 TFLOP/s).
 //
-// Design (simple and exact; wgmma, TMA and bf16 are later work):
+// Design:
 // - A block owns a strip of TW output columns and walks down a chain of
 //   output rows r, r+d, r+2d, ... (one residue class of the rows mod d, cut
 //   into segments of RS rows). conv2 of row r reads h1 rows r-d, r, r+d, so
@@ -31,25 +39,42 @@
 //   three h1 rows in shared memory takes one new conv1 row per output row.
 //   conv1 is recomputed only on the column halo, (TW+2d)/TW, and on two
 //   extra rows at the start of each segment.
-// - h1 (3 x (TW+2d) x Cmid) and h2 (TW x Cmid) live in dynamic shared
-//   memory. h1 is written as exact zeros outside the image: conv2's zero
-//   padding applies to h1, not to x (relu(b1) != 0 at a padded pixel).
-// - Each of the three stages is a small product on the CUDA cores: a thread
-//   owns an 8-pixel x 4-channel register tile and accumulates in fp32 FMA,
-//   weights stream from L2 as float4 (coalesced over output channels), and
-//   the activation operand is a broadcast float4 read (every lane of a warp
-//   reads the same pixel).
-// - Tiles (chosen by kernels/fused_block.py plan_tiles): TW up to
-//   min(64, 8192/Cmid) columns, balanced over the width; layer4 (Cmid 512,
-//   d 4) takes TW 16: 3*24*2 KB of h1 + 16*2 KB of h2 = 176 KB, above the
-//   48 KB default, so the launch sets MaxDynamicSharedMemorySize first.
-// - The products are latency-bound at this tile: a warp waits on its loads
-//   between bursts of FMAs, so resident warps matter. Blocks that leave room
-//   for two per SM (layers 1-2) take 256 threads, blocks that fill an SM's
-//   shared memory alone (layers 3-4) take 512: 16 warps per SM either way
-//   (on an H100, 512 threads ran layers 3-4 29-31 % faster; PERF.md).
-// - Ragged edges are masked on load and store; a conv1 tile wholly past the
-//   right edge writes zeros without computing.
+// - h1 (3 x (TW+2d) x Cmid) lives in dynamic shared memory, written as exact
+//   zeros outside the image: conv2's zero padding applies to h1, not to x
+//   (relu(b1) != 0 at a padded pixel). h2 (TW x Cmid) needs no room of its
+//   own: conv2 of row j is the last reader of h1 row j-1, so after a barrier
+//   its epilogue writes h2 into that ring slot, where conv3 reads it before
+//   the next trip's conv1 refills the slot. That room buys wider strips: TW
+//   56 at layer3 and 24 at layer4.
+// - Each of the three convs is a product [pixels x K] x [K x channels] with
+//   both operands in shared memory. The weights (w1; w2 as a (9*Cmid, Cmid)
+//   matrix, tap by tap; w3 in passes of BN3 columns) stream from L2 in
+//   stages of kBK = 8 k-rows by BN columns, double buffered with cp.async:
+//   wait for stage i, one barrier, start the copy of stage i+1, multiply
+//   stage i. Each weight byte crosses L2 -> SM once per block and row.
+//   conv1's x operand comes the same way: the row's TW+2d pixels by 8
+//   channels per stage, 32 contiguous bytes a pixel, zero filled outside the
+//   image. conv2 reads the ring, conv3 reads h2.
+// - A thread owns a register tile of PX pixels x 8 channels (two float4s,
+//   BN/2 columns apart), fp32 FMA on the CUDA cores, the k loop unrolled
+//   over a whole stage. The BN/8 threads of one pixel tile read the same
+//   activations (a broadcast float4) and consecutive weight columns (a
+//   quarter warp on 128 contiguous bytes: no bank conflict, so the stage rows
+//   need no padding). Where a warp spans several pixel tiles (Cmid < 256) the
+//   h1/h2 pixel stride is padded by 4 floats.
+// - Every thread has a tile in every conv: threads = T pixel tiles x BN/8
+//   channel groups exactly, with PX = ceil(pixels / T) chosen per conv by
+//   kernels/fused_block.py plan_tiles (which owns the shared-memory budget:
+//   at most 232,448 B with the stages). Layer3: 256 threads, TW 48 with
+//   tiles of 7, 6 and 6 pixels or TW 56 with 8, 7 and 7; layer4: 256 threads,
+//   BN 512, TW 24 with tiles of 8, 6 and 6 pixels, so all 8 warps work in
+//   conv2 (the 3x3 is 53 % of the FLOPs); layer2: 256 threads, 5, 4 and 8
+//   pixels; layer1: 128 threads, 5, 4 and 8. Only conv1 at layers 1-2, whose
+//   TW + 2 pixels are no whole number of tiles, leaves up to a fifth of the
+//   threads without pixels. The 8-pixel instances take about 200 registers a
+//   thread, so an SM holds 256 threads: 8 warps.
+// - Ragged edges are masked on load and store; a tile wholly past the right
+//   edge skips its arithmetic but keeps copying and meeting the barriers.
 // - Emit (a template flag, so the eval kernel is unchanged): a block owns
 //   the output pixels of its strip [col0, col0+TW) on the rows of its
 //   segment. h2 goes to device memory from registers where conv2 makes it,
@@ -57,19 +82,28 @@
 //   slot holds it (between the two barriers of row j), from the slot's
 //   columns [d, d+TW), which are the strip itself: the halo columns and
 //   the rows j0-1 and j0+RS that a segment computes only as conv2's
-//   neighbours are never written.
+//   neighbours are never written. No atomics: two calls give the same bits.
+// - Left for later: more pixels per weight pass at layer4 (thread block
+//   clusters with multicast weight stages) and the tensor cores. Split-TF32
+//   mma.sync (three products) was measured at this structure: 1.17x the FMA
+//   loop at layer3's widths, 0.94x at layer4's, with 9-12x the error
+//   (PERF.md), so it needs wgmma and the wider tiles first.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kPx = 8;  // pixels per thread tile (4 channels each)
+constexpr int kBK = 8;         // k rows per weight stage, channels per x stage
+constexpr int kXLd = kBK + 4;  // floats between two pixels of an x stage
+constexpr int kMaxThreads = 256;
+constexpr int kCh = 8;         // channels per thread tile
 
 struct Args {
   const float* x;
   const float* w1;  // (Cin, Cmid)
-  const float* w2;  // (3, 3, Cmid, Cmid), HWIO
+  const float* w2;  // (3, 3, Cmid, Cmid), HWIO: a (9*Cmid, Cmid) matrix
   const float* w3;  // (Cmid, Cin)
   const float* s1;
   const float* b1;
@@ -81,186 +115,321 @@ struct Args {
   float* h1;  // (N, H, W, Cmid) with emit, else null
   float* h2;  // (N, H, W, Cmid) with emit, else null
   int N, H, W, Cin, Cmid, d, TW, RS, S;
+  // from plan_tiles: conv3's columns per pass, the pixels per thread tile of
+  // each conv, the pixel stride of h1/h2, the floats of one weight stage
+  // buffer and the pixels of one x stage buffer
+  int bn3, px1, px2, px3, ldh, wstage, xs_px;
 };
 
 __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; with ok false the 16 bytes are zero filled and
+// src is not read.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok = true) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 __device__ __forceinline__ int ring_slot(int j) { return (j + 3) % 3; }
 
-// acc[p][c] += sum_k A(p, k) * b[k * ldb + c] for c < 4, k < K, where
-// A(p, k) is a0[p * lda + k] when arow is null, else arow[p][k].
-__device__ __forceinline__ void tile_mac(float (&acc)[kPx][4], const float* a0,
-                                         int lda, const float* const* arow,
-                                         const float* __restrict__ b, int ldb,
-                                         int K) {
-#pragma unroll 1
-  for (int k = 0; k < K; k += 4) {
-    const float4 w0 = ldg4(b + (size_t)(k + 0) * ldb);
-    const float4 w1 = ldg4(b + (size_t)(k + 1) * ldb);
-    const float4 w2 = ldg4(b + (size_t)(k + 2) * ldb);
-    const float4 w3 = ldg4(b + (size_t)(k + 3) * ldb);
+// Start the copy of the weight stage W[k0 : k0+kBK, n0 : n0+bn) (row-major,
+// ld = ldw) into ws (dense, ld = bn). blockDim.x is a multiple of bn / 4.
+__device__ __forceinline__ void stage_weights(float* ws, const float* __restrict__ w,
+                                              int ldw, int n0, int k0, int bn) {
+  const int per_row = bn >> 2;
+  const int col = (threadIdx.x % per_row) << 2;
+  const int step = blockDim.x / per_row;
+  for (int r = threadIdx.x / per_row; r < kBK; r += step)
+    cp_async16(ws + r * bn + col, w + (size_t)(k0 + r) * ldw + n0 + col);
+}
+
+// acc[p][c] += sum over the stage's kBK k of A(p, k) * W(k, c): A(p, k) at
+// ap[p * lda + k] (the same address for every thread of a pixel tile), W at
+// wp[k * bn + c] for c < 4 and wp[k * bn + bn/2 + c - 4] for c >= 4.
+template <int PX>
+__device__ __forceinline__ void mac_stage(float (&acc)[PX][kCh], const float* ap, int lda,
+                                          const float* wp, int bn) {
+  const int half = bn >> 1;
 #pragma unroll
-    for (int p = 0; p < kPx; ++p) {
-      const float* ap = arow ? arow[p] : a0 + (size_t)p * lda;
-      const float4 a = *reinterpret_cast<const float4*>(ap + k);
-      acc[p][0] = fmaf(a.x, w0.x, acc[p][0]);
-      acc[p][1] = fmaf(a.x, w0.y, acc[p][1]);
-      acc[p][2] = fmaf(a.x, w0.z, acc[p][2]);
-      acc[p][3] = fmaf(a.x, w0.w, acc[p][3]);
-      acc[p][0] = fmaf(a.y, w1.x, acc[p][0]);
-      acc[p][1] = fmaf(a.y, w1.y, acc[p][1]);
-      acc[p][2] = fmaf(a.y, w1.z, acc[p][2]);
-      acc[p][3] = fmaf(a.y, w1.w, acc[p][3]);
-      acc[p][0] = fmaf(a.z, w2.x, acc[p][0]);
-      acc[p][1] = fmaf(a.z, w2.y, acc[p][1]);
-      acc[p][2] = fmaf(a.z, w2.z, acc[p][2]);
-      acc[p][3] = fmaf(a.z, w2.w, acc[p][3]);
-      acc[p][0] = fmaf(a.w, w3.x, acc[p][0]);
-      acc[p][1] = fmaf(a.w, w3.y, acc[p][1]);
-      acc[p][2] = fmaf(a.w, w3.z, acc[p][2]);
-      acc[p][3] = fmaf(a.w, w3.w, acc[p][3]);
+  for (int kk = 0; kk < kBK; kk += 4) {
+    float4 av[PX];
+#pragma unroll
+    for (int p = 0; p < PX; ++p) av[p] = lds4(ap + p * lda + kk);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 b0 = lds4(wp + (kk + j) * bn);
+      const float4 b1 = lds4(wp + (kk + j) * bn + half);
+#pragma unroll
+      for (int p = 0; p < PX; ++p) {
+        const float v = j == 0 ? av[p].x : j == 1 ? av[p].y : j == 2 ? av[p].z : av[p].w;
+        acc[p][0] = fmaf(v, b0.x, acc[p][0]);
+        acc[p][1] = fmaf(v, b0.y, acc[p][1]);
+        acc[p][2] = fmaf(v, b0.z, acc[p][2]);
+        acc[p][3] = fmaf(v, b0.w, acc[p][3]);
+        acc[p][4] = fmaf(v, b1.x, acc[p][4]);
+        acc[p][5] = fmaf(v, b1.y, acc[p][5]);
+        acc[p][6] = fmaf(v, b1.z, acc[p][6]);
+        acc[p][7] = fmaf(v, b1.w, acc[p][7]);
+      }
     }
   }
 }
 
-__device__ __forceinline__ float4 bn_relu(const float (&v)[4], float4 s,
-                                          float4 b) {
+template <int PX>
+__device__ __forceinline__ void clear(float (&acc)[PX][kCh]) {
+#pragma unroll
+  for (int p = 0; p < PX; ++p)
+#pragma unroll
+    for (int c = 0; c < kCh; ++c) acc[p][c] = 0.f;
+}
+
+__device__ __forceinline__ float4 bn_relu(const float* v, float4 s, float4 b) {
   return make_float4(fmaxf(v[0] * s.x + b.x, 0.f), fmaxf(v[1] * s.y + b.y, 0.f),
                      fmaxf(v[2] * s.z + b.z, 0.f), fmaxf(v[3] * s.w + b.w, 0.f));
 }
 
 // h1 for image row r at columns [col0 - d, col0 + TW + d) into one ring slot;
-// exact zeros at pixels outside the image.
-template <int NT>
-__device__ void conv1_row(const Args& a, float* slot, int n, int r, int col0) {
+// exact zeros at pixels outside the image. One pass over w1: BN = Cmid.
+template <int PX>
+__device__ __forceinline__ void conv1_row(const Args& a, float* slot, float* wst, float* xst, int n, int r,
+                          int col0) {
   const int P1 = a.TW + 2 * a.d;
-  const int nq = a.Cmid / 4;
-  const int items = nq * ((P1 + kPx - 1) / kPx);
-  const bool row_ok = r >= 0 && r < a.H;
-  for (int item = threadIdx.x; item < items; item += NT) {
-    const int q = item % nq;
-    const int t = item / nq;
-    const float* arow[kPx];
-    bool ok[kPx];
-#pragma unroll
-    for (int p = 0; p < kPx; ++p) {
-      const int col = col0 - a.d + t * kPx + p;
-      ok[p] = row_ok && t * kPx + p < P1 && col >= 0 && col < a.W;
-      const int rc = min(max(r, 0), a.H - 1);
-      const int cc = min(max(col, 0), a.W - 1);
-      arow[p] = a.x + ((size_t)(n * a.H + rc) * a.W + cc) * a.Cin;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  if (r < 0 || r >= a.H) {  // the same for the whole block
+    const int nq = a.Cmid >> 2;
+    for (int i = tid; i < P1 * nq; i += nt)
+      *reinterpret_cast<float4*>(slot + (i / nq) * a.ldh + (i % nq) * 4) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+    return;
+  }
+  const int bn = a.Cmid;
+  const int groups = bn / kCh;
+  const int q = tid % groups, c0 = (tid / groups) * PX;  // first pixel of the tile
+  const int colf = col0 - a.d + c0;                        // its image column
+  const bool active = c0 < P1 && colf < a.W && colf + PX > 0;
+  const float* xrow = a.x + (size_t)(n * a.H + r) * a.W * a.Cin;
+  const int xlen = a.xs_px * kXLd;
+
+  auto issue = [&](int i) {
+    const int k0 = i * kBK;
+    stage_weights(wst + (i & 1) * a.wstage, a.w1, a.Cmid, 0, k0, bn);
+    float* xs = xst + (i & 1) * xlen;
+    for (int j = tid; j < P1 * (kBK / 4); j += nt) {
+      const int pix = j / (kBK / 4), part = (j % (kBK / 4)) * 4;
+      const int col = col0 - a.d + pix;
+      const bool ok = col >= 0 && col < a.W;
+      cp_async16(xs + pix * kXLd + part,
+                 xrow + (size_t)(ok ? col : 0) * a.Cin + k0 + part, ok);
     }
-    float acc[kPx][4] = {};
-    if (row_ok && col0 - a.d + t * kPx < a.W)  // not a tile wholly past the edge
-      tile_mac(acc, nullptr, 0, arow, a.w1 + q * 4, a.Cmid, a.Cin);
-    const float4 s = ldg4(a.s1 + q * 4);
-    const float4 b = ldg4(a.b1 + q * 4);
+    cp_async_commit();
+  };
+
+  float acc[PX][kCh];
+  clear<PX>(acc);
+  const int stages = a.Cin / kBK;
+  __syncthreads();  // the stage buffers' last readers are done
+  issue(0);
+  for (int i = 0; i < stages; ++i) {
+    cp_async_wait_all();  // stage i has landed (this thread's copies)
+    __syncthreads();      // ... and everyone's; stage i-1 is read
+    if (i + 1 < stages) issue(i + 1);
+    if (active)
+      mac_stage<PX>(acc, xst + (i & 1) * xlen + c0 * kXLd, kXLd,
+                    wst + (i & 1) * a.wstage + q * 4, bn);
+  }
 #pragma unroll
-    for (int p = 0; p < kPx; ++p) {
-      const int c = t * kPx + p;
-      if (c < P1) {
-        *reinterpret_cast<float4*>(slot + (size_t)c * a.Cmid + q * 4) =
-            ok[p] ? bn_relu(acc[p], s, b) : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
+  for (int hf = 0; hf < 2; ++hf) {
+    const int ch = hf * (bn >> 1) + q * 4;
+    const float4 s = ldg4(a.s1 + ch);
+    const float4 b = ldg4(a.b1 + ch);
+#pragma unroll
+    for (int p = 0; p < PX; ++p) {
+      const int c = c0 + p;
+      const int col = col0 - a.d + c;
+      if (c < P1)
+        *reinterpret_cast<float4*>(slot + c * a.ldh + ch) =
+            (col >= 0 && col < a.W) ? bn_relu(&acc[p][hf * 4], s, b)
+                                    : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
 }
 
 // h2 for output row j of the chain (h1 rows j-1, j, j+1 in the ring); with
-// Emit also into device memory at image row r.
-template <int NT, bool Emit>
-__device__ void conv2_row(const Args& a, const float* h1, float* h2, int j,
+// Emit also into device memory at image row r. One pass over w2: BN = Cmid,
+// K = 9 * Cmid tap by tap; TW = pixel tiles x PX exactly.
+template <int PX, bool Emit>
+__device__ __forceinline__ void conv2_row(const Args& a, const float* h1, float* h2, float* wst, int j,
                           int n, int r, int col0) {
   const int P1 = a.TW + 2 * a.d;
-  const int nq = a.Cmid / 4;
-  const int items = nq * (a.TW / kPx);
-  for (int item = threadIdx.x; item < items; item += NT) {
-    const int q = item % nq;
-    const int t = item / nq;
-    if (col0 + t * kPx >= a.W) continue;  // whole tile past the image edge
-    float acc[kPx][4] = {};
-#pragma unroll 1
-    for (int ra = 0; ra < 3; ++ra) {
-      const float* slot = h1 + (size_t)ring_slot(j - 1 + ra) * P1 * a.Cmid;
-#pragma unroll 1
-      for (int cb = 0; cb < 3; ++cb) {
-        tile_mac(acc, slot + (size_t)(t * kPx + cb * a.d) * a.Cmid, a.Cmid,
-                 nullptr, a.w2 + (size_t)(ra * 3 + cb) * a.Cmid * a.Cmid + q * 4,
-                 a.Cmid, a.Cmid);
-      }
+  const int tid = threadIdx.x;
+  const int bn = a.Cmid;
+  const int groups = bn / kCh;
+  const int q = tid % groups, c0 = (tid / groups) * PX;
+  const bool active = col0 + c0 < a.W;
+  const int slot_len = P1 * a.ldh;
+
+  float acc[PX][kCh];
+  clear<PX>(acc);
+  const int stages = 9 * a.Cmid / kBK;
+  __syncthreads();
+  stage_weights(wst, a.w2, a.Cmid, 0, 0, bn);
+  cp_async_commit();
+  int tap = 0, kc = 0;  // stage i covers channels [kc, kc + kBK) of tap
+  for (int i = 0; i < stages; ++i) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (i + 1 < stages) {
+      stage_weights(wst + ((i + 1) & 1) * a.wstage, a.w2, a.Cmid, 0, (i + 1) * kBK, bn);
+      cp_async_commit();
     }
-    const float4 s = ldg4(a.s2 + q * 4);
-    const float4 b = ldg4(a.b2 + q * 4);
+    if (active) {
+      const int ra = tap / 3, cb = tap - 3 * ra;
+      const float* ap = h1 + ring_slot(j - 1 + ra) * slot_len + (c0 + cb * a.d) * a.ldh + kc;
+      mac_stage<PX>(acc, ap, a.ldh, wst + (i & 1) * a.wstage + q * 4, bn);
+    }
+    kc += kBK;
+    if (kc == a.Cmid) {
+      kc = 0;
+      ++tap;
+    }
+  }
+  __syncthreads();  // h2 takes the place of h1 row j-1: its last readers are done
 #pragma unroll
-    for (int p = 0; p < kPx; ++p) {
-      const float4 y = bn_relu(acc[p], s, b);
-      *reinterpret_cast<float4*>(h2 + (size_t)(t * kPx + p) * a.Cmid + q * 4) = y;
-      const int col = col0 + t * kPx + p;
+  for (int hf = 0; hf < 2; ++hf) {
+    const int ch = hf * (bn >> 1) + q * 4;
+    const float4 s = ldg4(a.s2 + ch);
+    const float4 b = ldg4(a.b2 + ch);
+#pragma unroll
+    for (int p = 0; p < PX; ++p) {
+      const float4 y = bn_relu(&acc[p][hf * 4], s, b);
+      *reinterpret_cast<float4*>(h2 + (c0 + p) * a.ldh + ch) = y;
+      const int col = col0 + c0 + p;
       if (Emit && col < a.W)
         *reinterpret_cast<float4*>(
-            a.h2 + ((size_t)(n * a.H + r) * a.W + col) * a.Cmid + q * 4) = y;
+            a.h2 + ((size_t)(n * a.H + r) * a.W + col) * a.Cmid + ch) = y;
     }
   }
 }
 
 // With Emit: h1 of image row r, the strip's own columns of its ring slot.
-template <int NT>
-__device__ void store_h1_row(const Args& a, const float* slot, int n, int r,
-                             int col0) {
+__device__ void store_h1_row(const Args& a, const float* slot, int n, int r, int col0) {
   const int nq = a.Cmid / 4;
   const int items = nq * a.TW;
-  for (int item = threadIdx.x; item < items; item += NT) {
+  for (int item = threadIdx.x; item < items; item += blockDim.x) {
     const int q = item % nq;
     const int c = item / nq;
     const int col = col0 + c;
     if (col < a.W)
       *reinterpret_cast<float4*>(
           a.h1 + ((size_t)(n * a.H + r) * a.W + col) * a.Cmid + q * 4) =
-          *reinterpret_cast<const float4*>(slot + (size_t)(c + a.d) * a.Cmid + q * 4);
+          lds4(slot + (c + a.d) * a.ldh + q * 4);
   }
 }
 
-// out row r = relu(bn3(conv3 h2) + x).
-template <int NT>
-__device__ void conv3_row(const Args& a, const float* h2, int n, int r,
+// out row r = relu(bn3(conv3 h2) + x), in Cin / bn3 passes over the columns
+// of w3; the stages of all passes form one pipeline.
+template <int PX>
+__device__ __forceinline__ void conv3_row(const Args& a, const float* h2, float* wst, int n, int r,
                           int col0) {
-  const int nq = a.Cin / 4;
-  const int items = nq * (a.TW / kPx);
-  for (int item = threadIdx.x; item < items; item += NT) {
-    const int q = item % nq;
-    const int t = item / nq;
-    if (col0 + t * kPx >= a.W) continue;
-    float acc[kPx][4] = {};
-    tile_mac(acc, h2 + (size_t)t * kPx * a.Cmid, a.Cmid, nullptr, a.w3 + q * 4,
-             a.Cin, a.Cmid);
-    const float4 s = ldg4(a.s3 + q * 4);
-    const float4 b = ldg4(a.b3 + q * 4);
+  const int tid = threadIdx.x;
+  const int bn = a.bn3;
+  const int groups = bn / kCh;
+  const int q = tid % groups, c0 = (tid / groups) * PX;
+  const bool active = col0 + c0 < a.W;
+  const int per_pass = a.Cmid / kBK;
+  const int stages = (a.Cin / bn) * per_pass;
+
+  float acc[PX][kCh];
+  clear<PX>(acc);
+  __syncthreads();
+  stage_weights(wst, a.w3, a.Cin, 0, 0, bn);
+  cp_async_commit();
+  int n0 = 0, ks = 0;  // stage i: columns [n0, n0 + bn), k rows [ks*kBK, ..)
+  for (int i = 0; i < stages; ++i) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (i + 1 < stages) {
+      const bool wrap = ks + 1 == per_pass;
+      stage_weights(wst + ((i + 1) & 1) * a.wstage, a.w3, a.Cin, wrap ? n0 + bn : n0,
+                    wrap ? 0 : (ks + 1) * kBK, bn);
+      cp_async_commit();
+    }
+    if (active)
+      mac_stage<PX>(acc, h2 + c0 * a.ldh + ks * kBK, a.ldh,
+                    wst + (i & 1) * a.wstage + q * 4, bn);
+    if (++ks == per_pass) {
+      if (active) {
 #pragma unroll
-    for (int p = 0; p < kPx; ++p) {
-      const int col = col0 + t * kPx + p;
-      if (col < a.W) {
-        const size_t o = ((size_t)(n * a.H + r) * a.W + col) * a.Cin + q * 4;
-        const float4 xr = ldg4(a.x + o);
-        float4 y;
-        y.x = fmaxf(acc[p][0] * s.x + b.x + xr.x, 0.f);
-        y.y = fmaxf(acc[p][1] * s.y + b.y + xr.y, 0.f);
-        y.z = fmaxf(acc[p][2] * s.z + b.z + xr.z, 0.f);
-        y.w = fmaxf(acc[p][3] * s.w + b.w + xr.w, 0.f);
-        *reinterpret_cast<float4*>(a.out + o) = y;
+        for (int hf = 0; hf < 2; ++hf) {
+          const int ch = n0 + hf * (bn >> 1) + q * 4;
+          const float4 s = ldg4(a.s3 + ch);
+          const float4 b = ldg4(a.b3 + ch);
+#pragma unroll
+          for (int p = 0; p < PX; ++p) {
+            const int col = col0 + c0 + p;
+            if (col < a.W) {
+              const size_t o = ((size_t)(n * a.H + r) * a.W + col) * a.Cin + ch;
+              const float4 xr = ldg4(a.x + o);
+              const float* v = &acc[p][hf * 4];
+              float4 y;
+              y.x = fmaxf(v[0] * s.x + b.x + xr.x, 0.f);
+              y.y = fmaxf(v[1] * s.y + b.y + xr.y, 0.f);
+              y.z = fmaxf(v[2] * s.z + b.z + xr.z, 0.f);
+              y.w = fmaxf(v[3] * s.w + b.w + xr.w, 0.f);
+              *reinterpret_cast<float4*>(a.out + o) = y;
+            }
+          }
+        }
       }
+      clear<PX>(acc);
+      ks = 0;
+      n0 += bn;
     }
   }
 }
 
+// The pixels per thread tile are compile-time (the accumulators are
+// registers): one instance per value, picked by the planner's px.
+#define DISPATCH_PX(px, CALL)  \
+  switch (px) {                \
+    case 1: { constexpr int PX = 1; CALL; } break; \
+    case 2: { constexpr int PX = 2; CALL; } break; \
+    case 3: { constexpr int PX = 3; CALL; } break; \
+    case 4: { constexpr int PX = 4; CALL; } break; \
+    case 5: { constexpr int PX = 5; CALL; } break; \
+    case 6: { constexpr int PX = 6; CALL; } break; \
+    case 7: { constexpr int PX = 7; CALL; } break; \
+    default: { constexpr int PX = 8; CALL; } break; \
+  }
+
 // grid: (column strips, N * d * S); block y = ((n * d) + residue) * S + segment.
-template <int NT, bool Emit>
-__global__ void __launch_bounds__(NT) fused_bottleneck_kernel(const Args a) {
+// shared: h1 ring (h2 in its oldest slot) | two weight stages | two x stages.
+template <bool Emit>
+__global__ void __launch_bounds__(kMaxThreads) fused_bottleneck_kernel(const Args a) {
   extern __shared__ float4 smem4[];
   float* h1 = reinterpret_cast<float*>(smem4);
   const int P1 = a.TW + 2 * a.d;
-  float* h2 = h1 + (size_t)3 * P1 * a.Cmid;
+  const int slot_len = P1 * a.ldh;
+  float* wst = h1 + 3 * slot_len;
+  float* xst = wst + 2 * a.wstage;
 
   const int col0 = blockIdx.x * a.TW;
   int chain = blockIdx.y;
@@ -271,43 +440,52 @@ __global__ void __launch_bounds__(NT) fused_bottleneck_kernel(const Args a) {
   const int j0 = seg * a.RS;
   if (res + a.d * j0 >= a.H) return;  // the whole block: no row of this segment
 
-  const size_t slot_len = (size_t)P1 * a.Cmid;
-  conv1_row<NT>(a, h1 + ring_slot(j0 - 1) * slot_len, n, res + a.d * (j0 - 1), col0);
-  conv1_row<NT>(a, h1 + ring_slot(j0) * slot_len, n, res + a.d * j0, col0);
-  for (int j = j0; j < j0 + a.RS; ++j) {
+  // rows j0-1 and j0 of the chain only fill the ring; from j0 on, every trip
+  // adds h1 row j+1 and finishes output row j
+  for (int j = j0 - 2; j < j0 + a.RS; ++j) {
     const int r = res + a.d * j;
-    if (r >= a.H) break;
-    conv1_row<NT>(a, h1 + ring_slot(j + 1) * slot_len, n, r + a.d, col0);
+    if (j >= j0 && r >= a.H) break;
+    DISPATCH_PX(a.px1, conv1_row<PX>(a, h1 + ring_slot(j + 1) * slot_len, wst, xst, n,
+                                     r + a.d, col0))
+    if (j < j0) continue;
     __syncthreads();
-    if (Emit) store_h1_row<NT>(a, h1 + ring_slot(j) * slot_len, n, r, col0);
-    conv2_row<NT, Emit>(a, h1, h2, j, n, r, col0);
+    if (Emit) store_h1_row(a, h1 + ring_slot(j) * slot_len, n, r, col0);
+    // conv2 of row j is the last reader of h1 row j-1, so h2 goes into that
+    // slot, where it stays until the next trip's conv1 refills it
+    float* h2 = h1 + ring_slot(j - 1) * slot_len;
+    DISPATCH_PX(a.px2, (conv2_row<PX, Emit>(a, h1, h2, wst, j, n, r, col0)))
     __syncthreads();
-    conv3_row<NT>(a, h2, n, r, col0);
+    DISPATCH_PX(a.px3, conv3_row<PX>(a, h2, wst, n, r, col0))
   }
 }
 
-template <int NT, bool Emit>
-cudaError_t launch(const Args& a, int smem_bytes, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(fused_bottleneck_kernel<NT, Emit>,
+template <bool Emit>
+cudaError_t launch(const Args& a, int threads, int smem_bytes, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(fused_bottleneck_kernel<Emit>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        smem_bytes);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.W + a.TW - 1) / a.TW, a.N * a.d * a.S);
-  fused_bottleneck_kernel<NT, Emit><<<grid, NT, smem_bytes, stream>>>(a);
+  fused_bottleneck_kernel<Emit><<<grid, threads, smem_bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
+bool px_ok(int px) { return px >= 1 && px <= 8; }
+
 }  // namespace
 
-// threads: 256 or 512 threads per block (the wrapper takes 512 where the
-// shared memory allows one block per SM, to keep 16 warps resident).
+// The tile arguments come from kernels/fused_block.py plan_tiles, which owns
+// their arithmetic: threads (128 or 256) = pixel tiles x Cmid/8 = pixel
+// tiles x bn3/8; TW = px2 x Cmid-tiles = px3 x bn3-tiles; px1 x tiles >=
+// TW + 2d; ldh >= Cmid; wstage >= 8 * max(Cmid, bn3) floats; xs_px >= TW + 2d.
 // h1, h2: both null (eval) or both (N, H, W, Cmid) outputs (training).
 extern "C" int msl_fused_bottleneck_f32(
     const void* x, const void* w1, const void* w2, const void* w3,
     const void* s1, const void* b1, const void* s2, const void* b2,
     const void* s3, const void* b3, void* out, void* h1, void* h2, int N,
     int H, int W, int Cin, int Cmid, int d, int TW, int RS, int S, int threads,
-    int smem_bytes, void* stream) {
+    int smem_bytes, int bn3, int px1, int px2, int px3, int ldh, int wstage,
+    int xs_px, void* stream) {
   Args a;
   a.x = static_cast<const float*>(x);
   a.w1 = static_cast<const float*>(w1);
@@ -332,15 +510,27 @@ extern "C" int msl_fused_bottleneck_f32(
   a.TW = TW;
   a.RS = RS;
   a.S = S;
+  a.bn3 = bn3;
+  a.px1 = px1;
+  a.px2 = px2;
+  a.px3 = px3;
+  a.ldh = ldh;
+  a.wstage = wstage;
+  a.xs_px = xs_px;
+  // the mapping the kernel relies on; a plan that breaks it is refused
+  if (threads != 128 && threads != 256) return (int)cudaErrorInvalidValue;
+  if (!px_ok(px1) || !px_ok(px2) || !px_ok(px3)) return (int)cudaErrorInvalidValue;
+  if (Cmid % 32 || Cin % 32 || bn3 % 32 || Cin % bn3) return (int)cudaErrorInvalidValue;
+  if (threads % (Cmid / 4) || threads % (bn3 / 4)) return (int)cudaErrorInvalidValue;
+  if (TW != px2 * (threads / (Cmid / 8)) || TW != px3 * (threads / (bn3 / 8)) ||
+      px1 * (threads / (Cmid / 8)) < TW + 2 * d)
+    return (int)cudaErrorInvalidValue;
+  if (ldh < Cmid || ldh % 4 || wstage < kBK * (Cmid > bn3 ? Cmid : bn3) ||
+      xs_px < TW + 2 * d)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool emit = h1 != nullptr;
-  if (threads == 256)
-    return (int)(emit ? launch<256, true>(a, smem_bytes, s)
-                      : launch<256, false>(a, smem_bytes, s));
-  if (threads == 512)
-    return (int)(emit ? launch<512, true>(a, smem_bytes, s)
-                      : launch<512, false>(a, smem_bytes, s));
-  return (int)cudaErrorInvalidValue;
+  return (int)(h1 != nullptr ? launch<true>(a, threads, smem_bytes, s)
+                             : launch<false>(a, threads, smem_bytes, s));
 }
 
 extern "C" const char* msl_cuda_error_string(int e) {

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -33,7 +34,10 @@ from maxsquareloss_torch.kernels.build import CSRC, load, raise_on_error
 
 SOURCE = CSRC / "fused_bottleneck.cu"
 
-PIXEL_TILE = 8         # pixels per thread tile (kPx in the .cu)
+K_STAGE = 8            # k rows per weight stage, channels per x stage (kBK in the .cu)
+X_STAGE_LD = K_STAGE + 4  # floats between two pixels of an x stage (kXLd)
+TILE_CHANNELS = 8      # channels per thread tile (kCh)
+MAX_PIXEL_TILE = 8     # most pixels per thread tile the kernel is built for
 SMEM_BLOCK_MAX = 232448  # bytes of shared memory one block may use on sm_90
 SMEM_SM = 233472         # bytes of shared memory per SM on sm_90
 BLOCK_SMEM_RESERVED = 1024  # bytes the runtime reserves per resident block
@@ -60,36 +64,123 @@ def fused_bottleneck_reference(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation):
         x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation)[0]
 
 
-def smem_bytes(tw: int, cmid: int, d: int) -> int:
-    """Shared memory of one block: 3 h1 rows of TW+2d pixels + TW h2 pixels."""
-    return 4 * cmid * (3 * (tw + 2 * d) + tw)
+class TilePlan(NamedTuple):
+    """One launch's tiles, as the kernel takes them (``plan_tiles``)."""
+
+    tw: int       # output columns per block
+    rs: int       # output rows per chain segment
+    segs: int     # segments per chain
+    threads: int  # threads per block
+    smem: int     # bytes of dynamic shared memory, stages included
+    bn3: int      # conv3's output columns per pass over h2
+    px1: int      # pixels per thread tile in conv1, conv2, conv3
+    px2: int
+    px3: int
+    ldh: int      # floats between two pixels of h1/h2 in shared memory
+    wstage: int   # floats of one weight stage buffer
+    xs_px: int    # pixels of one x stage buffer
+
+    @property
+    def flop_per_l2_weight_byte(self) -> float:
+        """A block reads every weight once from L2 per output row of tw
+        pixels: 2 FLOP per weight and pixel over 4 bytes per weight."""
+        return self.tw / 2.0
+
+    def busy_threads(self, cmid: int, d: int) -> dict[str, int]:
+        """Threads that own pixels in each conv (of ``threads``): a conv's
+        threads are pixel tiles x channel groups of 8, and every tile that
+        starts inside the conv's pixel row has work."""
+        tiles12 = self.threads // (cmid // TILE_CHANNELS)
+        tiles3 = self.threads // (self.bn3 // TILE_CHANNELS)
+        return {
+            "conv1": min(tiles12, math.ceil((self.tw + 2 * d) / self.px1)) * (self.threads // tiles12),
+            "conv2": min(tiles12, math.ceil(self.tw / self.px2)) * (self.threads // tiles12),
+            "conv3": min(tiles3, math.ceil(self.tw / self.px3)) * (self.threads // tiles3),
+        }
 
 
-def plan_tiles(n: int, h: int, w: int, cmid: int, d: int, sm_count: int):
-    """Tile choice for one launch → (TW, RS, S, threads, smem bytes).
+def block_threads(cmid: int) -> int:
+    """Threads per block: 256, or 128 where Cmid is 64 and 256 threads would
+    leave 2-pixel tiles."""
+    return 256 if cmid >= 128 else 128
 
-    TW: columns per block, a multiple of the 8-pixel thread tile, at most
-    min(64, 8192 / Cmid) and within the shared-memory limit, balanced over
-    the width so the ragged last strip wastes little. threads: 512 where
-    the shared memory leaves room for one block per SM, else 256, so that
-    16 warps stay resident either way (measured on an H100: PERF.md). RS: output
-    rows per chain segment, S: segments per chain (a chain is one residue
-    class of the rows mod d). S trades conv1 recompute (2 extra h1 rows per
-    segment) against filling the SMs: it minimises waves * (RS + 0.5).
+
+def _stage_layout(tw: int, cin: int, cmid: int, d: int):
+    """(bn3, px1, px2, px3, ldh, wstage, xs_px) for tw output columns a block,
+    or None where the thread mapping does not exist. A conv's threads are T
+    pixel tiles x BN/8 channel groups: conv1 and conv2 take BN = Cmid in one
+    pass (T = threads * 8 / Cmid), conv3 the widest BN3 that divides Cin and
+    tw evenly into tiles of at most 8 pixels."""
+    threads = block_threads(cmid)
+    tiles = threads * TILE_CHANNELS // cmid
+    px1 = math.ceil((tw + 2 * d) / tiles)
+    if tw % tiles or tw // tiles > MAX_PIXEL_TILE or px1 > MAX_PIXEL_TILE:
+        return None
+    for bn3 in (512, 256, 128, 64):
+        tiles3 = threads * TILE_CHANNELS // bn3
+        if (cin % bn3 == 0 and threads % (bn3 // 4) == 0 and tw % tiles3 == 0
+                and tw // tiles3 <= MAX_PIXEL_TILE):
+            break
+    else:
+        return None
+    # a warp that spans several pixel tiles reads several pixels at once:
+    # 4 floats of padding keep two neighbours off the same banks
+    ldh = cmid + (4 if cmid // TILE_CHANNELS < 32 else 0)
+    return (bn3, px1, tw // tiles, tw // tiles3, ldh, K_STAGE * max(cmid, bn3), tiles * px1)
+
+
+def smem_bytes(tw: int, cin: int, cmid: int, d: int) -> int:
+    """Shared memory of one block: 3 h1 rows of TW+2d pixels (pixel stride
+    ldh; h2 takes the oldest row's slot), two weight stages of 8 k-rows x
+    the widest BN, and two x stages of conv1's pixels x 8 channels (12 floats
+    a pixel)."""
+    bn3, _, _, _, ldh, wstage, xs_px = _stage_layout(tw, cin, cmid, d)
+    return 4 * (ldh * 3 * (tw + 2 * d) + 2 * wstage + 2 * xs_px * X_STAGE_LD)
+
+
+def plan_tiles(n: int, h: int, w: int, cin: int, cmid: int, d: int, sm_count: int) -> TilePlan:
+    """Tile choice for one launch: the single place for the kernel's
+    shared-memory and thread arithmetic.
+
+    threads: ``block_threads``. TW: columns per block, a multiple of the
+    block's pixel tiles T = threads * 8 / Cmid, at most 64, the largest whose
+    shared memory (``smem_bytes``, stages included) fits 232,448 B, then
+    balanced over the width so the ragged last strip wastes little. R101:
+    layers 1-2 TW up to 64, layer3 (Cmid 256, d 2) up to 56, layer4 (Cmid
+    512, d 4) 24, pinned there by its 3 x 32 x 2 KB ring. A block passes once over
+    all weights per output row, so the tile gives TW / 2 FLOP per byte of
+    L2 weight traffic. The pixels per thread tile (px1, px2, px3) make
+    every thread own a tile in every conv. RS: output rows per chain
+    segment, S: segments per chain (a chain is one residue class of the rows
+    mod d). S trades conv1 recompute (2 extra h1 rows per segment) against
+    filling the SMs: it minimises waves * (RS + 0.5).
     """
-    tw_max = max(PIXEL_TILE, min(64, 8192 // cmid))
-    while tw_max > PIXEL_TILE and smem_bytes(tw_max, cmid, d) > SMEM_BLOCK_MAX:
-        tw_max //= 2
-    ncols = math.ceil(w / tw_max)
-    tw = math.ceil(math.ceil(w / ncols) / PIXEL_TILE) * PIXEL_TILE
-    smem = smem_bytes(tw, cmid, d)
-    if smem > SMEM_BLOCK_MAX:
+    threads = block_threads(cmid)
+    if cmid not in (64, 128, 256, 512) or cin % 64:
         raise ValueError(
-            f"fused bottleneck: Cmid={cmid}, d={d} needs {smem} B of shared "
-            f"memory at the smallest tile; at most {SMEM_BLOCK_MAX} B fit"
+            f"fused bottleneck: the kernel takes Cmid 64, 128, 256 or 512 and "
+            f"Cin a multiple of 64, got Cmid={cmid}, Cin={cin}"
         )
-    per_sm = max(1, min(2, SMEM_SM // (smem + BLOCK_SMEM_RESERVED)))
-    threads = 512 if per_sm == 1 else 256
+    tiles = threads * TILE_CHANNELS // cmid
+
+    def fits(tw):
+        return (_stage_layout(tw, cin, cmid, d) is not None
+                and smem_bytes(tw, cin, cmid, d) <= SMEM_BLOCK_MAX)
+
+    tw_max = max((tw for tw in range(tiles, 65, tiles) if fits(tw)), default=None)
+    if tw_max is None:
+        raise ValueError(
+            f"fused bottleneck: Cin={cin}, Cmid={cmid}, d={d} fits no tile in "
+            f"{SMEM_BLOCK_MAX} B of shared memory"
+        )
+    ncols = math.ceil(w / tw_max)
+    tw = math.ceil(math.ceil(w / ncols) / tiles) * tiles
+    while not fits(tw):  # a narrower tile may lack a conv3 mapping: widen
+        tw += tiles
+    ncols = math.ceil(w / tw)
+    smem = smem_bytes(tw, cin, cmid, d)
+    # the 8-pixel tiles take about 200 registers a thread: 256 threads an SM
+    per_sm = max(1, min(256 // threads, SMEM_SM // (smem + BLOCK_SMEM_RESERVED)))
     slots = sm_count * per_sm
     chain = math.ceil(h / d)
     best = None
@@ -101,13 +192,13 @@ def plan_tiles(n: int, h: int, w: int, cmid: int, d: int, sm_count: int):
         if best is None or cost < best[0]:
             best = (cost, rs, s)
     _, rs, s = best
-    return tw, rs, s, threads, smem
+    return TilePlan(tw, rs, s, threads, smem, *_stage_layout(tw, cin, cmid, d))
 
 
 def _library() -> ctypes.CDLL:
     lib = load(SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.msl_fused_bottleneck_f32.argtypes = [p] * 13 + [i] * 11 + [p]
+    lib.msl_fused_bottleneck_f32.argtypes = [p] * 13 + [i] * 18 + [p]
     lib.msl_fused_bottleneck_f32.restype = i
     return lib
 
@@ -143,12 +234,10 @@ def _launch(args, dilation: int, emit: bool):
     x, w1 = args[0], args[1]
     n, cin, h, w = x.shape
     cmid = w1.shape[-1]
-    if cin % 4 or cmid % 4:
-        raise ValueError(f"fused bottleneck: Cin {cin} and Cmid {cmid} must be multiples of 4")
     if any(t.data_ptr() % 16 for t in args):
         raise ValueError("fused bottleneck: every tensor must be 16-byte aligned")
     sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
-    tw, rs, segs, threads, smem = plan_tiles(n, h, w, cmid, dilation, sm_count)
+    plan = plan_tiles(n, h, w, cin, cmid, dilation, sm_count)
     out = torch.empty_like(x, memory_format=torch.channels_last)
     hs = tuple(
         torch.empty((n, cmid, h, w), dtype=x.dtype, device=x.device,
@@ -161,7 +250,7 @@ def _launch(args, dilation: int, emit: bool):
         err = lib.msl_fused_bottleneck_f32(
             *(t.data_ptr() for t in args), out.data_ptr(),
             *((t.data_ptr() for t in hs) if emit else (None, None)),
-            n, h, w, cin, cmid, dilation, tw, rs, segs, threads, smem, stream,
+            n, h, w, cin, cmid, dilation, *plan, stream,
         )
     raise_on_error(err, lib, "fused bottleneck")
     return (out, *hs)

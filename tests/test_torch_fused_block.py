@@ -103,16 +103,65 @@ def test_wrapper_rejects_wrong_shape():
         fused_bottleneck(xt, *ws, *bn, 1)
 
 
-@pytest.mark.parametrize(
-    "n,h,w,cmid,d",
-    [(2, 129, 257, 64, 1), (2, 65, 129, 128, 1), (2, 65, 129, 256, 2),
-     (2, 65, 129, 512, 4), (4, 49, 97, 512, 4)],
-)
+# (N, H, W, Cmid, d): the eval and TTA shapes of a 1024x512 forward, then the
+# UDA step's source (1280x640) and target (1024x512) shapes, at their layers'
+# widths (Cin = 4 * Cmid)
+PLAN_SHAPES = [
+    (2, 129, 257, 64, 1), (2, 65, 129, 128, 1), (2, 65, 129, 256, 2),
+    (2, 65, 129, 512, 4), (4, 49, 97, 512, 4),
+    (4, 161, 321, 64, 1), (4, 81, 161, 128, 1), (4, 81, 161, 256, 2),
+    (4, 81, 161, 512, 4), (4, 129, 257, 64, 1), (4, 65, 129, 128, 1),
+    (4, 65, 129, 256, 2), (4, 65, 129, 512, 4), (4, 49, 97, 256, 2),
+]
+
+
+@pytest.mark.parametrize("n,h,w,cmid,d", PLAN_SHAPES)
 def test_plan_tiles_fits_and_covers(n, h, w, cmid, d):
-    tw, rs, segs, threads, smem = plan_tiles(n, h, w, cmid, d, sm_count=132)
-    assert tw % fused_block.PIXEL_TILE == 0
-    assert threads == (512 if smem > fused_block.SMEM_SM // 2 else 256)
-    assert smem == fused_block.smem_bytes(tw, cmid, d) <= fused_block.SMEM_BLOCK_MAX
+    cin = 4 * cmid
+    plan = plan_tiles(n, h, w, cin, cmid, d, sm_count=132)
+    tw, rs, segs, threads, smem = plan[:5]
+    tiles = threads * fused_block.TILE_CHANNELS // cmid       # pixel tiles, conv1/conv2
+    tiles3 = threads * fused_block.TILE_CHANNELS // plan.bn3  # pixel tiles, conv3
+    assert threads == fused_block.block_threads(cmid) and threads % 32 == 0
+    # the shared memory counts the ring (h2 lives in its oldest slot) and the
+    # weight and x stages
+    p1 = tw + 2 * d
+    assert smem == fused_block.smem_bytes(tw, cin, cmid, d) <= fused_block.SMEM_BLOCK_MAX
+    assert smem == 4 * (plan.ldh * 3 * p1 + 2 * plan.wstage
+                        + 2 * plan.xs_px * fused_block.X_STAGE_LD)
+    assert plan.ldh >= cmid and plan.ldh % 4 == 0
+    assert plan.wstage == fused_block.K_STAGE * max(cmid, plan.bn3)
+    assert plan.xs_px >= tiles * plan.px1 >= p1
+    # TW is a whole number of pixel tiles in conv2 and conv3; every tile has
+    # at most 8 pixels; threads = pixel tiles x channel groups in every conv
+    assert tw == tiles * plan.px2 == tiles3 * plan.px3
+    assert max(plan.px1, plan.px2, plan.px3) <= fused_block.MAX_PIXEL_TILE
+    assert cin % plan.bn3 == 0 and threads % (plan.bn3 // 4) == 0 == threads % (cmid // 4)
+    assert tiles * cmid == tiles3 * plan.bn3 == threads * fused_block.TILE_CHANNELS
     # the strips cover the width, the segments cover every chain of rows
     assert -(-w // tw) * tw >= w and (-(-w // tw) - 1) * tw < w
     assert rs * segs >= -(-h // d)
+    assert plan.flop_per_l2_weight_byte == tw / 2
+    # conv2 and conv3 give every thread a tile; conv1's TW + 2d pixels are
+    # no whole number of tiles at layers 1-2, where at most a fifth of the
+    # threads idle in it; at layers 3 and 4 every thread works in every conv
+    busy = plan.busy_threads(cmid, d)
+    assert busy["conv2"] == busy["conv3"] == threads
+    assert busy["conv1"] >= 0.8 * threads
+    if cmid >= 256:
+        assert busy["conv1"] == threads
+
+
+def test_plan_tiles_r101_tiles():
+    """The tiles the kernel's header note states for a 1024x512 forward."""
+    tws = {(cmid, w): plan_tiles(2, h, w, 4 * cmid, cmid, d, 132).tw
+           for h, w, cmid, d in ((129, 257, 64, 1), (65, 257, 128, 1), (65, 129, 256, 2),
+                                 (81, 161, 256, 2), (65, 129, 512, 4))}
+    assert tws == {(64, 257): 64, (128, 257): 64, (256, 129): 48, (256, 161): 56,
+                   (512, 129): 24}
+
+
+@pytest.mark.parametrize("cin,cmid", [(64, 16), (384, 96), (1000, 256)])
+def test_plan_tiles_rejects_unsupported_widths(cin, cmid):
+    with pytest.raises(ValueError, match="Cmid"):
+        plan_tiles(1, 9, 9, cin, cmid, 1, sm_count=132)
