@@ -25,11 +25,12 @@
 // TW / 2 FLOP per byte of L2 traffic. With the tiles below that is 32 FLOP/B
 // at layers 1-2 (TW 64), 24-28 at layer3 (TW 48 or 56, whichever wastes less
 // of the width) and 12 at layer4 (TW 24, pinned by its 3 x 32 x 2 KB h1
-// ring). Measured on an H100 (PERF.md): layer3 runs at about 30 TFLOP/s of
-// issued work, drawing 1.2 TB/s from L2, and is bound by operations (the FMA
-// issue rate and the shared-memory reads that feed it); layer4 at about 25,
-// drawing 2 TB/s, is bound by L2 weight traffic (the same inner loop on a
-// resident tile of 16 rows reads 3.1 TB/s and stops at 25 TFLOP/s).
+// ring). Measured on an H100 (PERF.md): layer3 does 25-27 TFLOP/s of useful
+// work, drawing about 1 TB/s from L2, and is bound by operations (the FMA
+// issue rate and the shared-memory reads that feed it: the bare inner loop
+// on a resident tile reaches 34-38); layer4 does 17-22, and there the L2
+// weight traffic counts: the bare loop at layer4's widths gives 25-29
+// TFLOP/s on 16 rows and 32 on 24.
 //
 // Design:
 // - A block owns a strip of TW output columns and walks down a chain of
@@ -49,12 +50,13 @@
 // - Each of the three convs is a product [pixels x K] x [K x channels] with
 //   both operands in shared memory. The weights (w1; w2 as a (9*Cmid, Cmid)
 //   matrix, tap by tap; w3 in passes of BN3 columns) stream from L2 in
-//   stages of kBK = 8 k-rows by BN columns, double buffered with cp.async:
+//   stages of KB k-rows by BN columns (KB 16 where the shared memory has
+//   room, as at layers 1-3; 8 at layer4), double buffered with cp.async:
 //   wait for stage i, one barrier, start the copy of stage i+1, multiply
 //   stage i. Each weight byte crosses L2 -> SM once per block and row.
-//   conv1's x operand comes the same way: the row's TW+2d pixels by 8
-//   channels per stage, 32 contiguous bytes a pixel, zero filled outside the
-//   image. conv2 reads the ring, conv3 reads h2.
+//   conv1's x operand comes the same way: the row's TW+2d pixels by KB
+//   channels per stage, 4*KB contiguous bytes a pixel, zero filled outside
+//   the image. conv2 reads the ring, conv3 reads h2.
 // - A thread owns a register tile of PX pixels x 8 channels (two float4s,
 //   BN/2 columns apart), fp32 FMA on the CUDA cores, the k loop unrolled
 //   over a whole stage. The BN/8 threads of one pixel tile read the same
@@ -71,8 +73,9 @@
 //   conv2 (the 3x3 is 53 % of the FLOPs); layer2: 256 threads, 5, 4 and 8
 //   pixels; layer1: 128 threads, 5, 4 and 8. Only conv1 at layers 1-2, whose
 //   TW + 2 pixels are no whole number of tiles, leaves up to a fifth of the
-//   threads without pixels. The 8-pixel instances take about 200 registers a
-//   thread, so an SM holds 256 threads: 8 warps.
+//   threads without pixels. The widest instances (8 pixels, 16 k-rows
+//   unrolled) take all 255 registers a thread, so an SM holds 256 threads:
+//   8 warps.
 // - Ragged edges are masked on load and store; a tile wholly past the right
 //   edge skips its arithmetic but keeps copying and meeting the barriers.
 // - Emit (a template flag, so the eval kernel is unchanged): a block owns
@@ -95,8 +98,9 @@
 
 namespace {
 
-constexpr int kBK = 8;         // k rows per weight stage, channels per x stage
-constexpr int kXLd = kBK + 4;  // floats between two pixels of an x stage
+// KB, a template parameter below: k rows per weight stage and channels per x
+// stage, 16 where the shared memory has room for it, else 8 (plan_tiles).
+// An x stage keeps KB + 4 floats between two pixels.
 constexpr int kMaxThreads = 256;
 constexpr int kCh = 8;         // channels per thread tile
 
@@ -117,8 +121,8 @@ struct Args {
   int N, H, W, Cin, Cmid, d, TW, RS, S;
   // from plan_tiles: conv3's columns per pass, the pixels per thread tile of
   // each conv, the pixel stride of h1/h2, the floats of one weight stage
-  // buffer and the pixels of one x stage buffer
-  int bn3, px1, px2, px3, ldh, wstage, xs_px;
+  // buffer, the pixels of one x stage buffer and the k rows of a stage
+  int bn3, px1, px2, px3, ldh, wstage, xs_px, kb;
 };
 
 __device__ __forceinline__ float4 ldg4(const float* p) {
@@ -150,26 +154,27 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 __device__ __forceinline__ int ring_slot(int j) { return (j + 3) % 3; }
 
-// Start the copy of the weight stage W[k0 : k0+kBK, n0 : n0+bn) (row-major,
+// Start the copy of the weight stage W[k0 : k0+KB, n0 : n0+bn) (row-major,
 // ld = ldw) into ws (dense, ld = bn). blockDim.x is a multiple of bn / 4.
+template <int KB>
 __device__ __forceinline__ void stage_weights(float* ws, const float* __restrict__ w,
                                               int ldw, int n0, int k0, int bn) {
   const int per_row = bn >> 2;
   const int col = (threadIdx.x % per_row) << 2;
   const int step = blockDim.x / per_row;
-  for (int r = threadIdx.x / per_row; r < kBK; r += step)
+  for (int r = threadIdx.x / per_row; r < KB; r += step)
     cp_async16(ws + r * bn + col, w + (size_t)(k0 + r) * ldw + n0 + col);
 }
 
-// acc[p][c] += sum over the stage's kBK k of A(p, k) * W(k, c): A(p, k) at
+// acc[p][c] += sum over the stage's KB k of A(p, k) * W(k, c): A(p, k) at
 // ap[p * lda + k] (the same address for every thread of a pixel tile), W at
 // wp[k * bn + c] for c < 4 and wp[k * bn + bn/2 + c - 4] for c >= 4.
-template <int PX>
+template <int PX, int KB>
 __device__ __forceinline__ void mac_stage(float (&acc)[PX][kCh], const float* ap, int lda,
                                           const float* wp, int bn) {
   const int half = bn >> 1;
 #pragma unroll
-  for (int kk = 0; kk < kBK; kk += 4) {
+  for (int kk = 0; kk < KB; kk += 4) {
     float4 av[PX];
 #pragma unroll
     for (int p = 0; p < PX; ++p) av[p] = lds4(ap + p * lda + kk);
@@ -208,11 +213,14 @@ __device__ __forceinline__ float4 bn_relu(const float* v, float4 s, float4 b) {
 
 // h1 for image row r at columns [col0 - d, col0 + TW + d) into one ring slot;
 // exact zeros at pixels outside the image. One pass over w1: BN = Cmid.
-template <int PX>
+template <int PX, int KB>
 __device__ __forceinline__ void conv1_row(const Args& a, float* slot, float* wst, float* xst, int n, int r,
                           int col0) {
   const int P1 = a.TW + 2 * a.d;
   const int tid = threadIdx.x, nt = blockDim.x;
+  // the slot held the last trip's h2 and the stage buffers its weights: their
+  // readers (conv3) are done
+  __syncthreads();
   if (r < 0 || r >= a.H) {  // the same for the whole block
     const int nq = a.Cmid >> 2;
     for (int i = tid; i < P1 * nq; i += nt)
@@ -226,14 +234,15 @@ __device__ __forceinline__ void conv1_row(const Args& a, float* slot, float* wst
   const int colf = col0 - a.d + c0;                        // its image column
   const bool active = c0 < P1 && colf < a.W && colf + PX > 0;
   const float* xrow = a.x + (size_t)(n * a.H + r) * a.W * a.Cin;
+  constexpr int kXLd = KB + 4;
   const int xlen = a.xs_px * kXLd;
 
   auto issue = [&](int i) {
-    const int k0 = i * kBK;
-    stage_weights(wst + (i & 1) * a.wstage, a.w1, a.Cmid, 0, k0, bn);
+    const int k0 = i * KB;
+    stage_weights<KB>(wst + (i & 1) * a.wstage, a.w1, a.Cmid, 0, k0, bn);
     float* xs = xst + (i & 1) * xlen;
-    for (int j = tid; j < P1 * (kBK / 4); j += nt) {
-      const int pix = j / (kBK / 4), part = (j % (kBK / 4)) * 4;
+    for (int j = tid; j < P1 * (KB / 4); j += nt) {
+      const int pix = j / (KB / 4), part = (j % (KB / 4)) * 4;
       const int col = col0 - a.d + pix;
       const bool ok = col >= 0 && col < a.W;
       cp_async16(xs + pix * kXLd + part,
@@ -244,15 +253,14 @@ __device__ __forceinline__ void conv1_row(const Args& a, float* slot, float* wst
 
   float acc[PX][kCh];
   clear<PX>(acc);
-  const int stages = a.Cin / kBK;
-  __syncthreads();  // the stage buffers' last readers are done
+  const int stages = a.Cin / KB;
   issue(0);
   for (int i = 0; i < stages; ++i) {
     cp_async_wait_all();  // stage i has landed (this thread's copies)
     __syncthreads();      // ... and everyone's; stage i-1 is read
     if (i + 1 < stages) issue(i + 1);
     if (active)
-      mac_stage<PX>(acc, xst + (i & 1) * xlen + c0 * kXLd, kXLd,
+      mac_stage<PX, KB>(acc, xst + (i & 1) * xlen + c0 * kXLd, kXLd,
                     wst + (i & 1) * a.wstage + q * 4, bn);
   }
 #pragma unroll
@@ -275,7 +283,7 @@ __device__ __forceinline__ void conv1_row(const Args& a, float* slot, float* wst
 // h2 for output row j of the chain (h1 rows j-1, j, j+1 in the ring); with
 // Emit also into device memory at image row r. One pass over w2: BN = Cmid,
 // K = 9 * Cmid tap by tap; TW = pixel tiles x PX exactly.
-template <int PX, bool Emit>
+template <int PX, int KB, bool Emit>
 __device__ __forceinline__ void conv2_row(const Args& a, const float* h1, float* h2, float* wst, int j,
                           int n, int r, int col0) {
   const int P1 = a.TW + 2 * a.d;
@@ -288,24 +296,24 @@ __device__ __forceinline__ void conv2_row(const Args& a, const float* h1, float*
 
   float acc[PX][kCh];
   clear<PX>(acc);
-  const int stages = 9 * a.Cmid / kBK;
+  const int stages = 9 * a.Cmid / KB;
   __syncthreads();
-  stage_weights(wst, a.w2, a.Cmid, 0, 0, bn);
+  stage_weights<KB>(wst, a.w2, a.Cmid, 0, 0, bn);
   cp_async_commit();
-  int tap = 0, kc = 0;  // stage i covers channels [kc, kc + kBK) of tap
+  int tap = 0, kc = 0;  // stage i covers channels [kc, kc + KB) of tap
   for (int i = 0; i < stages; ++i) {
     cp_async_wait_all();
     __syncthreads();
     if (i + 1 < stages) {
-      stage_weights(wst + ((i + 1) & 1) * a.wstage, a.w2, a.Cmid, 0, (i + 1) * kBK, bn);
+      stage_weights<KB>(wst + ((i + 1) & 1) * a.wstage, a.w2, a.Cmid, 0, (i + 1) * KB, bn);
       cp_async_commit();
     }
     if (active) {
       const int ra = tap / 3, cb = tap - 3 * ra;
       const float* ap = h1 + ring_slot(j - 1 + ra) * slot_len + (c0 + cb * a.d) * a.ldh + kc;
-      mac_stage<PX>(acc, ap, a.ldh, wst + (i & 1) * a.wstage + q * 4, bn);
+      mac_stage<PX, KB>(acc, ap, a.ldh, wst + (i & 1) * a.wstage + q * 4, bn);
     }
-    kc += kBK;
+    kc += KB;
     if (kc == a.Cmid) {
       kc = 0;
       ++tap;
@@ -346,7 +354,7 @@ __device__ void store_h1_row(const Args& a, const float* slot, int n, int r, int
 
 // out row r = relu(bn3(conv3 h2) + x), in Cin / bn3 passes over the columns
 // of w3; the stages of all passes form one pipeline.
-template <int PX>
+template <int PX, int KB>
 __device__ __forceinline__ void conv3_row(const Args& a, const float* h2, float* wst, int n, int r,
                           int col0) {
   const int tid = threadIdx.x;
@@ -354,26 +362,26 @@ __device__ __forceinline__ void conv3_row(const Args& a, const float* h2, float*
   const int groups = bn / kCh;
   const int q = tid % groups, c0 = (tid / groups) * PX;
   const bool active = col0 + c0 < a.W;
-  const int per_pass = a.Cmid / kBK;
+  const int per_pass = a.Cmid / KB;
   const int stages = (a.Cin / bn) * per_pass;
 
   float acc[PX][kCh];
   clear<PX>(acc);
   __syncthreads();
-  stage_weights(wst, a.w3, a.Cin, 0, 0, bn);
+  stage_weights<KB>(wst, a.w3, a.Cin, 0, 0, bn);
   cp_async_commit();
-  int n0 = 0, ks = 0;  // stage i: columns [n0, n0 + bn), k rows [ks*kBK, ..)
+  int n0 = 0, ks = 0;  // stage i: columns [n0, n0 + bn), k rows [ks*KB, ..)
   for (int i = 0; i < stages; ++i) {
     cp_async_wait_all();
     __syncthreads();
     if (i + 1 < stages) {
       const bool wrap = ks + 1 == per_pass;
-      stage_weights(wst + ((i + 1) & 1) * a.wstage, a.w3, a.Cin, wrap ? n0 + bn : n0,
-                    wrap ? 0 : (ks + 1) * kBK, bn);
+      stage_weights<KB>(wst + ((i + 1) & 1) * a.wstage, a.w3, a.Cin, wrap ? n0 + bn : n0,
+                    wrap ? 0 : (ks + 1) * KB, bn);
       cp_async_commit();
     }
     if (active)
-      mac_stage<PX>(acc, h2 + c0 * a.ldh + ks * kBK, a.ldh,
+      mac_stage<PX, KB>(acc, h2 + c0 * a.ldh + ks * KB, a.ldh,
                     wst + (i & 1) * a.wstage + q * 4, bn);
     if (++ks == per_pass) {
       if (active) {
@@ -429,7 +437,7 @@ __global__ void __launch_bounds__(kMaxThreads) fused_bottleneck_kernel(const Arg
   const int P1 = a.TW + 2 * a.d;
   const int slot_len = P1 * a.ldh;
   float* wst = h1 + 3 * slot_len;
-  float* xst = wst + 2 * a.wstage;
+  float* xst = wst + 2 * a.wstage;  // (a.kb + 4) floats a pixel
 
   const int col0 = blockIdx.x * a.TW;
   int chain = blockIdx.y;
@@ -445,17 +453,29 @@ __global__ void __launch_bounds__(kMaxThreads) fused_bottleneck_kernel(const Arg
   for (int j = j0 - 2; j < j0 + a.RS; ++j) {
     const int r = res + a.d * j;
     if (j >= j0 && r >= a.H) break;
-    DISPATCH_PX(a.px1, conv1_row<PX>(a, h1 + ring_slot(j + 1) * slot_len, wst, xst, n,
-                                     r + a.d, col0))
+    float* fill = h1 + ring_slot(j + 1) * slot_len;
+    if (a.kb == 16) {
+      DISPATCH_PX(a.px1, (conv1_row<PX, 16>(a, fill, wst, xst, n, r + a.d, col0)))
+    } else {
+      DISPATCH_PX(a.px1, (conv1_row<PX, 8>(a, fill, wst, xst, n, r + a.d, col0)))
+    }
     if (j < j0) continue;
     __syncthreads();
     if (Emit) store_h1_row(a, h1 + ring_slot(j) * slot_len, n, r, col0);
     // conv2 of row j is the last reader of h1 row j-1, so h2 goes into that
     // slot, where it stays until the next trip's conv1 refills it
     float* h2 = h1 + ring_slot(j - 1) * slot_len;
-    DISPATCH_PX(a.px2, (conv2_row<PX, Emit>(a, h1, h2, wst, j, n, r, col0)))
+    if (a.kb == 16) {
+      DISPATCH_PX(a.px2, (conv2_row<PX, 16, Emit>(a, h1, h2, wst, j, n, r, col0)))
+    } else {
+      DISPATCH_PX(a.px2, (conv2_row<PX, 8, Emit>(a, h1, h2, wst, j, n, r, col0)))
+    }
     __syncthreads();
-    DISPATCH_PX(a.px3, conv3_row<PX>(a, h2, wst, n, r, col0))
+    if (a.kb == 16) {
+      DISPATCH_PX(a.px3, (conv3_row<PX, 16>(a, h2, wst, n, r, col0)))
+    } else {
+      DISPATCH_PX(a.px3, (conv3_row<PX, 8>(a, h2, wst, n, r, col0)))
+    }
   }
 }
 
@@ -477,7 +497,8 @@ bool px_ok(int px) { return px >= 1 && px <= 8; }
 // The tile arguments come from kernels/fused_block.py plan_tiles, which owns
 // their arithmetic: threads (128 or 256) = pixel tiles x Cmid/8 = pixel
 // tiles x bn3/8; TW = px2 x Cmid-tiles = px3 x bn3-tiles; px1 x tiles >=
-// TW + 2d; ldh >= Cmid; wstage >= 8 * max(Cmid, bn3) floats; xs_px >= TW + 2d.
+// TW + 2d; ldh >= Cmid; kb 8 or 16; wstage >= kb * max(Cmid, bn3) floats;
+// xs_px >= TW + 2d.
 // h1, h2: both null (eval) or both (N, H, W, Cmid) outputs (training).
 extern "C" int msl_fused_bottleneck_f32(
     const void* x, const void* w1, const void* w2, const void* w3,
@@ -485,7 +506,7 @@ extern "C" int msl_fused_bottleneck_f32(
     const void* s3, const void* b3, void* out, void* h1, void* h2, int N,
     int H, int W, int Cin, int Cmid, int d, int TW, int RS, int S, int threads,
     int smem_bytes, int bn3, int px1, int px2, int px3, int ldh, int wstage,
-    int xs_px, void* stream) {
+    int xs_px, int kb, void* stream) {
   Args a;
   a.x = static_cast<const float*>(x);
   a.w1 = static_cast<const float*>(w1);
@@ -517,15 +538,17 @@ extern "C" int msl_fused_bottleneck_f32(
   a.ldh = ldh;
   a.wstage = wstage;
   a.xs_px = xs_px;
+  a.kb = kb;
   // the mapping the kernel relies on; a plan that breaks it is refused
   if (threads != 128 && threads != 256) return (int)cudaErrorInvalidValue;
   if (!px_ok(px1) || !px_ok(px2) || !px_ok(px3)) return (int)cudaErrorInvalidValue;
+  if (kb != 8 && kb != 16) return (int)cudaErrorInvalidValue;
   if (Cmid % 32 || Cin % 32 || bn3 % 32 || Cin % bn3) return (int)cudaErrorInvalidValue;
   if (threads % (Cmid / 4) || threads % (bn3 / 4)) return (int)cudaErrorInvalidValue;
   if (TW != px2 * (threads / (Cmid / 8)) || TW != px3 * (threads / (bn3 / 8)) ||
       px1 * (threads / (Cmid / 8)) < TW + 2 * d)
     return (int)cudaErrorInvalidValue;
-  if (ldh < Cmid || ldh % 4 || wstage < kBK * (Cmid > bn3 ? Cmid : bn3) ||
+  if (ldh < Cmid || ldh % 4 || wstage < kb * (Cmid > bn3 ? Cmid : bn3) ||
       xs_px < TW + 2 * d)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -34,8 +34,8 @@ from maxsquareloss_torch.kernels.build import CSRC, load, raise_on_error
 
 SOURCE = CSRC / "fused_bottleneck.cu"
 
-K_STAGE = 8            # k rows per weight stage, channels per x stage (kBK in the .cu)
-X_STAGE_LD = K_STAGE + 4  # floats between two pixels of an x stage (kXLd)
+K_STAGES = (16, 8)     # k rows per weight stage and channels per x stage (KB in the .cu)
+X_STAGE_PAD = 4        # an x stage keeps KB + 4 floats between two pixels
 TILE_CHANNELS = 8      # channels per thread tile (kCh)
 MAX_PIXEL_TILE = 8     # most pixels per thread tile the kernel is built for
 SMEM_BLOCK_MAX = 232448  # bytes of shared memory one block may use on sm_90
@@ -79,6 +79,7 @@ class TilePlan(NamedTuple):
     ldh: int      # floats between two pixels of h1/h2 in shared memory
     wstage: int   # floats of one weight stage buffer
     xs_px: int    # pixels of one x stage buffer
+    kb: int       # k rows per weight stage, channels per x stage
 
     @property
     def flop_per_l2_weight_byte(self) -> float:
@@ -105,9 +106,10 @@ def block_threads(cmid: int) -> int:
     return 256 if cmid >= 128 else 128
 
 
-def _stage_layout(tw: int, cin: int, cmid: int, d: int):
-    """(bn3, px1, px2, px3, ldh, wstage, xs_px) for tw output columns a block,
-    or None where the thread mapping does not exist. A conv's threads are T
+def _stage_layout(tw: int, cin: int, cmid: int, d: int, kb: int):
+    """(bn3, px1, px2, px3, ldh, wstage, xs_px, kb) for tw output columns a
+    block and stages of kb k-rows, or None where the thread mapping does not
+    exist. A conv's threads are T
     pixel tiles x BN/8 channel groups: conv1 and conv2 take BN = Cmid in one
     pass (T = threads * 8 / Cmid), conv3 the widest BN3 that divides Cin and
     tw evenly into tiles of at most 8 pixels."""
@@ -126,16 +128,16 @@ def _stage_layout(tw: int, cin: int, cmid: int, d: int):
     # a warp that spans several pixel tiles reads several pixels at once:
     # 4 floats of padding keep two neighbours off the same banks
     ldh = cmid + (4 if cmid // TILE_CHANNELS < 32 else 0)
-    return (bn3, px1, tw // tiles, tw // tiles3, ldh, K_STAGE * max(cmid, bn3), tiles * px1)
+    return (bn3, px1, tw // tiles, tw // tiles3, ldh, kb * max(cmid, bn3), tiles * px1, kb)
 
 
-def smem_bytes(tw: int, cin: int, cmid: int, d: int) -> int:
+def smem_bytes(tw: int, cin: int, cmid: int, d: int, kb: int) -> int:
     """Shared memory of one block: 3 h1 rows of TW+2d pixels (pixel stride
-    ldh; h2 takes the oldest row's slot), two weight stages of 8 k-rows x
-    the widest BN, and two x stages of conv1's pixels x 8 channels (12 floats
-    a pixel)."""
-    bn3, _, _, _, ldh, wstage, xs_px = _stage_layout(tw, cin, cmid, d)
-    return 4 * (ldh * 3 * (tw + 2 * d) + 2 * wstage + 2 * xs_px * X_STAGE_LD)
+    ldh; h2 takes the oldest row's slot), two weight stages of kb k-rows x
+    the widest BN, and two x stages of conv1's pixels x kb channels (kb + 4
+    floats a pixel)."""
+    _, _, _, _, ldh, wstage, xs_px, _ = _stage_layout(tw, cin, cmid, d, kb)
+    return 4 * (ldh * 3 * (tw + 2 * d) + 2 * wstage + 2 * xs_px * (kb + X_STAGE_PAD))
 
 
 def plan_tiles(n: int, h: int, w: int, cin: int, cmid: int, d: int, sm_count: int) -> TilePlan:
@@ -144,8 +146,10 @@ def plan_tiles(n: int, h: int, w: int, cin: int, cmid: int, d: int, sm_count: in
 
     threads: ``block_threads``. TW: columns per block, a multiple of the
     block's pixel tiles T = threads * 8 / Cmid, at most 64, the largest whose
-    shared memory (``smem_bytes``, stages included) fits 232,448 B, then
-    balanced over the width so the ragged last strip wastes little. R101:
+    shared memory (``smem_bytes``, with stages of 8 k-rows) fits 232,448 B,
+    then balanced over the width so the ragged last strip wastes little;
+    the stages then take 16 k-rows if that still fits (half the barriers:
+    11-15 % faster in the same loop on an H100, PERF.md). R101:
     layers 1-2 TW up to 64, layer3 (Cmid 256, d 2) up to 56, layer4 (Cmid
     512, d 4) 24, pinned there by its 3 x 32 x 2 KB ring. A block passes once over
     all weights per output row, so the tile gives TW / 2 FLOP per byte of
@@ -163,9 +167,9 @@ def plan_tiles(n: int, h: int, w: int, cin: int, cmid: int, d: int, sm_count: in
         )
     tiles = threads * TILE_CHANNELS // cmid
 
-    def fits(tw):
-        return (_stage_layout(tw, cin, cmid, d) is not None
-                and smem_bytes(tw, cin, cmid, d) <= SMEM_BLOCK_MAX)
+    def fits(tw, kb=K_STAGES[-1]):
+        return (_stage_layout(tw, cin, cmid, d, kb) is not None
+                and smem_bytes(tw, cin, cmid, d, kb) <= SMEM_BLOCK_MAX)
 
     tw_max = max((tw for tw in range(tiles, 65, tiles) if fits(tw)), default=None)
     if tw_max is None:
@@ -178,8 +182,9 @@ def plan_tiles(n: int, h: int, w: int, cin: int, cmid: int, d: int, sm_count: in
     while not fits(tw):  # a narrower tile may lack a conv3 mapping: widen
         tw += tiles
     ncols = math.ceil(w / tw)
-    smem = smem_bytes(tw, cin, cmid, d)
-    # the 8-pixel tiles take about 200 registers a thread: 256 threads an SM
+    kb = next(kb for kb in K_STAGES if fits(tw, kb))
+    smem = smem_bytes(tw, cin, cmid, d, kb)
+    # the kernel takes 255 registers a thread: 256 threads an SM
     per_sm = max(1, min(256 // threads, SMEM_SM // (smem + BLOCK_SMEM_RESERVED)))
     slots = sm_count * per_sm
     chain = math.ceil(h / d)
@@ -192,13 +197,13 @@ def plan_tiles(n: int, h: int, w: int, cin: int, cmid: int, d: int, sm_count: in
         if best is None or cost < best[0]:
             best = (cost, rs, s)
     _, rs, s = best
-    return TilePlan(tw, rs, s, threads, smem, *_stage_layout(tw, cin, cmid, d))
+    return TilePlan(tw, rs, s, threads, smem, *_stage_layout(tw, cin, cmid, d, kb))
 
 
 def _library() -> ctypes.CDLL:
     lib = load(SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.msl_fused_bottleneck_f32.argtypes = [p] * 13 + [i] * 18 + [p]
+    lib.msl_fused_bottleneck_f32.argtypes = [p] * 13 + [i] * 19 + [p]
     lib.msl_fused_bottleneck_f32.restype = i
     return lib
 

@@ -126,11 +126,12 @@ def test_plan_tiles_fits_and_covers(n, h, w, cmid, d):
     # the shared memory counts the ring (h2 lives in its oldest slot) and the
     # weight and x stages
     p1 = tw + 2 * d
-    assert smem == fused_block.smem_bytes(tw, cin, cmid, d) <= fused_block.SMEM_BLOCK_MAX
+    assert plan.kb in fused_block.K_STAGES and cmid % plan.kb == 0
+    assert smem == fused_block.smem_bytes(tw, cin, cmid, d, plan.kb) <= fused_block.SMEM_BLOCK_MAX
     assert smem == 4 * (plan.ldh * 3 * p1 + 2 * plan.wstage
-                        + 2 * plan.xs_px * fused_block.X_STAGE_LD)
+                        + 2 * plan.xs_px * (plan.kb + fused_block.X_STAGE_PAD))
     assert plan.ldh >= cmid and plan.ldh % 4 == 0
-    assert plan.wstage == fused_block.K_STAGE * max(cmid, plan.bn3)
+    assert plan.wstage == plan.kb * max(cmid, plan.bn3)
     assert plan.xs_px >= tiles * plan.px1 >= p1
     # TW is a whole number of pixel tiles in conv2 and conv3; every tile has
     # at most 8 pixels; threads = pixel tiles x channel groups in every conv
