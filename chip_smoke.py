@@ -13,7 +13,11 @@ Phases, one JSON object per line on stdout:
      the main path gives it (rtol = atol = 1e-4: fp32 sums over up to 4608
      terms in another order); the eval shapes are also timed with CUDA
      events in the order plain, kernel, kernel, plain, beside their bound
-     (the larger of FLOPs over 67 TFLOP/s fp32 and bytes over 3.35 TB/s);
+     (the larger of FLOPs over 67 TFLOP/s fp32 and bytes over 3.35 TB/s).
+     Every shape's line carries the planner's tile, its shared memory with
+     the weight and x stages, the FLOP per byte of L2 weight traffic and
+     the threads that own pixels in each conv; at layer3 a second call must
+     give the same bits;
   4. slice: full-width DeepLabV2-R101 (seeded random weights). The kernel
      path's logits and predict's trainIds must agree with the plain path's
      on the same card. Then the main path, each drive repeated REPS times:
@@ -30,7 +34,8 @@ Phases, one JSON object per line on stdout:
      between two classes and a degenerate class weight of 1.0 (forward rel
      1e-4, grads atol 1e-5 and 1e-4 of the largest), each bitwise equal on
      a second call; the emit bottleneck's out, h1, h2 at the 8 training
-     shapes (rtol = atol = 1e-4) and its autograd backward against the
+     shapes (rtol = atol = 1e-4; tile report and bitwise repeat as in
+     phase 3) and its autograd backward against the
      plain chain's at one shape per layer (relative L2: the adjoint chain
      on the same saved tensors <= 1e-4, the whole kernel path <= 1e-3, with
      the ReLU-mask disagreements between the two forwards); timed;

@@ -27,9 +27,9 @@
 // of the width) and 12 at layer4 (TW 24, pinned by its 3 x 32 x 2 KB h1
 // ring). Measured on an H100 (PERF.md): layer3 does 25-27 TFLOP/s of useful
 // work, drawing about 1 TB/s from L2, and is bound by operations (the FMA
-// issue rate and the shared-memory reads that feed it: the bare inner loop
-// on a resident tile reaches 34-38); layer4 does 17-22, and there the L2
-// weight traffic counts: the bare loop at layer4's widths gives 25-29
+// instruction rate and the shared-memory reads that feed it: the bare inner
+// loop on a resident tile reaches 34-38); layer4 does 17-22, and there the
+// L2 weight traffic counts: the bare loop at layer4's widths gives 25-29
 // TFLOP/s on 16 rows and 32 on 24.
 //
 // Design:
@@ -214,8 +214,8 @@ __device__ __forceinline__ float4 bn_relu(const float* v, float4 s, float4 b) {
 // h1 for image row r at columns [col0 - d, col0 + TW + d) into one ring slot;
 // exact zeros at pixels outside the image. One pass over w1: BN = Cmid.
 template <int PX, int KB>
-__device__ __forceinline__ void conv1_row(const Args& a, float* slot, float* wst, float* xst, int n, int r,
-                          int col0) {
+__device__ __forceinline__ void conv1_row(const Args& a, float* slot, float* wst,
+                                          float* xst, int n, int r, int col0) {
   const int P1 = a.TW + 2 * a.d;
   const int tid = threadIdx.x, nt = blockDim.x;
   // the slot held the last trip's h2 and the stage buffers its weights: their
@@ -237,7 +237,7 @@ __device__ __forceinline__ void conv1_row(const Args& a, float* slot, float* wst
   constexpr int kXLd = KB + 4;
   const int xlen = a.xs_px * kXLd;
 
-  auto issue = [&](int i) {
+  auto start_stage = [&](int i) {
     const int k0 = i * KB;
     stage_weights<KB>(wst + (i & 1) * a.wstage, a.w1, a.Cmid, 0, k0, bn);
     float* xs = xst + (i & 1) * xlen;
@@ -254,14 +254,14 @@ __device__ __forceinline__ void conv1_row(const Args& a, float* slot, float* wst
   float acc[PX][kCh];
   clear<PX>(acc);
   const int stages = a.Cin / KB;
-  issue(0);
+  start_stage(0);
   for (int i = 0; i < stages; ++i) {
     cp_async_wait_all();  // stage i has landed (this thread's copies)
     __syncthreads();      // ... and everyone's; stage i-1 is read
-    if (i + 1 < stages) issue(i + 1);
+    if (i + 1 < stages) start_stage(i + 1);
     if (active)
       mac_stage<PX, KB>(acc, xst + (i & 1) * xlen + c0 * kXLd, kXLd,
-                    wst + (i & 1) * a.wstage + q * 4, bn);
+                        wst + (i & 1) * a.wstage + q * 4, bn);
   }
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
@@ -284,8 +284,8 @@ __device__ __forceinline__ void conv1_row(const Args& a, float* slot, float* wst
 // Emit also into device memory at image row r. One pass over w2: BN = Cmid,
 // K = 9 * Cmid tap by tap; TW = pixel tiles x PX exactly.
 template <int PX, int KB, bool Emit>
-__device__ __forceinline__ void conv2_row(const Args& a, const float* h1, float* h2, float* wst, int j,
-                          int n, int r, int col0) {
+__device__ __forceinline__ void conv2_row(const Args& a, const float* h1, float* h2,
+                                          float* wst, int j, int n, int r, int col0) {
   const int P1 = a.TW + 2 * a.d;
   const int tid = threadIdx.x;
   const int bn = a.Cmid;
@@ -355,8 +355,8 @@ __device__ void store_h1_row(const Args& a, const float* slot, int n, int r, int
 // out row r = relu(bn3(conv3 h2) + x), in Cin / bn3 passes over the columns
 // of w3; the stages of all passes form one pipeline.
 template <int PX, int KB>
-__device__ __forceinline__ void conv3_row(const Args& a, const float* h2, float* wst, int n, int r,
-                          int col0) {
+__device__ __forceinline__ void conv3_row(const Args& a, const float* h2, float* wst,
+                                          int n, int r, int col0) {
   const int tid = threadIdx.x;
   const int bn = a.bn3;
   const int groups = bn / kCh;
@@ -377,12 +377,12 @@ __device__ __forceinline__ void conv3_row(const Args& a, const float* h2, float*
     if (i + 1 < stages) {
       const bool wrap = ks + 1 == per_pass;
       stage_weights<KB>(wst + ((i + 1) & 1) * a.wstage, a.w3, a.Cin, wrap ? n0 + bn : n0,
-                    wrap ? 0 : (ks + 1) * KB, bn);
+                        wrap ? 0 : (ks + 1) * KB, bn);
       cp_async_commit();
     }
     if (active)
       mac_stage<PX, KB>(acc, h2 + c0 * a.ldh + ks * KB, a.ldh,
-                    wst + (i & 1) * a.wstage + q * 4, bn);
+                        wst + (i & 1) * a.wstage + q * 4, bn);
     if (++ks == per_pass) {
       if (active) {
 #pragma unroll

@@ -109,10 +109,10 @@ def block_threads(cmid: int) -> int:
 def _stage_layout(tw: int, cin: int, cmid: int, d: int, kb: int):
     """(bn3, px1, px2, px3, ldh, wstage, xs_px, kb) for tw output columns a
     block and stages of kb k-rows, or None where the thread mapping does not
-    exist. A conv's threads are T
-    pixel tiles x BN/8 channel groups: conv1 and conv2 take BN = Cmid in one
-    pass (T = threads * 8 / Cmid), conv3 the widest BN3 that divides Cin and
-    tw evenly into tiles of at most 8 pixels."""
+    exist. A conv's threads are T pixel tiles x BN/8 channel groups: conv1
+    and conv2 take BN = Cmid in one pass (T = threads * 8 / Cmid), conv3 the
+    widest BN3 that divides Cin and cuts tw evenly into tiles of at most 8
+    pixels."""
     threads = block_threads(cmid)
     tiles = threads * TILE_CHANNELS // cmid
     px1 = math.ceil((tw + 2 * d) / tiles)
@@ -147,17 +147,17 @@ def plan_tiles(n: int, h: int, w: int, cin: int, cmid: int, d: int, sm_count: in
     threads: ``block_threads``. TW: columns per block, a multiple of the
     block's pixel tiles T = threads * 8 / Cmid, at most 64, the largest whose
     shared memory (``smem_bytes``, with stages of 8 k-rows) fits 232,448 B,
-    then balanced over the width so the ragged last strip wastes little;
-    the stages then take 16 k-rows if that still fits (half the barriers:
-    11-15 % faster in the same loop on an H100, PERF.md). R101:
-    layers 1-2 TW up to 64, layer3 (Cmid 256, d 2) up to 56, layer4 (Cmid
-    512, d 4) 24, pinned there by its 3 x 32 x 2 KB ring. A block passes once over
-    all weights per output row, so the tile gives TW / 2 FLOP per byte of
-    L2 weight traffic. The pixels per thread tile (px1, px2, px3) make
-    every thread own a tile in every conv. RS: output rows per chain
-    segment, S: segments per chain (a chain is one residue class of the rows
-    mod d). S trades conv1 recompute (2 extra h1 rows per segment) against
-    filling the SMs: it minimises waves * (RS + 0.5).
+    then balanced over the width so the ragged last strip wastes little. The
+    stages take 16 k-rows if that still fits (half the barriers: 11-15 %
+    faster in the same loop on an H100, PERF.md). R101: layers 1-2 TW up to
+    64, layer3 (Cmid 256, d 2) up to 56, layer4 (Cmid 512, d 4) 24, pinned
+    there by its 3 x 32 x 2 KB ring. A block passes once over all weights
+    per output row, so the tile gives TW / 2 FLOP per byte of L2 weight
+    traffic. The pixels per thread tile (px1, px2, px3) give every thread a
+    tile in every conv. RS: output rows per chain segment, S: segments per
+    chain (a chain is one residue class of the rows mod d). S trades conv1
+    recompute (2 extra h1 rows per segment) against filling the SMs: it
+    minimises waves * (RS + 0.5).
     """
     threads = block_threads(cmid)
     if cmid not in (64, 128, 256, 512) or cin % 64:
