@@ -30,7 +30,8 @@ Phases, one JSON object per line on stdout:
      and the device's idle share;
   6. train kernels: the fused IW and plain max-square losses, forward and
      backward, against their plain versions at the UDA step's
-     (4, 512, 1024, 19) and a ragged (1, 37, 53, 19), with exact ties
+     (4, 512, 1024, 19), a ragged (1, 37, 53, 19) and (40, 9, 11, 19), whose
+     images are smaller than a tile, with exact ties
      between two classes and a degenerate class weight of 1.0 (forward rel
      1e-4, grads atol 1e-5 and 1e-4 of the largest), each bitwise equal on
      a second call; the emit bottleneck's out, h1, h2 at the 8 training
@@ -50,10 +51,12 @@ Phases, one JSON object per line on stdout:
   8. train profile: device time by kernel name over one train step;
   9. probe: the matmul-chain calibration kernel against its plain version
      at the reference's defaults (M 1728, K 1024, N 256, 72 cells, chain 3),
-     at the layer-4 widths (K 2048, N 512) and at a ragged M, each in
+     at the layer-4 widths (K 2048, N 512), at a ragged M, at fewer rows than
+     a row tile and at one cell, each in
      bf16 -> bf16, bf16 -> fp32 and fp32 -> fp32 (max abs error over max
-     |out|: fp32 1e-4, bf16 2e-2), bitwise equal on a second call; timed
-     beside its bound, the plain version and the same chain as batched
+     |out|: fp32 1e-4, bf16 2e-2), bitwise equal on a second call, each
+     line with the planner's route, row tile, weight ring, bytes in flight
+     and FLOP per L2 weight byte; timed beside its bound, the plain version and the same chain as batched
      torch.matmul; then the entry point ``experiments.bench_matmul`` once,
      counted;
  10. trainer: ``UDATrainer`` at the train phase's configuration over
@@ -173,7 +176,9 @@ TRAIN_BATCH = TRAIN_CFG.batch_size
 SRC_HW = TRAIN_CFG.crop_size[::-1]
 TGT_HW = TRAIN_CFG.target_crop_size[::-1]
 TRAIN_SHAPES = block_shapes(TRAIN_BATCH, SRC_HW) + block_shapes(TRAIN_BATCH, TGT_HW)
-LOSS_SHAPES = ((TRAIN_BATCH, *TGT_HW), (1, 37, 53))  # the main path's, a ragged one
+# the main path's; one whose pixel count is no multiple of the 256-pixel tile;
+# one with images smaller than a tile, over two blocks (40 * 99 pixels)
+LOSS_SHAPES = ((TRAIN_BATCH, *TGT_HW), (1, 37, 53), (40, 9, 11))
 NUM_CLASSES = TRAIN_CFG.num_classes
 WARMUP_STEPS = 2
 LOSS_RTOL, GRAD_ATOL, GRAD_RTOL_MAX = 1e-4, 1e-5, 1e-4
@@ -201,13 +206,17 @@ COUNTERS = {
 }
 
 # the calibration probe: (name, M, K, N, cells, chain) at the reference's
-# defaults, at the layer-4 widths and with a ragged M (not a multiple of any
-# row tile) over a few cells; each in bf16 -> bf16, bf16 -> fp32, fp32 -> fp32
+# defaults, at the layer-4 widths, with a ragged M (not a multiple of any
+# row tile) over a few cells, with fewer rows than one row tile, and with one
+# cell; each in bf16 -> bf16, bf16 -> fp32, fp32 -> fp32
 PROBE_SHAPES = (
     ("defaults", 1728, 1024, 256, 72, 3),
     ("layer4", 1728, 2048, 512, 72, 3),
     ("ragged", 1000, 1024, 256, 3, 3),
+    ("one_tile", 13, 1024, 256, 2, 3),
+    ("one_cell", 1728, 1024, 256, 1, 3),
 )
+PROBE_TIMED = ("defaults", "layer4")
 BF16, F32 = torch.bfloat16, torch.float32
 PROBE_TYPES = ((BF16, BF16), (BF16, F32), (F32, F32))
 # max abs error over max |out|: fp32 sums in another order; in bf16 a link's
@@ -270,11 +279,17 @@ def phase_build() -> None:
     """One nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
     sources = (fused_block.SOURCE, fused_loss.SOURCE, matmul_probe.SOURCE)
+
+    def timed_build(source):
+        lib = kernel_build.build(source)
+        return lib, time.perf_counter() - t0
+
     with ThreadPoolExecutor(len(sources)) as pool:
-        libs = list(pool.map(kernel_build.build, sources))
+        built = list(pool.map(timed_build, sources))
     for module in (fused_block, fused_loss, matmul_probe):
         module._library()
-    emit({"phase": "build", "libraries": [lib.name for lib in libs],
+    emit({"phase": "build", "libraries": [lib.name for lib, _ in built],
+          "seconds_by_source": {src.name: sec for src, (_, sec) in zip(sources, built)},
           "seconds": time.perf_counter() - t0})
 
 
@@ -596,8 +611,9 @@ def _hold_loss(name, fn, plain, logits, weights) -> dict:
 
 
 def phase_train_loss_kernels() -> list[dict]:
-    """Both loss kernels at the main path's shape and a ragged one; timed at
-    the main path's. Returns four kernels-line entries."""
+    """Both loss kernels at every shape of ``LOSS_SHAPES``; timed at the main
+    path's, with the share of the bound each direction reaches. Returns four
+    kernels-line entries."""
     gen = torch.Generator().manual_seed(1)
     variants = (
         ("fused_iw_max_square_loss", fused_iw_max_square_loss, fused_iw_max_square_loss_reference,
@@ -657,6 +673,7 @@ def phase_train_loss_kernels() -> list[dict]:
                 "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": max(t_ops, t_bytes) * 1e3,
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "bound_share": max(t_ops, t_bytes) * 1e3 / ms,
                 "library_ms": None,
                 "library": "none: no single PyTorch call computes this loss",
                 "shape": list(logits.shape), "checks": rows,
@@ -889,6 +906,16 @@ def _probe_inputs(gen, m, k, n, cells, dtype):
             randn(n, k))
 
 
+def _probe_plan_report(dtype, k, n) -> dict:
+    """The planner's fields of one launch, for the probe's lines."""
+    plan = matmul_probe.plan_probe(dtype, k, n)
+    return {"route": plan.route, "row_tile": plan.tm, "block_cols": plan.block_cols,
+            "stage_rows": plan.stage_rows, "ring_depth": plan.depth,
+            "bytes_in_flight": plan.bytes_in_flight, "cluster": plan.cluster,
+            "flop_per_l2_weight_byte": plan.flop_per_l2_weight_byte,
+            "smem_bytes": plan.smem_bytes}
+
+
 def _probe_library(t, x, a, b, chain):
     """The same chain as batched ``torch.matmul`` in the inputs' type
     (cuBLAS; TF32 off), the yardstick the port never calls."""
@@ -921,10 +948,10 @@ def phase_probe() -> dict:
             check(err <= PROBE_TOL[dtype] * scale,
                   f"probe {name} {types}: {err:.3g} abs at max |out| {scale:.3g}")
             row = {"shape": name, "m": m, "k": k, "n": n, "cells": cells, "chain": chain,
-                   "types": types, "row_tile": matmul_probe.plan_rows(dtype, k, n),
+                   "types": types, **_probe_plan_report(dtype, k, n),
                    "max_abs_err": err, "max_abs_out": scale, "err_over_max": err / scale,
                    "tolerance": PROBE_TOL[dtype], "bitwise_repeatable": True}
-            if name != "ragged":
+            if name in PROBE_TIMED:
                 reps = 5
 
                 def kernel():

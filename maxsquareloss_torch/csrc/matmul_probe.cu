@@ -18,7 +18,9 @@
 // 195.7 GFLOP against 255 MB, 768 FLOP/B, far above the H100's ridge in
 // either type (bf16 tensor cores 989 TFLOP/s / 3.35 TB/s = 295 FLOP/B; fp32
 // CUDA cores 67 TFLOP/s, 20 FLOP/B). So the bound is the operations: 0.198
-// ms in bf16, 2.92 ms in fp32.
+// ms in bf16, 2.92 ms in fp32. Inside the card the weights are the traffic:
+// every block streams each whole weight from L2 for its own TM rows, 2*TM
+// FLOP per weight element.
 //
 // Design (the fused bottleneck's structure without its halo, dilation and
 // masks: a row tile resident in shared memory, the weights streamed from L2):
@@ -26,22 +28,30 @@
 //   Here a cell's activations are 3.5 MB in bf16, so a block owns TM rows of
 //   one cell instead (the chain is row-local) and keeps them in shared memory
 //   through the whole chain: a TM x K buffer and a TM x N buffer, each link
-//   reading one and writing the other. bf16 takes TM 64 (K 1024) or 32
-//   (K 2048); fp32 TM 32 or 16 (kernels/matmul_probe.py plan_rows). The grid
-//   is (ceil(M/TM), C): 27 x 72 blocks at the defaults.
-// - The weights stream from L2 in stages of 16 k-rows by BN columns, double
-//   buffered with cp.async, the next stage's copy in flight while the
-//   current one is multiplied.
+//   reading one and writing the other. The grid is (ceil(M/TM), C): 27 x 72
+//   blocks at the defaults. kernels/matmul_probe.py plan_probe picks the
+//   route, TM and the weight ring and hands them to the launch.
+// - The weights stream from L2 through a ring of `depth` stages of `kb`
+//   k-rows by BN columns that fills what the activation buffers leave of the
+//   block's 227 KB. The ring runs across column passes and across links: it
+//   never drains, so a pass's first stages land during the epilogue before.
+//
+// Route "mma_sync" (bf16) and "fma" (fp32): 256 threads, TM 64/32 (bf16) or
+// 32/16 (fp32).
+// - All threads copy the stages with 16-byte cp.async, depth-1 stages ahead;
+//   one barrier a stage: wait for stage i, barrier, start the copy into the
+//   slot the barrier just freed, multiply stage i.
 // - bf16: 8 warps, each a 32 x 64 output tile as 2 x 8 mma.sync m16n8k16
-//   (bf16 in, fp32 accumulators). A fragments are 32-bit shared loads from
-//   the row-major activations; B fragments come by ldmatrix.trans from the
+//   (bf16 in, fp32 accumulators). A fragments come by ldmatrix.x4 from the
+//   row-major activations, B fragments by ldmatrix.x4.trans from the
 //   row-major weight stage. Shared rows are padded by 16 bytes, so neither
 //   the fragment loads nor the epilogue's stores conflict on banks.
-// - fp32: 8 warps; a thread owns a 4-row x 8-column register tile (32 fp32
-//   accumulators, FMA on the CUDA cores, the bottleneck's inner loop). All
-//   lanes of a warp share their 4 rows, so the activation operand is a
-//   broadcast float4 read; the weight operand is two float4 reads, each
-//   quarter warp on 128 contiguous bytes.
+// - fp32: 8 warps; a thread owns an 8-row x 4-column register tile (32 fp32
+//   accumulators, FMA on the CUDA cores). All lanes of a warp share their 8
+//   rows, so the activation operand is a broadcast float4 read (4 k-steps);
+//   the weight operand is one float4 read a k-step, a warp on 512 contiguous
+//   bytes: 12 shared-memory reads for 128 FMAs, so the FMA pipe and not the
+//   shared memory sets the pace.
 // - Each link's epilogue applies the casts and the ReLU in the reference's
 //   order and writes the next link's operand to shared memory in T.
 // - Ragged M: rows past M load as zeros and are left out of the row sum.
@@ -55,10 +65,11 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;                // the 8 warps that multiply
 constexpr int kWarps = kThreads / 32;
-constexpr int kBK = 16;         // k rows per weight stage
-constexpr int kPadBytes = 16;   // padding at the end of every shared row
+constexpr int kBlockThreads = kThreads + 32;  // and one warp that fetches the weights
+constexpr int kPadBytes = 16;   // padding at the end of every padded shared row
+constexpr int kMaxDepth = 8;    // stages of the weight ring, at most
 
 template <typename T>
 struct Elem;
@@ -89,19 +100,133 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// ---- asynchronous copies and the barriers they report to
+
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
                "l"(src));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+// Until every cp.async of this thread has landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
 }
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Spin until the barrier's phase differs from `parity`.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::
+                   : "memory");
+}
+
+// Arrive on the barrier at the same address in block `rank` of the cluster.
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];\n}\n" ::"r"(smem_addr(bar)),
+      "r"(rank)
+      : "memory");
+}
+
+// One bulk copy of `bytes` (a multiple of 16; dst, src 16-byte aligned) that
+// reports to bar. With CL > 1 it lands at dst, and reports to bar, in every
+// block of the cluster.
+template <int CL>
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  if constexpr (CL > 1) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+        "[%0], [%1], %2, [%3], %4;\n" ::"r"(smem_addr(dst)),
+        "l"(src), "r"(bytes), "r"(smem_addr(bar)), "h"((uint16_t)((1u << CL) - 1))
+        : "memory");
+  } else {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+            "r"(smem_addr(dst)),
+        "l"(src), "r"(bytes), "r"(smem_addr(bar))
+        : "memory");
+  }
+}
+
+// The multiplying warps' own barrier (id 1): the fetching warp never joins.
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
+}
+
+// The weight ring of one block: `depth` stages, each with a barrier that its
+// copies complete (full) and one that its readers release (empty). One warp
+// fetches; the 8 multiplying warps of every block of the cluster release.
+template <int CL>
+struct Ring {
+  uint64_t* full;
+  uint64_t* empty;
+  int depth;
+  int slot = 0;
+  uint32_t parity;  // a fetcher starts at 1: a fresh slot is free
+
+  // One thread, then a barrier of the block (and the cluster).
+  __device__ static void init(uint64_t* full, uint64_t* empty, int depth) {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < depth; ++s) {
+        mbar_init(full + s, 1);
+        mbar_init(empty + s, CL * kWarps);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if constexpr (CL > 1) cluster_sync();  // the peers' barriers exist before any copy
+  }
+  __device__ __forceinline__ void advance() {
+    if (++slot == depth) {
+      slot = 0;
+      parity ^= 1;
+    }
+  }
+  // A reader's warp is done with slot s, here and (CL > 1) in its peer.
+  __device__ __forceinline__ void release(int s) const {
+    if ((threadIdx.x & 31) == 0) {
+      mbar_arrive(empty + s);
+      if constexpr (CL > 1) mbar_arrive_remote(empty + s, cluster_rank() ^ 1);
+    }
+  }
+};
 
 template <typename T>
 __host__ __device__ constexpr int pad_elems() {
@@ -109,25 +234,45 @@ __host__ __device__ constexpr int pad_elems() {
 }
 
 // Output columns one block computes per pass: bf16 warps are 32 x 64 tiles,
-// fp32 warps cover 4 rows x 256 columns.
+// fp32 warps cover 8 rows x 128 columns.
 template <typename T, int TM>
 __host__ __device__ constexpr int block_cols() {
-  return sizeof(T) == 2 ? 64 * (kWarps / (TM / 32)) : 256 * (kWarps / (TM / 4));
+  return sizeof(T) == 2 ? 64 * (kWarps / (TM / 32)) : 128 * (kWarps / (TM / 8));
 }
 
-// Copy the weight stage W[k0 : k0+kBK, n0 : n0+BN) (row-major, ld = nout)
-// into ws (ld = BN + pad); columns at or past nout are left alone.
-template <typename T, int BN>
-__device__ __forceinline__ void stage_weights(T* ws, const T* __restrict__ w,
-                                              int nout, int n0, int k0) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = BN / kVec;
+// ---------------------------------------------------------------------------
+// Routes "mma_sync" (bf16) and "fma" (fp32): row-major activations and weight
+// stages in padded rows.
+
+// The fetching warp: for every link, for every pass of BN output columns, KB
+// k-rows at a time, the stage W[k0 : k0+KB, n0 : n0+BN) (row-major, ld = nout)
+// into rows of BN + pad, one bulk copy a row, a lane a row. In a cluster a
+// block fetches every CL-th row for all its blocks.
+template <typename T, int BN, int KB, int CL>
+__device__ void fetch_weights(const T* a, const T* b, int K, int N, int chain, T* ring_base,
+                              Ring<CL> ring) {
   constexpr int ld = BN + pad_elems<T>();
-  for (int i = threadIdx.x; i < kBK * kPerRow; i += kThreads) {
-    const int r = i / kPerRow;
-    const int col = (i % kPerRow) * kVec;
-    if (n0 + col < nout)
-      cp_async16(ws + r * ld + col, w + (size_t)(k0 + r) * nout + n0 + col);
+  const int lane = threadIdx.x & 31;
+  const int rank = CL > 1 ? cluster_rank() : 0;
+  ring.parity = 1;
+  for (int link = 0; link < chain; ++link) {
+    const bool odd = link & 1;
+    const T* w = odd ? b : a;
+    const int kin = odd ? N : K, nout = odd ? K : N;
+    for (int n0 = 0; n0 < nout; n0 += BN) {
+      const uint32_t row_bytes = min(BN, nout - n0) * sizeof(T);
+      for (int k0 = 0; k0 < kin; k0 += KB) {
+        mbar_wait(ring.empty + ring.slot, ring.parity);
+        if (lane == 0) mbar_expect_tx(ring.full + ring.slot, KB * row_bytes);
+        __syncwarp();
+        T* ws = ring_base + (size_t)ring.slot * KB * ld;
+        for (int r = lane; r < KB; r += 32)
+          if (CL == 1 || r % CL == rank)
+            bulk_load<CL>(ws + r * ld, w + (size_t)(k0 + r) * nout + n0, row_bytes,
+                          ring.full + ring.slot);
+        ring.advance();
+      }
+    }
   }
 }
 
@@ -140,19 +285,27 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+      : "r"(smem_addr(p))
+      : "memory");
 }
 
 // One bf16 link: out[TM, nout] = act(in[TM, kin] @ w[kin, nout]), in T.
-template <int TM>
-__device__ void link_bf16(const __nv_bfloat16* in, int ldin, int kin,
-                          const __nv_bfloat16* __restrict__ w, int nout,
-                          __nv_bfloat16* out, int ldout, __nv_bfloat16* ws,
-                          bool out_bf16) {
+template <int TM, int KB, int CL>
+__device__ void link_bf16(const __nv_bfloat16* in, int ldin, int kin, int nout,
+                          __nv_bfloat16* out, int ldout, bool out_bf16,
+                          const __nv_bfloat16* ring_base, Ring<CL>& ring) {
   constexpr int kWarpsM = TM / 32;
   constexpr int kWarpsN = kWarps / kWarpsM;
   constexpr int BN = 64 * kWarpsN;
@@ -160,6 +313,10 @@ __device__ void link_bf16(const __nv_bfloat16* in, int ldin, int kin,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = warp / kWarpsN, wn = warp % kWarpsN;
   const int g = lane >> 2, tq = lane & 3;
+  // ldmatrix addresses: A matrices are rows 0-7 / 8-15 at k 0-7, then at k
+  // 8-15; B matrices k 0-7 / 8-15 of n-tile 2nj, then of n-tile 2nj+1
+  const int arow = wm * 32 + (lane & 7) + ((lane >> 3) & 1) * 8, acol = (lane >> 4) * 8;
+  const int brow = (lane & 7) + ((lane >> 3) & 1) * 8, bcol = wn * 64 + (lane >> 4) * 8;
 
   for (int n0 = 0; n0 < nout; n0 += BN) {
     const bool active = n0 + wn * 64 < nout;  // the same for the whole warp
@@ -171,41 +328,31 @@ __device__ void link_bf16(const __nv_bfloat16* in, int ldin, int kin,
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
 
-    stage_weights<__nv_bfloat16, BN>(ws, w, nout, n0, 0);
-    cp_async_commit();
-    int s = 0;
-    for (int k0 = 0; k0 < kin; k0 += kBK, s ^= 1) {
-      if (k0 + kBK < kin)
-        stage_weights<__nv_bfloat16, BN>(ws + (s ^ 1) * kBK * ldw, w, nout, n0, k0 + kBK);
-      cp_async_commit();
-      cp_async_wait<1>();  // stage k0 has landed (this thread's copies)
-      __syncthreads();     // ... and everyone's
+    for (int k0 = 0; k0 < kin; k0 += KB) {
+      mbar_wait(ring.full + ring.slot, ring.parity);
+      const __nv_bfloat16* wsk = ring_base + (size_t)ring.slot * KB * ldw;
       if (active) {
-        const __nv_bfloat16* wsk = ws + s * kBK * ldw;
-        uint32_t a[2][4];
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const __nv_bfloat16* p = in + (wm * 32 + mi * 16 + g) * ldin + k0 + 2 * tq;
-          a[mi][0] = *reinterpret_cast<const uint32_t*>(p);
-          a[mi][1] = *reinterpret_cast<const uint32_t*>(p + 8 * ldin);
-          a[mi][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-          a[mi][3] = *reinterpret_cast<const uint32_t*>(p + 8 * ldin + 8);
-        }
+        for (int kk = 0; kk < KB; kk += 16) {
+          uint32_t a[2][4];
 #pragma unroll
-        for (int nj = 0; nj < 4; ++nj) {
-          // matrices: k 0-7 / 8-15 of n-tile 2nj, then of n-tile 2nj+1
-          const int krow = (lane & 7) + ((lane >> 3) & 1) * 8;
-          const int ncol = wn * 64 + nj * 16 + (lane >> 4) * 8;
-          uint32_t b[4];
-          ldmatrix_x4_trans(b, wsk + krow * ldw + ncol);
+          for (int mi = 0; mi < 2; ++mi)
+            ldmatrix_x4(a[mi], in + (arow + mi * 16) * ldin + k0 + kk + acol);
 #pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            mma_bf16(acc[mi][2 * nj], a[mi], b[0], b[1]);
-            mma_bf16(acc[mi][2 * nj + 1], a[mi], b[2], b[3]);
+          for (int nj = 0; nj < 4; ++nj) {
+            uint32_t b[4];
+            ldmatrix_x4_trans(b, wsk + (kk + brow) * ldw + bcol + nj * 16);
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) {
+              mma_bf16(acc[mi][2 * nj], a[mi], b[0], b[1]);
+              mma_bf16(acc[mi][2 * nj + 1], a[mi], b[2], b[3]);
+            }
           }
         }
       }
-      __syncthreads();  // stage s is read; the next iteration refills it
+      __syncwarp();  // every lane's fragments are in registers
+      ring.release(ring.slot);
+      ring.advance();
     }
 
     if (active) {
@@ -228,144 +375,142 @@ __device__ void link_bf16(const __nv_bfloat16* in, int ldin, int kin,
 }
 
 // One fp32 link: out[TM, nout] = act(in[TM, kin] @ w[kin, nout]).
-template <int TM>
-__device__ void link_f32(const float* in, int ldin, int kin, const float* __restrict__ w,
-                         int nout, float* out, int ldout, float* ws, bool out_bf16) {
-  constexpr int kGroups = TM / 4;              // 4-row groups, one per warp set
+template <int TM, int KB, int CL>
+__device__ void link_f32(const float* in, int ldin, int kin, int nout, float* out, int ldout,
+                         bool out_bf16, const float* ring_base, Ring<CL>& ring) {
+  constexpr int kGroups = TM / 8;  // 8-row groups, one per warp set
   constexpr int kWarpsPerGroup = kWarps / kGroups;
-  constexpr int BN = 256 * kWarpsPerGroup;
+  constexpr int BN = 128 * kWarpsPerGroup;
   constexpr int ldw = BN + pad_elems<float>();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = (warp / kWarpsPerGroup) * 4;
-  const int cb = (warp % kWarpsPerGroup) * 256 + 4 * lane;  // and cb + 128
+  const int r0 = (warp / kWarpsPerGroup) * 8;
+  const int cb = (warp % kWarpsPerGroup) * 128 + 4 * lane;
 
   for (int n0 = 0; n0 < nout; n0 += BN) {
-    const bool c0 = n0 + cb < nout, c1 = n0 + cb + 128 < nout;
-    float acc[4][8];
+    const bool active = n0 + cb < nout;  // columns past nout would read a stale stage
+    float acc[8][4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < 8; ++r)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[r][j] = 0.f;
+      for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
 
-    stage_weights<float, BN>(ws, w, nout, n0, 0);
-    cp_async_commit();
-    int s = 0;
-    for (int k0 = 0; k0 < kin; k0 += kBK, s ^= 1) {
-      if (k0 + kBK < kin) stage_weights<float, BN>(ws + (s ^ 1) * kBK * ldw, w, nout, n0, k0 + kBK);
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
-      if (c0) {  // c1 implies c0; columns past nout read a stale stage, unused
-        const float* wsk = ws + s * kBK * ldw;
+    for (int k0 = 0; k0 < kin; k0 += KB) {
+      mbar_wait(ring.full + ring.slot, ring.parity);
+      const float* wsk = ring_base + (size_t)ring.slot * KB * ldw;
+      if (active) {
 #pragma unroll
-        for (int kk = 0; kk < kBK; kk += 4) {
-          float4 av[4];
+        for (int kk = 0; kk < KB; kk += 4) {
+          float4 av[8];
 #pragma unroll
-          for (int r = 0; r < 4; ++r)
+          for (int r = 0; r < 8; ++r)
             av[r] = *reinterpret_cast<const float4*>(in + (r0 + r) * ldin + k0 + kk);
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            const float4 b0 = *reinterpret_cast<const float4*>(wsk + (kk + j) * ldw + cb);
-            const float4 b1 = *reinterpret_cast<const float4*>(wsk + (kk + j) * ldw + cb + 128);
+            const float4 bv = *reinterpret_cast<const float4*>(wsk + (kk + j) * ldw + cb);
 #pragma unroll
-            for (int r = 0; r < 4; ++r) {
+            for (int r = 0; r < 8; ++r) {
               const float a = j == 0 ? av[r].x : j == 1 ? av[r].y : j == 2 ? av[r].z : av[r].w;
-              acc[r][0] = fmaf(a, b0.x, acc[r][0]);
-              acc[r][1] = fmaf(a, b0.y, acc[r][1]);
-              acc[r][2] = fmaf(a, b0.z, acc[r][2]);
-              acc[r][3] = fmaf(a, b0.w, acc[r][3]);
-              acc[r][4] = fmaf(a, b1.x, acc[r][4]);
-              acc[r][5] = fmaf(a, b1.y, acc[r][5]);
-              acc[r][6] = fmaf(a, b1.z, acc[r][6]);
-              acc[r][7] = fmaf(a, b1.w, acc[r][7]);
+              acc[r][0] = fmaf(a, bv.x, acc[r][0]);
+              acc[r][1] = fmaf(a, bv.y, acc[r][1]);
+              acc[r][2] = fmaf(a, bv.z, acc[r][2]);
+              acc[r][3] = fmaf(a, bv.w, acc[r][3]);
             }
           }
         }
       }
-      __syncthreads();
+      __syncwarp();  // every lane has read the stage
+      ring.release(ring.slot);
+      ring.advance();
     }
 
+    if (active) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      float* o = out + (r0 + r) * ldout + n0 + cb;
-      if (c0)
-        *reinterpret_cast<float4*>(o) =
+      for (int r = 0; r < 8; ++r)
+        *reinterpret_cast<float4*>(out + (r0 + r) * ldout + n0 + cb) =
             make_float4(act(acc[r][0], out_bf16), act(acc[r][1], out_bf16),
                         act(acc[r][2], out_bf16), act(acc[r][3], out_bf16));
-      if (c1)
-        *reinterpret_cast<float4*>(o + 128) =
-            make_float4(act(acc[r][4], out_bf16), act(acc[r][5], out_bf16),
-                        act(acc[r][6], out_bf16), act(acc[r][7], out_bf16));
     }
   }
 }
 
-template <typename T, int TM>
-__device__ __forceinline__ void link(const T* in, int ldin, int kin, const T* w, int nout,
-                                     T* out, int ldout, T* ws, bool out_bf16) {
-  if constexpr (sizeof(T) == 2)
-    link_bf16<TM>(in, ldin, kin, w, nout, out, ldout, ws, out_bf16);
-  else
-    link_f32<TM>(in, ldin, kin, w, nout, out, ldout, ws, out_bf16);
-}
-
-// grid (row tiles, C). partial: (C, tiles, N) fp32.
-template <typename T, int TM>
-__global__ void __launch_bounds__(kThreads, 1)
+// grid (row tiles rounded up to whole clusters, C), CL blocks a cluster along
+// x. partial: (C, gridDim.x, N) fp32.
+template <typename T, int TM, int KB, int CL>
+__global__ void __launch_bounds__(kBlockThreads, 1)
     chain_kernel(const float* __restrict__ t, const T* __restrict__ x,
                  const T* __restrict__ a, const T* __restrict__ b, int M, int K, int N,
-                 int chain, bool out_bf16, float* __restrict__ partial) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+                 int chain, bool out_bf16, int depth, float* __restrict__ partial) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kMaxDepth], empty[kMaxDepth];
   constexpr int pad = pad_elems<T>();
+  constexpr int BN = block_cols<T, TM>();
   const int ldk = K + pad, ldn = N + pad;
   T* buf_k = reinterpret_cast<T*>(smem_raw);
   T* buf_n = buf_k + TM * ldk;
-  T* ws = buf_n + TM * ldn;
+  T* ring_base = buf_n + TM * ldn;
 
   const int tile = blockIdx.x, cell = blockIdx.y;
   const int row0 = tile * TM;
-  const int rows = min(TM, M - row0);
+  const int rows = max(0, min(TM, M - row0));  // 0: a tile that only fills its cluster
 
-  // y = x + (T) t, rows past M as zeros
-  const float tt = Elem<T>::to_float(Elem<T>::from_float(__ldg(t)));
-  constexpr int kVec = 16 / sizeof(T);
-  const int per_row = K / kVec;
-  const T* xc = x + ((size_t)cell * M + row0) * K;
-  for (int i = threadIdx.x; i < TM * per_row; i += kThreads) {
-    const int r = i / per_row, col = (i % per_row) * kVec;
-    alignas(16) T v[kVec];
-    if (r < rows) {
-      *reinterpret_cast<uint4*>(v) =
-          __ldg(reinterpret_cast<const uint4*>(xc + (size_t)r * K + col));
-#pragma unroll
-      for (int j = 0; j < kVec; ++j)
-        v[j] = Elem<T>::from_float(Elem<T>::to_float(v[j]) + tt);
-    } else {
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) v[j] = Elem<T>::from_float(0.f);
+  Ring<CL>::init(full, empty, depth);
+  Ring<CL> ring{full, empty, depth, 0, 0};
+  if (threadIdx.x >= kThreads) {
+    fetch_weights<T, BN, KB, CL>(a, b, K, N, chain, ring_base, ring);
+  } else {
+    // y = x + (T) t, rows past M as zeros: every 16-byte piece is copied
+    // asynchronously, all at once; then the thread that copied a piece adds t
+    // to it in place
+    const float tt = Elem<T>::to_float(Elem<T>::from_float(__ldg(t)));
+    constexpr int kVec = 16 / sizeof(T);
+    const int per_row = K / kVec;
+    const T* xc = x + ((size_t)cell * M + row0) * K;
+    for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
+      const int r = i / per_row, col = (i % per_row) * kVec;
+      cp_async16(buf_k + r * ldk + col, xc + (size_t)r * K + col);
     }
-    *reinterpret_cast<uint4*>(buf_k + r * ldk + col) = *reinterpret_cast<uint4*>(v);
-  }
-  __syncthreads();
+    cp_async_wait_all();
+    for (int i = threadIdx.x; i < TM * per_row; i += kThreads) {
+      const int r = i / per_row, col = (i % per_row) * kVec;
+      alignas(16) T v[kVec];
+      uint4* piece = reinterpret_cast<uint4*>(buf_k + r * ldk + col);
+      if (r < rows) {
+        *reinterpret_cast<uint4*>(v) = *piece;
+#pragma unroll
+        for (int j = 0; j < kVec; ++j)
+          v[j] = Elem<T>::from_float(Elem<T>::to_float(v[j]) + tt);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) v[j] = Elem<T>::from_float(0.f);
+      }
+      *piece = *reinterpret_cast<uint4*>(v);
+    }
 
-  T* in = buf_k;
-  T* out = buf_n;
-  int ldin = ldk, ldout = ldn, kin = K, nout = N;
-  for (int i = 0; i < chain; ++i) {
-    link<T, TM>(in, ldin, kin, (i & 1) ? b : a, nout, out, ldout, ws, out_bf16);
-    __syncthreads();
-    T* tp = in; in = out; out = tp;
-    int ti = ldin; ldin = ldout; ldout = ti;
-    ti = kin; kin = nout; nout = ti;
-  }
+    T* in = buf_k;
+    T* out = buf_n;
+    int ldin = ldk, ldout = ldn, kin = K, nout = N;
+    for (int i = 0; i < chain; ++i) {
+      consumer_sync();  // the tile (x, or the link before) is whole
+      if constexpr (sizeof(T) == 2)
+        link_bf16<TM, KB, CL>(in, ldin, kin, nout, out, ldout, out_bf16, ring_base, ring);
+      else
+        link_f32<TM, KB, CL>(in, ldin, kin, nout, out, ldout, out_bf16, ring_base, ring);
+      T* tp = in; in = out; out = tp;
+      int ti = ldin; ldin = ldout; ldout = ti;
+      ti = kin; kin = nout; nout = ti;
+    }
+    consumer_sync();
 
-  // in holds the last link's (TM, N) output: sum its valid rows in order
-  float* pc = partial + ((size_t)cell * gridDim.x + tile) * N;
-  for (int col = threadIdx.x; col < N; col += kThreads) {
-    float s = 0.f;
-    for (int r = 0; r < rows; ++r) s += Elem<T>::to_float(in[r * ldin + col]);
-    pc[col] = s;
+    // in holds the last link's (TM, N) output: sum its valid rows in order
+    float* pc = partial + ((size_t)cell * gridDim.x + tile) * N;
+    for (int col = threadIdx.x; col < N; col += kThreads) {
+      float s = 0.f;
+      for (int r = 0; r < rows; ++r) s += Elem<T>::to_float(in[r * ldin + col]);
+      pc[col] = s;
+    }
   }
+  // no block leaves while a peer may still arrive on its barriers
+  if constexpr (CL > 1) cluster_sync();
 }
 
 // out[c, n] = sum over tiles of partial[c, tile, n], tiles in order.
@@ -381,56 +526,329 @@ __global__ void __launch_bounds__(kThreads)
   out[i] = s;
 }
 
-template <typename T, int TM>
-size_t smem_bytes(int K, int N) {
-  constexpr int pad = pad_elems<T>();
-  return sizeof(T) * ((size_t)TM * (K + pad) + (size_t)TM * (N + pad) +
-                      2 * (size_t)kBK * (block_cols<T, TM>() + pad));
-}
-
-template <typename T, int TM>
-int launch(const void* t, const void* x, const void* a, const void* b, int C, int M,
-           int K, int N, int chain, bool out_bf16, void* partial, void* out,
-           cudaStream_t s) {
-  const size_t smem = smem_bytes<T, TM>(K, N);
-  cudaError_t e = cudaFuncSetAttribute(chain_kernel<T, TM>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+// Launch `kernel` on (tiles, C) blocks of kBlockThreads threads, CL blocks a
+// cluster along x, then the sum over the row tiles.
+template <int CL, typename Kernel, typename... Args>
+int launch_chain(Kernel kernel, size_t smem, int tiles, int C, int N, void* partial, void* out,
+                 cudaStream_t s, Args... args) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return (int)e;
-  const int tiles = (M + TM - 1) / TM;
-  chain_kernel<T, TM><<<dim3(tiles, C), kThreads, smem, s>>>(
-      static_cast<const float*>(t), static_cast<const T*>(x), static_cast<const T*>(a),
-      static_cast<const T*>(b), M, K, N, chain, out_bf16, static_cast<float*>(partial));
-  e = cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles, C);
+  cfg.blockDim = dim3(kBlockThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = CL;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, args..., static_cast<float*>(partial));
   if (e != cudaSuccess) return (int)e;
   sum_tiles_kernel<<<(C * N + kThreads - 1) / kThreads, kThreads, 0, s>>>(
       static_cast<const float*>(partial), C, tiles, N, static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
 
+template <typename T, int TM, int KB, int CL>
+int launch(const void* t, const void* x, const void* a, const void* b, int C, int M,
+           int K, int N, int chain, bool out_bf16, int depth, void* partial, void* out,
+           cudaStream_t s) {
+  constexpr int pad = pad_elems<T>();
+  if (depth < 2 || depth > kMaxDepth || K % KB || N % KB) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(T) * ((size_t)TM * (K + pad) + (size_t)TM * (N + pad) +
+                                   (size_t)depth * KB * (block_cols<T, TM>() + pad));
+  const int tiles = ((M + TM - 1) / TM + CL - 1) / CL * CL;
+  return launch_chain<CL>(chain_kernel<T, TM, KB, CL>, smem, tiles, C, N, partial, out, s,
+                          static_cast<const float*>(t), static_cast<const T*>(x),
+                          static_cast<const T*>(a), static_cast<const T*>(b), M, K, N, chain,
+                          out_bf16, depth);
+}
+
+// ---------------------------------------------------------------------------
+// Route "wgmma" (bf16, TM 64, K and N multiples of 256).
+
+constexpr int kWgBN = 256;  // output columns a pass: 128 a warpgroup
+constexpr int kWgKB = 32;   // k-rows of a weight stage
+constexpr int kWgStageBytes = kWgKB * kWgBN * 2;
+
+// Makes this thread's shared-memory writes visible to wgmma's reads.
+__device__ __forceinline__ void fence_async_proxy() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// A shared-memory matrix descriptor without swizzle: core matrices of 8 rows
+// x 16 bytes, 128 contiguous bytes each; lbo is the byte step between core
+// matrices along k, sbo the step along m (or n).
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+// d (64 x 128, fp32) = or += A (64 x 16, k-major) @ B (16 x 128, n-major),
+// both bf16 in shared memory.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// Byte offset of element (r, c) of a 64-row activation tile in the layout
+// wgmma reads without swizzle: core matrices of 8 rows x 8 columns (128
+// contiguous bytes), the 8 row groups of one column group side by side.
+__device__ __forceinline__ int act_offset(int r, int c) {
+  return (((c >> 3) * 8 + (r >> 3)) << 7) + ((r & 7) << 4) + ((c & 7) << 1);
+}
+
+// grid (row tiles rounded up to whole clusters, C), CL blocks a cluster along
+// x. wa, wb: the weights in stage order (kernels/matmul_probe.py
+// pack_weight). partial: (C, gridDim.x, N) fp32.
+template <int CL>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    chain_wgmma_kernel(const float* __restrict__ t, const __nv_bfloat16* __restrict__ x,
+                       const __nv_bfloat16* __restrict__ wa,
+                       const __nv_bfloat16* __restrict__ wb, int M, int K, int N, int chain,
+                       bool out_bf16, int depth, float* __restrict__ partial) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kMaxDepth], empty[kMaxDepth];
+  unsigned char* buf_k = smem_raw;            // 64 x K
+  unsigned char* buf_n = buf_k + 128 * K;     // 64 x N
+  unsigned char* stages = buf_n + 128 * N;    // depth stages
+
+  const int tile = blockIdx.x, cell = blockIdx.y;
+  const int row0 = tile * 64;
+  const int rows = max(0, min(64, M - row0));  // 0: a tile that only fills its cluster
+
+  Ring<CL>::init(full, empty, depth);
+  Ring<CL> ring{full, empty, depth, 0, 0};
+  if (threadIdx.x >= kThreads) {
+    // ---- the fetching warp: one lane streams the stages, which lie in order
+    // in wa and wb; in a cluster each block fetches its share of every stage
+    if (threadIdx.x == kThreads) {
+      const uint32_t rank = CL > 1 ? cluster_rank() : 0;
+      constexpr uint32_t share = kWgStageBytes / CL;
+      const int stages_per_link = (K / kWgKB) * (N / kWgBN);  // the same for a and b
+      ring.parity = 1;
+      for (int link = 0; link < chain; ++link) {
+        const unsigned char* w = reinterpret_cast<const unsigned char*>((link & 1) ? wb : wa);
+        for (int s = 0; s < stages_per_link; ++s) {
+          mbar_wait(ring.empty + ring.slot, ring.parity);
+          mbar_expect_tx(ring.full + ring.slot, kWgStageBytes);
+          bulk_load<CL>(stages + (size_t)ring.slot * kWgStageBytes + rank * share,
+                        w + (size_t)s * kWgStageBytes + rank * share, share,
+                        ring.full + ring.slot);
+          ring.advance();
+        }
+      }
+    }
+    __syncwarp();
+  } else {
+    // ---- the two multiplying warpgroups
+    const int tid = threadIdx.x;
+    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, tq = lane & 3;
+
+    // y = x + (bf16) t in the activation layout, rows past M as zeros. A
+    // thread owns 16-byte pieces (8 columns of one row; a warp 8 rows x 64
+    // bytes): all of them are copied asynchronously at once, then each gets
+    // t added in place by the thread that copied it
+    {
+      const float tt = __bfloat162float(__float2bfloat16(__ldg(t)));
+      const __nv_bfloat16* xc = x + ((size_t)cell * M + row0) * K;
+      const int r = ((tid >> 5) << 3) + (tid & 7);
+      const int c0 = ((tid >> 3) & 3) * 8;
+      if (r < rows)
+        for (int c = c0; c < K; c += 32)
+          cp_async16(buf_k + act_offset(r, c), xc + (size_t)r * K + c);
+      cp_async_wait_all();
+      for (int c = c0; c < K; c += 32) {
+        alignas(16) __nv_bfloat16 v[8];
+        uint4* piece = reinterpret_cast<uint4*>(buf_k + act_offset(r, c));
+        if (r < rows) {
+          *reinterpret_cast<uint4*>(v) = *piece;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) v[j] = __float2bfloat16(__bfloat162float(v[j]) + tt);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) v[j] = __float2bfloat16(0.f);
+        }
+        *piece = *reinterpret_cast<uint4*>(v);
+      }
+    }
+
+    unsigned char* in = buf_k;
+    unsigned char* out = buf_n;
+    int kin = K, nout = N;
+    int held = -1;  // the slot whose products are still in flight
+    float acc[64];
+
+    for (int link = 0; link < chain; ++link) {
+      // the tile's writes (x, or the link before) reach wgmma's reads
+      fence_async_proxy();
+      consumer_sync();
+      for (int n0 = 0; n0 < nout; n0 += kWgBN) {
+        for (int k0 = 0; k0 < kin; k0 += kWgKB) {
+          mbar_wait(ring.full + ring.slot, ring.parity);
+          const unsigned char* ws = stages + (size_t)ring.slot * kWgStageBytes;
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < kWgKB / 16; ++ks) {
+            // A: k-step ks of the tile, two column groups of 8 x 128 bytes
+            const uint64_t da = wgmma_desc(in + (((k0 >> 3) + 2 * ks) << 10), 1024, 128);
+            // B: the stage's k-blocks 2ks, 2ks+1 (32 x 128 bytes each), this
+            // warpgroup's 16 column blocks
+            const uint64_t db = wgmma_desc(ws + ((2 * ks * (kWgBN / 8) + wg * 16) << 7),
+                                           (kWgBN / 8) * 128, 128);
+            wgmma_m64n128k16(acc, da, db, (k0 | ks) != 0);
+          }
+          wgmma_commit();
+          if (held >= 0) {  // one stage's products stay in flight
+            wgmma_wait<1>();
+            ring.release(held);
+          }
+          held = ring.slot;
+          ring.advance();
+        }
+        wgmma_wait<0>();
+        ring.release(held);
+        held = -1;
+
+        // (T) relu((O) acc) into the next link's operand
+        const int cb = ((n0 + wg * 128) >> 3);
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            __nv_bfloat162 v;
+            v.x = __float2bfloat16(act(acc[4 * j + 2 * h], out_bf16));
+            v.y = __float2bfloat16(act(acc[4 * j + 2 * h + 1], out_bf16));
+            *reinterpret_cast<__nv_bfloat162*>(
+                out + (((cb + j) * 8 + 2 * warp + h) << 7) + (g << 4) + (tq << 2)) = v;
+          }
+      }
+      unsigned char* tp = in; in = out; out = tp;
+      const int ti = kin; kin = nout; nout = ti;
+    }
+    consumer_sync();
+
+    // in holds the last link's (64, N) output: sum its valid rows in order
+    float* pc = partial + ((size_t)cell * gridDim.x + tile) * N;
+    for (int col = tid; col < N; col += kThreads) {
+      float s = 0.f;
+      for (int r = 0; r < rows; ++r)
+        s += __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(in + act_offset(r, col)));
+      pc[col] = s;
+    }
+  }
+  // no block leaves while a peer may still arrive on its barriers
+  if constexpr (CL > 1) cluster_sync();
+}
+
+template <int CL>
+int launch_wgmma(const void* t, const void* x, const void* wa, const void* wb, int C, int M,
+                 int K, int N, int chain, bool out_bf16, int depth, void* partial, void* out,
+                 cudaStream_t s) {
+  if (depth < 2 || depth > kMaxDepth || K % kWgBN || N % kWgBN) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)128 * (K + N) + (size_t)depth * kWgStageBytes;
+  const int tiles = ((M + 63) / 64 + CL - 1) / CL * CL;
+  return launch_chain<CL>(chain_wgmma_kernel<CL>, smem, tiles, C, N, partial, out, s,
+                          static_cast<const float*>(t), static_cast<const __nv_bfloat16*>(x),
+                          static_cast<const __nv_bfloat16*>(wa),
+                          static_cast<const __nv_bfloat16*>(wb), M, K, N, chain, out_bf16, depth);
+}
+
 }  // namespace
 
-// x (C, M, K), a (K, N), b (N, K) contiguous, all bf16 (bf16 != 0) or all
-// fp32; t one fp32 on the device; K and N multiples of 64; chain odd; tm the
-// row tile (bf16: 64 or 32, fp32: 32 or 16). partial: C * ceil(M/tm) * N
+// x (C, M, K), a (K, N), b (N, K) contiguous and 16-byte aligned, all bf16
+// (bf16 != 0) or all fp32; t one fp32 on the device; K and N multiples of 64;
+// chain odd. The plan of kernels/matmul_probe.py plan_probe: tm the row tile
+// (bf16: 64 or 32, fp32: 32 or 16), kb the k-rows of a weight stage (32 or
+// 16), depth the stages of the ring, cluster the blocks that share each
+// stage (1 or 2). partial: C * (ceil(M/tm) rounded up to whole clusters) * N
 // fp32 of scratch; out (C, 1, N) fp32. Both kernels run in order on stream.
-extern "C" int msl_matmul_probe(int bf16, int out_bf16, int tm, const void* t,
-                                const void* x, const void* a, const void* b, int C,
-                                int M, int K, int N, int chain, void* partial,
+extern "C" int msl_matmul_probe(int bf16, int out_bf16, int tm, int kb, int depth, int cluster,
+                                const void* t, const void* x, const void* a, const void* b,
+                                int C, int M, int K, int N, int chain, void* partial,
                                 void* out, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (K % 64 || N % 64 || chain % 2 == 0) return (int)cudaErrorInvalidValue;
+#define MSL_PROBE_CASE(T, TM, KB, CL)               \
+  if (tm == TM && kb == KB && cluster == CL)        \
+    return launch<T, TM, KB, CL>(t, x, a, b, C, M, K, N, chain, out_bf16, depth, partial, out, s);
   if (bf16) {
-    if (tm == 64)
-      return launch<__nv_bfloat16, 64>(t, x, a, b, C, M, K, N, chain, out_bf16, partial, out, s);
-    if (tm == 32)
-      return launch<__nv_bfloat16, 32>(t, x, a, b, C, M, K, N, chain, out_bf16, partial, out, s);
+    MSL_PROBE_CASE(__nv_bfloat16, 64, 32, 1)
+    MSL_PROBE_CASE(__nv_bfloat16, 64, 16, 1)
+    MSL_PROBE_CASE(__nv_bfloat16, 32, 32, 1)
+    MSL_PROBE_CASE(__nv_bfloat16, 32, 16, 1)
+    MSL_PROBE_CASE(__nv_bfloat16, 32, 32, 2)
+    MSL_PROBE_CASE(__nv_bfloat16, 32, 16, 2)
   } else {
-    if (tm == 32)
-      return launch<float, 32>(t, x, a, b, C, M, K, N, chain, out_bf16, partial, out, s);
-    if (tm == 16)
-      return launch<float, 16>(t, x, a, b, C, M, K, N, chain, out_bf16, partial, out, s);
+    MSL_PROBE_CASE(float, 32, 32, 1)
+    MSL_PROBE_CASE(float, 32, 16, 1)
+    MSL_PROBE_CASE(float, 16, 32, 1)
+    MSL_PROBE_CASE(float, 16, 16, 1)
+    MSL_PROBE_CASE(float, 32, 32, 2)
+    MSL_PROBE_CASE(float, 32, 16, 2)
+    MSL_PROBE_CASE(float, 16, 32, 2)
+    MSL_PROBE_CASE(float, 16, 16, 2)
   }
+#undef MSL_PROBE_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The same chain on the "wgmma" route: bf16, TM 64, K and N multiples of 256.
+// wa, wb: a and b in stage order (kernels/matmul_probe.py pack_weight);
+// cluster: blocks that share each weight stage (1 or 2); partial: C *
+// (ceil(M/64) rounded up to whole clusters) * N fp32 of scratch.
+extern "C" int msl_matmul_probe_wgmma(int out_bf16, int cluster, int depth, const void* t,
+                                      const void* x, const void* wa, const void* wb, int C,
+                                      int M, int K, int N, int chain, void* partial, void* out,
+                                      void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (chain % 2 == 0) return (int)cudaErrorInvalidValue;
+  if (cluster == 1)
+    return launch_wgmma<1>(t, x, wa, wb, C, M, K, N, chain, out_bf16, depth, partial, out, s);
+  if (cluster == 2)
+    return launch_wgmma<2>(t, x, wa, wb, C, M, K, N, chain, out_bf16, depth, partial, out, s);
   return (int)cudaErrorInvalidValue;
 }
 

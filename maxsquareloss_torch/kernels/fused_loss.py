@@ -7,7 +7,9 @@ CUDA C++ in ``csrc/fused_loss.cu`` (its header note gives the design),
 built by ``kernels/build.py`` and called through ``ctypes`` on PyTorch's
 current stream. Both directions read the logits once; the backward
 recomputes the softmax, so nothing but the logits (and the weights) is
-saved, and the (N, H, W, C) probabilities never reach device memory.
+saved, and the (N, H, W, C) probabilities never reach device memory. A
+block walks its pixels in tiles of 256 that one thread fetches with bulk
+asynchronous copies, one or two tiles ahead of the arithmetic.
 
 Each wrapper takes contiguous NHWC float32 logits with C <= 32. On a CPU
 tensor it runs the plain version (autograd through PyTorch ops); on a CUDA
@@ -40,6 +42,31 @@ def fused_iw_max_square_loss_reference(logits: torch.Tensor, weights: torch.Tens
 def fused_max_square_loss_reference(logits: torch.Tensor):
     """The plain version: ``-mean(softmax(logits)^2) / 2``."""
     return -torch.softmax(logits, dim=-1).square().mean() / 2.0
+
+
+def tile_image_indices(p0: int, hw: int, tiles: int) -> list[int]:
+    """The image index of every pixel of a block's ``tiles`` tiles, for a
+    block whose first pixel is ``p0`` and images of ``hw`` pixels: the
+    kernel's arithmetic (``ImageIndex`` in the .cu), restated. One division
+    at the block's first pixel; then a compare per pixel where an image
+    holds at least a tile (a tile crosses at most one image boundary), and
+    a division of a number below ``hw + THREADS`` where it holds less.
+    Equal to ``[pix // hw for pix in range(p0, p0 + tiles * THREADS)]``."""
+    n0, r0 = divmod(p0, hw)
+    out = []
+    for _ in range(tiles):
+        for t in range(THREADS):
+            off = r0 + t
+            out.append(n0 + (off >= hw) if hw >= THREADS else n0 + off // hw)
+        r0 += THREADS
+        if hw >= THREADS:
+            if r0 >= hw:
+                r0 -= hw
+                n0 += 1
+        else:
+            n0 += r0 // hw
+            r0 %= hw
+    return out
 
 
 def _library() -> ctypes.CDLL:

@@ -24,6 +24,7 @@ multiples of 64.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -32,8 +33,15 @@ from maxsquareloss_torch.kernels.build import CSRC, load, raise_on_error
 SOURCE = CSRC / "matmul_probe.cu"
 DTYPES = (torch.float32, torch.bfloat16)
 SMEM_LIMIT = 232_448  # dynamic shared memory one H100 block may take
-BK, PAD_BYTES = 16, 16  # kBK, kPadBytes in the .cu
+PAD_BYTES = 16  # kPadBytes in the .cu
 ROW_TILES = {torch.bfloat16: (64, 32), torch.float32: (32, 16)}  # largest first
+STAGE_ROWS = (32, 16)  # k-rows of a weight stage, largest first
+MIN_DEPTH, MAX_DEPTH = 2, 8  # stages of the weight ring (kMaxDepth in the .cu)
+# the "wgmma" route: 64 rows, passes of 256 columns, stages of 32 k-rows
+# (kWgBN, kWgKB in the .cu) without padding
+WGMMA_TM, WGMMA_COLS, WGMMA_STAGE_ROWS = 64, 256, 32
+CLUSTER = {"wgmma": 1, "mma_sync": 1, "fma": 1}  # blocks that share each weight stage
+SMEM_RESERVE = 1024  # static shared memory: the ring's barriers
 
 
 def matmul_chain_plain(t: torch.Tensor, x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -48,32 +56,100 @@ def matmul_chain_plain(t: torch.Tensor, x: torch.Tensor, a: torch.Tensor, b: tor
     return y.float().sum(dim=1, keepdim=True)
 
 
-def block_cols(dtype: torch.dtype, tm: int) -> int:
-    """Output columns a block computes per pass (``block_cols`` in the .cu)."""
-    return 64 * (8 // (tm // 32)) if dtype == torch.bfloat16 else 256 * (8 // (tm // 4))
+@dataclasses.dataclass(frozen=True)
+class ProbePlan:
+    """How one launch tiles the chain (``plan_probe``)."""
+
+    route: str        # "fma" (fp32, CUDA cores), "mma_sync" or "wgmma" (bf16, tensor cores)
+    tm: int           # rows of a cell one block keeps resident
+    block_cols: int   # output columns a block computes per pass (BN in the .cu)
+    stage_rows: int   # k-rows of one weight stage (kb)
+    depth: int        # stages of the weight ring
+    cluster: int      # blocks that share each weight stage
+    elem_bytes: int
+    stage_bytes: int
+    smem_bytes: int   # dynamic shared memory: both activation buffers and the ring
+
+    @property
+    def bytes_in_flight(self) -> int:
+        """Weight bytes a block has on their way while it multiplies one stage."""
+        return (self.depth - 1) * self.stage_bytes
+
+    @property
+    def flop_per_l2_weight_byte(self) -> float:
+        """Every cluster streams each whole weight from L2 for its own rows."""
+        return 2.0 * self.tm * self.cluster / self.elem_bytes
+
+    def tiles(self, m: int) -> int:
+        """Row tiles that hold rows of a cell of M rows."""
+        return -(-m // self.tm)
+
+    def grid_tiles(self, m: int) -> int:
+        """The grid's width: the row tiles rounded up to whole clusters, so
+        that a cluster never straddles two cells; a tile past M works on
+        zeros."""
+        return -(-self.tiles(m) // self.cluster) * self.cluster
 
 
-def smem_bytes(dtype: torch.dtype, tm: int, k: int, n: int) -> int:
-    """Dynamic shared memory of a launch: the TM x K and TM x N activation
-    buffers and two weight stages, every row padded by 16 bytes."""
+def _block_cols(dtype: torch.dtype, tm: int) -> int:
+    """``block_cols`` in the .cu: bf16 warps are 32 x 64 tiles, fp32 warps
+    cover 8 rows x 128 columns."""
+    return 64 * (8 // (tm // 32)) if dtype == torch.bfloat16 else 128 * (8 // (tm // 8))
+
+
+def plan_probe(dtype: torch.dtype, k: int, n: int) -> ProbePlan:
+    """The largest row tile whose two activation buffers leave room for a
+    weight ring of at least ``MIN_DEPTH`` stages, with the largest stage that
+    still gives such a ring (fewer barriers), as deep as the room allows."""
     es = torch.finfo(dtype).bits // 8
     pad = PAD_BYTES // es
-    return es * (tm * (k + pad) + tm * (n + pad) + 2 * BK * (block_cols(dtype, tm) + pad))
-
-
-def plan_rows(dtype: torch.dtype, k: int, n: int) -> int:
-    """The largest row tile whose buffers fit a block's shared memory."""
+    if dtype == torch.bfloat16 and k % WGMMA_COLS == 0 and n % WGMMA_COLS == 0:
+        # both activation tiles in wgmma's core-matrix layout, no padding
+        buffers = es * WGMMA_TM * (k + n)
+        stage = es * WGMMA_STAGE_ROWS * WGMMA_COLS
+        depth = min(MAX_DEPTH, (SMEM_LIMIT - SMEM_RESERVE - buffers) // stage)
+        if depth >= MIN_DEPTH:
+            return ProbePlan("wgmma", WGMMA_TM, WGMMA_COLS, WGMMA_STAGE_ROWS, depth,
+                             CLUSTER["wgmma"], es, stage, buffers + depth * stage)
     for tm in ROW_TILES[dtype]:
-        if smem_bytes(dtype, tm, k, n) <= SMEM_LIMIT:
-            return tm
+        bn = _block_cols(dtype, tm)
+        buffers = es * tm * (k + pad + n + pad)
+        for kb in STAGE_ROWS:
+            if k % kb or n % kb:
+                continue
+            stage = es * kb * (bn + pad)
+            depth = min(MAX_DEPTH, (SMEM_LIMIT - SMEM_RESERVE - buffers) // stage)
+            if depth >= MIN_DEPTH:
+                route = "mma_sync" if dtype == torch.bfloat16 else "fma"
+                return ProbePlan(route, tm, bn, kb, depth, CLUSTER[route], es, stage,
+                                 buffers + depth * stage)
     raise ValueError(f"matmul probe: K={k}, N={n} in {dtype} do not fit one block's "
                      f"shared memory at any row tile {ROW_TILES[dtype]}")
+
+
+def pack_weight(w: torch.Tensor) -> torch.Tensor:
+    """A (Kin, Nout) weight in the order the "wgmma" route streams it: for
+    every pass of 256 output columns, for every 8 k-rows, the 32 blocks of 8
+    columns as 8 x 8 core matrices of 128 contiguous bytes. A stage (32
+    k-rows of one pass) is then one contiguous run of bytes that a bulk copy
+    drops into shared memory in the layout ``wgmma`` reads."""
+    kin, nout = w.shape
+    return (w.reshape(kin // 8, 8, nout // WGMMA_COLS, WGMMA_COLS // 8, 8)
+            .permute(2, 0, 3, 1, 4).contiguous())
+
+
+def unpack_weight(packed: torch.Tensor) -> torch.Tensor:
+    """The (Kin, Nout) weight back from ``pack_weight``'s order."""
+    passes, kblocks, nblocks, _, _ = packed.shape
+    return packed.permute(1, 3, 0, 2, 4).reshape(kblocks * 8, passes * nblocks * 8)
 
 
 def _library() -> ctypes.CDLL:
     lib = load(SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.msl_matmul_probe.argtypes = [i, i, i, p, p, p, p, i, i, i, i, i, p, p, p]
+    lib.msl_matmul_probe_wgmma.argtypes = [i, i, i, p, p, p, p, i, i, i, i, i, p, p, p]
+    lib.msl_matmul_probe_wgmma.restype = i
+    lib.msl_matmul_probe.argtypes = [i, i, i, i, i, i, p, p, p, p, i, i, i, i, i, p, p, p]
     lib.msl_matmul_probe.restype = i
     return lib
 
@@ -101,6 +177,8 @@ def _check(t, x, a, b, chain: int, out_dtype: torch.dtype) -> None:
     for name, v in (("x", x), ("a", a), ("b", b), ("t", t)):
         if not v.is_contiguous():
             raise ValueError(f"matmul probe: {name} must be contiguous")
+        if name != "t" and v.data_ptr() % 16:
+            raise ValueError(f"matmul probe: {name} must be 16-byte aligned")
 
 
 def _launch(t, x, a, b, chain: int, out_dtype: torch.dtype) -> torch.Tensor:
@@ -109,14 +187,25 @@ def _launch(t, x, a, b, chain: int, out_dtype: torch.dtype) -> torch.Tensor:
     if k % 64 or n % 64:
         raise ValueError(f"matmul probe: the kernel needs K and N multiples of 64, got {k}, {n}")
     bf16 = x.dtype == torch.bfloat16
-    tm = plan_rows(x.dtype, k, n)
-    tiles = -(-m // tm)
-    partial = torch.empty((c, tiles, n), dtype=torch.float32, device=x.device)
+    plan = plan_probe(x.dtype, k, n)
+    partial = torch.empty((c, plan.grid_tiles(m), n), dtype=torch.float32, device=x.device)
     out = torch.empty((c, 1, n), dtype=torch.float32, device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
+        if plan.route == "wgmma":
+            wa, wb = pack_weight(a), pack_weight(b)  # part of the launch: it is timed with it
+            err = lib.msl_matmul_probe_wgmma(
+                int(out_dtype == torch.bfloat16), plan.cluster, plan.depth, t.data_ptr(),
+                x.data_ptr(), wa.data_ptr(), wb.data_ptr(), c, m, k, n, chain,
+                partial.data_ptr(), out.data_ptr(),
+                torch.cuda.current_stream(x.device).cuda_stream,
+            )
+            raise_on_error(err, lib, "matmul probe (wgmma)")
+            matmul_chain.launches += 1
+            return out
         err = lib.msl_matmul_probe(
-            int(bf16), int(out_dtype == torch.bfloat16), tm, t.data_ptr(), x.data_ptr(),
+            int(bf16), int(out_dtype == torch.bfloat16), plan.tm, plan.stage_rows, plan.depth,
+            plan.cluster, t.data_ptr(), x.data_ptr(),
             a.data_ptr(), b.data_ptr(), c, m, k, n, chain, partial.data_ptr(),
             out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
         )

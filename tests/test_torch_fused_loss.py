@@ -17,6 +17,7 @@ from jax.experimental.pallas import tpu as pltpu
 from experiments.retired_pallas import fused_loss as pallas
 from maxsquareloss_tpu.ops.histogram import class_histogram, iw_class_weights
 from maxsquareloss_tpu.ops.losses import iw_max_square_loss, max_square_loss
+from maxsquareloss_torch.kernels import fused_loss
 from maxsquareloss_torch.kernels.fused_loss import (
     fused_iw_max_square_loss,
     fused_max_square_loss,
@@ -118,3 +119,25 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(make, match):
     x, w = make(x, w)
     with pytest.raises((TypeError, ValueError), match=match):
         fused_iw_max_square_loss(x, w)
+
+
+@pytest.mark.parametrize("hw", [1, 7, 99, 255, 256, 257, 1961, 2048, 5000])
+@pytest.mark.parametrize("block", [0, 1, 3])
+def test_tile_image_index_matches_integer_division(hw, block):
+    """The kernel's image index per tile (one division at the block's first
+    pixel, then compares, or a small division where an image holds less
+    than a tile) against ``pix // (H*W)``, for H*W below, at and above the
+    256-pixel tile."""
+    tiles = fused_loss.PX_PER_BLOCK // fused_loss.THREADS
+    p0 = block * fused_loss.PX_PER_BLOCK
+    got = fused_loss.tile_image_indices(p0, hw, tiles)
+    assert got == [pix // hw for pix in range(p0, p0 + fused_loss.PX_PER_BLOCK)]
+
+
+def test_block_granularity_is_a_whole_number_of_tiles():
+    """The forward's partials, one per PX_PER_BLOCK pixels, fix the sum's
+    order by the shape alone; a block walks whole tiles."""
+    assert fused_loss.PX_PER_BLOCK == 2048 and fused_loss.THREADS == 256
+    x = torch.zeros(4, 37, 53, 19)
+    pixels, hw, c, blocks = fused_loss._grid(x)
+    assert (pixels, hw, c, blocks) == (4 * 37 * 53, 37 * 53, 19, -(-4 * 37 * 53 // 2048))

@@ -139,13 +139,113 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
 def test_row_tile_fits_shared_memory(dtype, k, n, tm):
     """The defaults and the layer-4 widths take the row tiles the design
     names, within one block's 227 KB."""
-    assert matmul_probe.plan_rows(dtype, k, n) == tm
-    assert matmul_probe.smem_bytes(dtype, tm, k, n) <= matmul_probe.SMEM_LIMIT
+    plan = matmul_probe.plan_probe(dtype, k, n)
+    assert plan.tm == tm
+    assert plan.smem_bytes <= matmul_probe.SMEM_LIMIT
 
 
 def test_too_wide_for_shared_memory_raises():
     with pytest.raises(ValueError, match="shared memory"):
-        matmul_probe.plan_rows(torch.float32, 8192, 512)
+        matmul_probe.plan_probe(torch.float32, 8192, 512)
+
+
+@pytest.mark.parametrize("k,n", [(1024, 256), (2048, 512), (64, 64)],
+                         ids=["defaults", "layer4", "smallest"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_plan_ring_fits_and_counts_its_bytes(dtype, k, n):
+    """The ring takes what the activation buffers leave of 232,448 bytes, at
+    a depth and stage size the kernel has an instance for, and the plan's
+    own numbers add up."""
+    plan = matmul_probe.plan_probe(dtype, k, n)
+    es = torch.finfo(dtype).bits // 8
+    wgmma = plan.route == "wgmma"  # no row padding
+    pad = 0 if wgmma else matmul_probe.PAD_BYTES // es
+    limit = matmul_probe.SMEM_LIMIT - (matmul_probe.SMEM_RESERVE)
+    assert plan.smem_bytes <= limit <= matmul_probe.SMEM_LIMIT == 232_448
+    assert matmul_probe.MIN_DEPTH <= plan.depth <= matmul_probe.MAX_DEPTH
+    assert plan.stage_rows in matmul_probe.STAGE_ROWS
+    assert k % plan.stage_rows == 0 and n % plan.stage_rows == 0
+    assert plan.stage_bytes == es * plan.stage_rows * (plan.block_cols + pad)
+    assert plan.smem_bytes == es * plan.tm * (k + n + 2 * pad) + plan.depth * plan.stage_bytes
+    assert plan.bytes_in_flight == (plan.depth - 1) * plan.stage_bytes
+    # one more stage would not fit (or the ring is at its cap)
+    assert plan.depth == matmul_probe.MAX_DEPTH or plan.smem_bytes + plan.stage_bytes > limit
+
+
+@pytest.mark.parametrize("dtype,k,n,flop_per_byte", [
+    (torch.bfloat16, 1024, 256, 64.0), (torch.bfloat16, 2048, 512, 32.0),
+    (torch.float32, 1024, 256, 16.0), (torch.float32, 2048, 512, 8.0),
+])
+def test_plan_flop_per_l2_weight_byte(dtype, k, n, flop_per_byte):
+    """A cluster streams each whole weight once for its tm * cluster rows:
+    2 * rows FLOP per weight element."""
+    plan = matmul_probe.plan_probe(dtype, k, n)
+    assert plan.flop_per_l2_weight_byte == flop_per_byte * plan.cluster
+    per_link_flop = 2 * plan.tm * plan.cluster * k * n
+    assert per_link_flop / (k * n * plan.elem_bytes) == plan.flop_per_l2_weight_byte
+
+
+@pytest.mark.parametrize("m", [13, 64, 1000, 1728])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_plan_clusters_never_straddle_a_cell(dtype, m):
+    """The grid is (row tiles padded to whole clusters, cells): every member
+    of a cluster works on the same cell, and the padded tiles lie past M."""
+    plan = matmul_probe.plan_probe(dtype, 1024, 256)
+    tiles = plan.tiles(m)
+    assert (tiles - 1) * plan.tm < m <= tiles * plan.tm
+    grid_x = plan.grid_tiles(m)
+    assert grid_x % plan.cluster == 0 and 0 <= grid_x - tiles < plan.cluster
+    for first in range(0, grid_x, plan.cluster):
+        members = range(first, first + plan.cluster)
+        assert all(t < grid_x for t in members)  # one cell's row of the grid
+        assert members[0] * plan.tm < m  # no cluster lies wholly past M
+
+
+def test_wgmma_route_takes_the_defaults_and_not_the_layer4_widths():
+    """bf16 at the defaults runs 64-row tiles on the wgmma route; a 64-row
+    K 2048 tile does not fit a block, so the layer-4 widths stay on mma.sync
+    at 32 rows, and fp32 stays on the CUDA cores."""
+    plan = matmul_probe.plan_probe(torch.bfloat16, 1024, 256)
+    assert (plan.route, plan.tm, plan.block_cols, plan.stage_rows) == ("wgmma", 64, 256, 32)
+    assert plan.smem_bytes + matmul_probe.SMEM_RESERVE <= matmul_probe.SMEM_LIMIT
+    assert matmul_probe.plan_probe(torch.bfloat16, 2048, 512).route == "mma_sync"
+    assert matmul_probe.plan_probe(torch.bfloat16, 1024, 64).route == "mma_sync"
+    assert matmul_probe.plan_probe(torch.float32, 1024, 256).route == "fma"
+
+
+@pytest.mark.parametrize("kin,nout", [(1024, 256), (256, 1024), (64, 512)])
+def test_pack_weight_round_trips_and_stages_are_contiguous(kin, nout):
+    """pack -> unpack is the identity; element (k, n) sits where the kernel's
+    descriptors look for it (pass, 8-row k-block, 8-column block, k, n); the
+    plain chain on the unpacked weights equals the plain chain on the
+    originals."""
+    rng = np.random.default_rng(5)
+    w = torch.from_numpy(rng.normal(size=(kin, nout)).astype(np.float32)).to(torch.bfloat16)
+    packed = matmul_probe.pack_weight(w)
+    assert packed.is_contiguous() and packed.numel() == w.numel()
+    assert torch.equal(matmul_probe.unpack_weight(packed), w)
+    flat = packed.reshape(-1)
+    for k, n in rng.integers(0, [kin, nout], size=(200, 2)):
+        k, n = int(k), int(n)
+        block = (n // 256 * (kin // 8) + k // 8) * 32 + n % 256 // 8  # 128-byte core matrix
+        assert flat[block * 64 + k % 8 * 8 + n % 8] == w[k, n]
+    stage = matmul_probe.WGMMA_STAGE_ROWS * matmul_probe.WGMMA_COLS  # elements, in order
+    first = matmul_probe.unpack_weight(flat[:stage].reshape(1, -1, 32, 8, 8))
+    assert torch.equal(first, w[:matmul_probe.WGMMA_STAGE_ROWS, :256])
+
+
+def test_plain_chain_on_unpacked_weights_equals_the_originals():
+    t, x, a, b = _inputs(16)
+    k, n = 256, 256
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(size=(2, 16, k)).astype(np.float32) * 0.05).to(torch.bfloat16)
+    a = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32) * 0.05).to(torch.bfloat16)
+    b = torch.from_numpy(rng.normal(size=(n, k)).astype(np.float32) * 0.05).to(torch.bfloat16)
+    t = torch.from_numpy(t)
+    want = matmul_chain_plain(t, x, a, b, 3, torch.bfloat16)
+    ua = matmul_probe.unpack_weight(matmul_probe.pack_weight(a))
+    ub = matmul_probe.unpack_weight(matmul_probe.pack_weight(b))
+    assert torch.equal(matmul_chain_plain(t, x, ua, ub, 3, torch.bfloat16), want)
 
 
 def test_entry_point_flags_match_the_reference_script():
