@@ -31,33 +31,53 @@
 //   reading one and writing the other. The grid is (ceil(M/TM), C): 27 x 72
 //   blocks at the defaults. kernels/matmul_probe.py plan_probe picks the
 //   route, TM and the weight ring and hands them to the launch.
-// - The weights stream from L2 through a ring of `depth` stages of `kb`
-//   k-rows by BN columns that fills what the activation buffers leave of the
-//   block's 227 KB. The ring runs across column passes and across links: it
-//   never drains, so a pass's first stages land during the epilogue before.
-//
-// Route "mma_sync" (bf16) and "fma" (fp32): 256 threads, TM 64/32 (bf16) or
-// 32/16 (fp32).
-// - All threads copy the stages with 16-byte cp.async, depth-1 stages ahead;
-//   one barrier a stage: wait for stage i, barrier, start the copy into the
-//   slot the barrier just freed, multiply stage i.
-// - bf16: 8 warps, each a 32 x 64 output tile as 2 x 8 mma.sync m16n8k16
-//   (bf16 in, fp32 accumulators). A fragments come by ldmatrix.x4 from the
-//   row-major activations, B fragments by ldmatrix.x4.trans from the
-//   row-major weight stage. Shared rows are padded by 16 bytes, so neither
-//   the fragment loads nor the epilogue's stores conflict on banks.
-// - fp32: 8 warps; a thread owns an 8-row x 4-column register tile (32 fp32
-//   accumulators, FMA on the CUDA cores). All lanes of a warp share their 8
-//   rows, so the activation operand is a broadcast float4 read (4 k-steps);
-//   the weight operand is one float4 read a k-step, a warp on 512 contiguous
-//   bytes: 12 shared-memory reads for 128 FMAs, so the FMA pipe and not the
-//   shared memory sets the pace.
+// - A block is 8 warps that multiply and one warp that fetches. The weights
+//   stream from L2 through a ring of `depth` stages of KB k-rows by BN
+//   columns that fills what the activation buffers leave of the block's 227
+//   KB. The fetching warp fills a stage with bulk asynchronous copies
+//   (cp.async.bulk, no tensor map) that complete the stage's `full`
+//   mbarrier; a multiplying warp waits for `full`, multiplies, and arrives on
+//   the stage's `empty` mbarrier, which the fetching warp waits for before
+//   it refills the slot. No barrier of the whole block stands between two
+//   stages, the warps drift apart, and the ring runs on across column passes
+//   and links: a pass's first stages land during the epilogue before it.
+// - x arrives by 16-byte cp.async, every piece of the tile in flight at once;
+//   then the thread that copied a piece adds t to it in place.
 // - Each link's epilogue applies the casts and the ReLU in the reference's
-//   order and writes the next link's operand to shared memory in T.
-// - Ragged M: rows past M load as zeros and are left out of the row sum.
+//   order and writes the next link's operand to shared memory in T; the
+//   multiplying warps meet one barrier of their own between two links.
+// - Ragged M: rows past M are zeros and are left out of the row sum.
 // - Deterministic row sum, no atomics: each block sums its rows in order into
 //   one partial per (cell, row tile, column); a second kernel, one thread per
 //   (cell, column), sums the row tiles' partials in order.
+//
+// Route "wgmma" (bf16, K and N multiples of 256, a 64-row tile that fits):
+// - Two warpgroups, each 128 of a pass's 256 output columns, issue
+//   wgmma.mma_async m64n128k16 (fp32 accumulators in registers) with both
+//   operands read from shared memory through descriptors.
+// - The activation tiles lie in the layout wgmma reads without swizzle: core
+//   matrices of 8 rows x 16 bytes, 128 contiguous bytes each (act_offset).
+//   The fill from x, every epilogue and the final row sum use that map.
+// - The weights are (K, N) row-major, n-major for wgmma's B: the wrapper
+//   packs a and b once per call into stage order (pack_weight: 8 x 8 core
+//   matrices, 32 k-rows of one pass contiguous), so one bulk copy of 16 KB
+//   fills a stage, and the transpose flag of the instruction reads it.
+// - One stage's products stay in flight while the next stage's are issued; a
+//   slot is released when its products have completed.
+//
+// Routes "mma_sync" (bf16 elsewhere: TM 64 or 32) and "fma" (fp32: TM 32 or
+// 16): row-major activations and weight stages in rows padded by 16 bytes,
+// one bulk copy a stage row, a lane of the fetching warp a row.
+// - bf16: each warp a 32 x 64 output tile as 2 x 8 mma.sync m16n8k16 (bf16
+//   in, fp32 accumulators). A fragments come by ldmatrix.x4 from the
+//   activations, B fragments by ldmatrix.x4.trans from the weight stage; the
+//   padding keeps the fragment loads and the epilogue's stores off each
+//   other's banks.
+// - fp32: a thread owns an 8-row x 4-column register tile (32 fp32
+//   accumulators, FMA on the CUDA cores). All lanes of a warp share their 8
+//   rows, so the activation operand is a broadcast float4 read (4 k-steps);
+//   the weight operand is one float4 read a k-step, a warp on 512 contiguous
+//   bytes: 12 shared-memory reads for 128 FMAs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -141,48 +161,15 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// Every thread of every block of the cluster.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n"
-               "barrier.cluster.wait.acquire.aligned;\n" ::
-                   : "memory");
-}
-
-// Arrive on the barrier at the same address in block `rank` of the cluster.
-__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, uint32_t rank) {
-  asm volatile(
-      "{\n.reg .b32 ra;\n"
-      "mapa.shared::cluster.u32 ra, %0, %1;\n"
-      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];\n}\n" ::"r"(smem_addr(bar)),
-      "r"(rank)
-      : "memory");
-}
-
 // One bulk copy of `bytes` (a multiple of 16; dst, src 16-byte aligned) that
-// reports to bar. With CL > 1 it lands at dst, and reports to bar, in every
-// block of the cluster.
-template <int CL>
+// reports to bar.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
                                           uint64_t* bar) {
-  if constexpr (CL > 1) {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
-        "[%0], [%1], %2, [%3], %4;\n" ::"r"(smem_addr(dst)),
-        "l"(src), "r"(bytes), "r"(smem_addr(bar)), "h"((uint16_t)((1u << CL) - 1))
-        : "memory");
-  } else {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-            "r"(smem_addr(dst)),
-        "l"(src), "r"(bytes), "r"(smem_addr(bar))
-        : "memory");
-  }
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }
 
 // The multiplying warps' own barrier (id 1): the fetching warp never joins.
@@ -192,8 +179,7 @@ __device__ __forceinline__ void consumer_sync() {
 
 // The weight ring of one block: `depth` stages, each with a barrier that its
 // copies complete (full) and one that its readers release (empty). One warp
-// fetches; the 8 multiplying warps of every block of the cluster release.
-template <int CL>
+// fetches; the 8 multiplying warps release.
 struct Ring {
   uint64_t* full;
   uint64_t* empty;
@@ -201,17 +187,16 @@ struct Ring {
   int slot = 0;
   uint32_t parity;  // a fetcher starts at 1: a fresh slot is free
 
-  // One thread, then a barrier of the block (and the cluster).
+  // One thread, then a barrier of the block.
   __device__ static void init(uint64_t* full, uint64_t* empty, int depth) {
     if (threadIdx.x == 0) {
       for (int s = 0; s < depth; ++s) {
         mbar_init(full + s, 1);
-        mbar_init(empty + s, CL * kWarps);
+        mbar_init(empty + s, kWarps);
       }
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     __syncthreads();
-    if constexpr (CL > 1) cluster_sync();  // the peers' barriers exist before any copy
   }
   __device__ __forceinline__ void advance() {
     if (++slot == depth) {
@@ -219,12 +204,9 @@ struct Ring {
       parity ^= 1;
     }
   }
-  // A reader's warp is done with slot s, here and (CL > 1) in its peer.
+  // A reader's warp is done with slot s.
   __device__ __forceinline__ void release(int s) const {
-    if ((threadIdx.x & 31) == 0) {
-      mbar_arrive(empty + s);
-      if constexpr (CL > 1) mbar_arrive_remote(empty + s, cluster_rank() ^ 1);
-    }
+    if ((threadIdx.x & 31) == 0) mbar_arrive(empty + s);
   }
 };
 
@@ -246,14 +228,12 @@ __host__ __device__ constexpr int block_cols() {
 
 // The fetching warp: for every link, for every pass of BN output columns, KB
 // k-rows at a time, the stage W[k0 : k0+KB, n0 : n0+BN) (row-major, ld = nout)
-// into rows of BN + pad, one bulk copy a row, a lane a row. In a cluster a
-// block fetches every CL-th row for all its blocks.
-template <typename T, int BN, int KB, int CL>
+// into rows of BN + pad, one bulk copy a row, a lane a row.
+template <typename T, int BN, int KB>
 __device__ void fetch_weights(const T* a, const T* b, int K, int N, int chain, T* ring_base,
-                              Ring<CL> ring) {
+                              Ring ring) {
   constexpr int ld = BN + pad_elems<T>();
   const int lane = threadIdx.x & 31;
-  const int rank = CL > 1 ? cluster_rank() : 0;
   ring.parity = 1;
   for (int link = 0; link < chain; ++link) {
     const bool odd = link & 1;
@@ -267,9 +247,8 @@ __device__ void fetch_weights(const T* a, const T* b, int K, int N, int chain, T
         __syncwarp();
         T* ws = ring_base + (size_t)ring.slot * KB * ld;
         for (int r = lane; r < KB; r += 32)
-          if (CL == 1 || r % CL == rank)
-            bulk_load<CL>(ws + r * ld, w + (size_t)(k0 + r) * nout + n0, row_bytes,
-                          ring.full + ring.slot);
+          bulk_load(ws + r * ld, w + (size_t)(k0 + r) * nout + n0, row_bytes,
+                    ring.full + ring.slot);
         ring.advance();
       }
     }
@@ -302,10 +281,10 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
 }
 
 // One bf16 link: out[TM, nout] = act(in[TM, kin] @ w[kin, nout]), in T.
-template <int TM, int KB, int CL>
+template <int TM, int KB>
 __device__ void link_bf16(const __nv_bfloat16* in, int ldin, int kin, int nout,
                           __nv_bfloat16* out, int ldout, bool out_bf16,
-                          const __nv_bfloat16* ring_base, Ring<CL>& ring) {
+                          const __nv_bfloat16* ring_base, Ring& ring) {
   constexpr int kWarpsM = TM / 32;
   constexpr int kWarpsN = kWarps / kWarpsM;
   constexpr int BN = 64 * kWarpsN;
@@ -375,9 +354,9 @@ __device__ void link_bf16(const __nv_bfloat16* in, int ldin, int kin, int nout,
 }
 
 // One fp32 link: out[TM, nout] = act(in[TM, kin] @ w[kin, nout]).
-template <int TM, int KB, int CL>
+template <int TM, int KB>
 __device__ void link_f32(const float* in, int ldin, int kin, int nout, float* out, int ldout,
-                         bool out_bf16, const float* ring_base, Ring<CL>& ring) {
+                         bool out_bf16, const float* ring_base, Ring& ring) {
   constexpr int kGroups = TM / 8;  // 8-row groups, one per warp set
   constexpr int kWarpsPerGroup = kWarps / kGroups;
   constexpr int BN = 128 * kWarpsPerGroup;
@@ -433,9 +412,8 @@ __device__ void link_f32(const float* in, int ldin, int kin, int nout, float* ou
   }
 }
 
-// grid (row tiles rounded up to whole clusters, C), CL blocks a cluster along
-// x. partial: (C, gridDim.x, N) fp32.
-template <typename T, int TM, int KB, int CL>
+// grid (row tiles, C). partial: (C, tiles, N) fp32.
+template <typename T, int TM, int KB>
 __global__ void __launch_bounds__(kBlockThreads, 1)
     chain_kernel(const float* __restrict__ t, const T* __restrict__ x,
                  const T* __restrict__ a, const T* __restrict__ b, int M, int K, int N,
@@ -451,12 +429,12 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
 
   const int tile = blockIdx.x, cell = blockIdx.y;
   const int row0 = tile * TM;
-  const int rows = max(0, min(TM, M - row0));  // 0: a tile that only fills its cluster
+  const int rows = min(TM, M - row0);
 
-  Ring<CL>::init(full, empty, depth);
-  Ring<CL> ring{full, empty, depth, 0, 0};
+  Ring::init(full, empty, depth);
+  Ring ring{full, empty, depth, 0, 0};
   if (threadIdx.x >= kThreads) {
-    fetch_weights<T, BN, KB, CL>(a, b, K, N, chain, ring_base, ring);
+    fetch_weights<T, BN, KB>(a, b, K, N, chain, ring_base, ring);
   } else {
     // y = x + (T) t, rows past M as zeros: every 16-byte piece is copied
     // asynchronously, all at once; then the thread that copied a piece adds t
@@ -492,9 +470,9 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
     for (int i = 0; i < chain; ++i) {
       consumer_sync();  // the tile (x, or the link before) is whole
       if constexpr (sizeof(T) == 2)
-        link_bf16<TM, KB, CL>(in, ldin, kin, nout, out, ldout, out_bf16, ring_base, ring);
+        link_bf16<TM, KB>(in, ldin, kin, nout, out, ldout, out_bf16, ring_base, ring);
       else
-        link_f32<TM, KB, CL>(in, ldin, kin, nout, out, ldout, out_bf16, ring_base, ring);
+        link_f32<TM, KB>(in, ldin, kin, nout, out, ldout, out_bf16, ring_base, ring);
       T* tp = in; in = out; out = tp;
       int ti = ldin; ldin = ldout; ldout = ti;
       ti = kin; kin = nout; nout = ti;
@@ -509,8 +487,6 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
       pc[col] = s;
     }
   }
-  // no block leaves while a peer may still arrive on its barriers
-  if constexpr (CL > 1) cluster_sync();
 }
 
 // out[c, n] = sum over tiles of partial[c, tile, n], tiles in order.
@@ -526,34 +502,23 @@ __global__ void __launch_bounds__(kThreads)
   out[i] = s;
 }
 
-// Launch `kernel` on (tiles, C) blocks of kBlockThreads threads, CL blocks a
-// cluster along x, then the sum over the row tiles.
-template <int CL, typename Kernel, typename... Args>
+// Launch `kernel` on (tiles, C) blocks of kBlockThreads threads, then the sum
+// over the row tiles.
+template <typename Kernel, typename... Args>
 int launch_chain(Kernel kernel, size_t smem, int tiles, int C, int N, void* partial, void* out,
                  cudaStream_t s, Args... args) {
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return (int)e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(tiles, C);
-  cfg.blockDim = dim3(kBlockThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = CL;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, args..., static_cast<float*>(partial));
+  kernel<<<dim3(tiles, C), kBlockThreads, smem, s>>>(args..., static_cast<float*>(partial));
+  e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   sum_tiles_kernel<<<(C * N + kThreads - 1) / kThreads, kThreads, 0, s>>>(
       static_cast<const float*>(partial), C, tiles, N, static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
 
-template <typename T, int TM, int KB, int CL>
+template <typename T, int TM, int KB>
 int launch(const void* t, const void* x, const void* a, const void* b, int C, int M,
            int K, int N, int chain, bool out_bf16, int depth, void* partial, void* out,
            cudaStream_t s) {
@@ -561,11 +526,10 @@ int launch(const void* t, const void* x, const void* a, const void* b, int C, in
   if (depth < 2 || depth > kMaxDepth || K % KB || N % KB) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(T) * ((size_t)TM * (K + pad) + (size_t)TM * (N + pad) +
                                    (size_t)depth * KB * (block_cols<T, TM>() + pad));
-  const int tiles = ((M + TM - 1) / TM + CL - 1) / CL * CL;
-  return launch_chain<CL>(chain_kernel<T, TM, KB, CL>, smem, tiles, C, N, partial, out, s,
-                          static_cast<const float*>(t), static_cast<const T*>(x),
-                          static_cast<const T*>(a), static_cast<const T*>(b), M, K, N, chain,
-                          out_bf16, depth);
+  return launch_chain(chain_kernel<T, TM, KB>, smem, (M + TM - 1) / TM, C, N, partial, out, s,
+                      static_cast<const float*>(t), static_cast<const T*>(x),
+                      static_cast<const T*>(a), static_cast<const T*>(b), M, K, N, chain,
+                      out_bf16, depth);
 }
 
 // ---------------------------------------------------------------------------
@@ -639,10 +603,8 @@ __device__ __forceinline__ int act_offset(int r, int c) {
   return (((c >> 3) * 8 + (r >> 3)) << 7) + ((r & 7) << 4) + ((c & 7) << 1);
 }
 
-// grid (row tiles rounded up to whole clusters, C), CL blocks a cluster along
-// x. wa, wb: the weights in stage order (kernels/matmul_probe.py
-// pack_weight). partial: (C, gridDim.x, N) fp32.
-template <int CL>
+// grid (row tiles, C). wa, wb: the weights in stage order
+// (kernels/matmul_probe.py pack_weight). partial: (C, tiles, N) fp32.
 __global__ void __launch_bounds__(kBlockThreads, 1)
     chain_wgmma_kernel(const float* __restrict__ t, const __nv_bfloat16* __restrict__ x,
                        const __nv_bfloat16* __restrict__ wa,
@@ -656,16 +618,14 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
 
   const int tile = blockIdx.x, cell = blockIdx.y;
   const int row0 = tile * 64;
-  const int rows = max(0, min(64, M - row0));  // 0: a tile that only fills its cluster
+  const int rows = min(64, M - row0);
 
-  Ring<CL>::init(full, empty, depth);
-  Ring<CL> ring{full, empty, depth, 0, 0};
+  Ring::init(full, empty, depth);
+  Ring ring{full, empty, depth, 0, 0};
   if (threadIdx.x >= kThreads) {
     // ---- the fetching warp: one lane streams the stages, which lie in order
-    // in wa and wb; in a cluster each block fetches its share of every stage
+    // in wa and wb
     if (threadIdx.x == kThreads) {
-      const uint32_t rank = CL > 1 ? cluster_rank() : 0;
-      constexpr uint32_t share = kWgStageBytes / CL;
       const int stages_per_link = (K / kWgKB) * (N / kWgBN);  // the same for a and b
       ring.parity = 1;
       for (int link = 0; link < chain; ++link) {
@@ -673,9 +633,8 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
         for (int s = 0; s < stages_per_link; ++s) {
           mbar_wait(ring.empty + ring.slot, ring.parity);
           mbar_expect_tx(ring.full + ring.slot, kWgStageBytes);
-          bulk_load<CL>(stages + (size_t)ring.slot * kWgStageBytes + rank * share,
-                        w + (size_t)s * kWgStageBytes + rank * share, share,
-                        ring.full + ring.slot);
+          bulk_load(stages + (size_t)ring.slot * kWgStageBytes,
+                    w + (size_t)s * kWgStageBytes, kWgStageBytes, ring.full + ring.slot);
           ring.advance();
         }
       }
@@ -779,21 +738,17 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
       pc[col] = s;
     }
   }
-  // no block leaves while a peer may still arrive on its barriers
-  if constexpr (CL > 1) cluster_sync();
 }
 
-template <int CL>
 int launch_wgmma(const void* t, const void* x, const void* wa, const void* wb, int C, int M,
                  int K, int N, int chain, bool out_bf16, int depth, void* partial, void* out,
                  cudaStream_t s) {
   if (depth < 2 || depth > kMaxDepth || K % kWgBN || N % kWgBN) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)128 * (K + N) + (size_t)depth * kWgStageBytes;
-  const int tiles = ((M + 63) / 64 + CL - 1) / CL * CL;
-  return launch_chain<CL>(chain_wgmma_kernel<CL>, smem, tiles, C, N, partial, out, s,
-                          static_cast<const float*>(t), static_cast<const __nv_bfloat16*>(x),
-                          static_cast<const __nv_bfloat16*>(wa),
-                          static_cast<const __nv_bfloat16*>(wb), M, K, N, chain, out_bf16, depth);
+  return launch_chain(chain_wgmma_kernel, smem, (M + 63) / 64, C, N, partial, out, s,
+                      static_cast<const float*>(t), static_cast<const __nv_bfloat16*>(x),
+                      static_cast<const __nv_bfloat16*>(wa),
+                      static_cast<const __nv_bfloat16*>(wb), M, K, N, chain, out_bf16, depth);
 }
 
 }  // namespace
@@ -802,34 +757,27 @@ int launch_wgmma(const void* t, const void* x, const void* wa, const void* wb, i
 // (bf16 != 0) or all fp32; t one fp32 on the device; K and N multiples of 64;
 // chain odd. The plan of kernels/matmul_probe.py plan_probe: tm the row tile
 // (bf16: 64 or 32, fp32: 32 or 16), kb the k-rows of a weight stage (32 or
-// 16), depth the stages of the ring, cluster the blocks that share each
-// stage (1 or 2). partial: C * (ceil(M/tm) rounded up to whole clusters) * N
-// fp32 of scratch; out (C, 1, N) fp32. Both kernels run in order on stream.
-extern "C" int msl_matmul_probe(int bf16, int out_bf16, int tm, int kb, int depth, int cluster,
+// 16), depth the stages of the ring. partial: C * ceil(M/tm) * N fp32 of
+// scratch; out (C, 1, N) fp32. Both kernels run in order on stream.
+extern "C" int msl_matmul_probe(int bf16, int out_bf16, int tm, int kb, int depth,
                                 const void* t, const void* x, const void* a, const void* b,
                                 int C, int M, int K, int N, int chain, void* partial,
                                 void* out, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (K % 64 || N % 64 || chain % 2 == 0) return (int)cudaErrorInvalidValue;
-#define MSL_PROBE_CASE(T, TM, KB, CL)               \
-  if (tm == TM && kb == KB && cluster == CL)        \
-    return launch<T, TM, KB, CL>(t, x, a, b, C, M, K, N, chain, out_bf16, depth, partial, out, s);
+#define MSL_PROBE_CASE(T, TM, KB)  \
+  if (tm == TM && kb == KB)        \
+    return launch<T, TM, KB>(t, x, a, b, C, M, K, N, chain, out_bf16, depth, partial, out, s);
   if (bf16) {
-    MSL_PROBE_CASE(__nv_bfloat16, 64, 32, 1)
-    MSL_PROBE_CASE(__nv_bfloat16, 64, 16, 1)
-    MSL_PROBE_CASE(__nv_bfloat16, 32, 32, 1)
-    MSL_PROBE_CASE(__nv_bfloat16, 32, 16, 1)
-    MSL_PROBE_CASE(__nv_bfloat16, 32, 32, 2)
-    MSL_PROBE_CASE(__nv_bfloat16, 32, 16, 2)
+    MSL_PROBE_CASE(__nv_bfloat16, 64, 32)
+    MSL_PROBE_CASE(__nv_bfloat16, 64, 16)
+    MSL_PROBE_CASE(__nv_bfloat16, 32, 32)
+    MSL_PROBE_CASE(__nv_bfloat16, 32, 16)
   } else {
-    MSL_PROBE_CASE(float, 32, 32, 1)
-    MSL_PROBE_CASE(float, 32, 16, 1)
-    MSL_PROBE_CASE(float, 16, 32, 1)
-    MSL_PROBE_CASE(float, 16, 16, 1)
-    MSL_PROBE_CASE(float, 32, 32, 2)
-    MSL_PROBE_CASE(float, 32, 16, 2)
-    MSL_PROBE_CASE(float, 16, 32, 2)
-    MSL_PROBE_CASE(float, 16, 16, 2)
+    MSL_PROBE_CASE(float, 32, 32)
+    MSL_PROBE_CASE(float, 32, 16)
+    MSL_PROBE_CASE(float, 16, 32)
+    MSL_PROBE_CASE(float, 16, 16)
   }
 #undef MSL_PROBE_CASE
   return (int)cudaErrorInvalidValue;
@@ -837,19 +785,14 @@ extern "C" int msl_matmul_probe(int bf16, int out_bf16, int tm, int kb, int dept
 
 // The same chain on the "wgmma" route: bf16, TM 64, K and N multiples of 256.
 // wa, wb: a and b in stage order (kernels/matmul_probe.py pack_weight);
-// cluster: blocks that share each weight stage (1 or 2); partial: C *
-// (ceil(M/64) rounded up to whole clusters) * N fp32 of scratch.
-extern "C" int msl_matmul_probe_wgmma(int out_bf16, int cluster, int depth, const void* t,
-                                      const void* x, const void* wa, const void* wb, int C,
-                                      int M, int K, int N, int chain, void* partial, void* out,
+// partial: C * ceil(M/64) * N fp32 of scratch.
+extern "C" int msl_matmul_probe_wgmma(int out_bf16, int depth, const void* t, const void* x,
+                                      const void* wa, const void* wb, int C, int M, int K,
+                                      int N, int chain, void* partial, void* out,
                                       void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (chain % 2 == 0) return (int)cudaErrorInvalidValue;
-  if (cluster == 1)
-    return launch_wgmma<1>(t, x, wa, wb, C, M, K, N, chain, out_bf16, depth, partial, out, s);
-  if (cluster == 2)
-    return launch_wgmma<2>(t, x, wa, wb, C, M, K, N, chain, out_bf16, depth, partial, out, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_wgmma(t, x, wa, wb, C, M, K, N, chain, out_bf16, depth, partial, out,
+                      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* msl_cuda_error_string(int e) {

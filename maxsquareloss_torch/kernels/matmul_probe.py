@@ -9,16 +9,18 @@ fp32, cast to ``out_dtype``, passed through the ReLU and cast back to x's
 type; the result is the fp32 sum of y over the rows, (C, 1, N). It measures
 what the fused bottleneck's structure (a row tile resident in shared
 memory, weights streamed from L2) reaches on the card: fp32 products as FMAs
-on the CUDA cores, bf16 products on the tensor cores. The kernel is CUDA C++
-in ``csrc/matmul_probe.cu`` (its header note gives the design), built by
+on the CUDA cores, bf16 products on the tensor cores (``wgmma`` where a
+64-row tile fits, ``mma.sync`` elsewhere). The kernel is CUDA C++ in
+``csrc/matmul_probe.cu`` (its header note gives the design), built by
 ``kernels/build.py`` and called through ``ctypes`` on PyTorch's current
-stream.
+stream. ``plan_probe`` holds the tile arithmetic: the route, the row tile,
+the weight ring and the shared memory of a launch.
 
 Types: float32 and bfloat16, for ``x``/``a``/``b`` (one type) and for
 ``out_dtype``. ``chain`` must be odd: the reference's output block is N wide.
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises. The kernel also needs K and N to be
-multiples of 64.
+multiples of 64 and 16-byte aligned tensors.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ MIN_DEPTH, MAX_DEPTH = 2, 8  # stages of the weight ring (kMaxDepth in the .cu)
 # the "wgmma" route: 64 rows, passes of 256 columns, stages of 32 k-rows
 # (kWgBN, kWgKB in the .cu) without padding
 WGMMA_TM, WGMMA_COLS, WGMMA_STAGE_ROWS = 64, 256, 32
-CLUSTER = {"wgmma": 1, "mma_sync": 1, "fma": 1}  # blocks that share each weight stage
+CLUSTER = 1  # blocks that share each weight stage: one (sharing by multicast measured slower)
 SMEM_RESERVE = 1024  # static shared memory: the ring's barriers
 
 
@@ -65,7 +67,7 @@ class ProbePlan:
     block_cols: int   # output columns a block computes per pass (BN in the .cu)
     stage_rows: int   # k-rows of one weight stage (kb)
     depth: int        # stages of the weight ring
-    cluster: int      # blocks that share each weight stage
+    cluster: int      # blocks that share each weight stage (CLUSTER: one)
     elem_bytes: int
     stage_bytes: int
     smem_bytes: int   # dynamic shared memory: both activation buffers and the ring
@@ -86,8 +88,8 @@ class ProbePlan:
 
     def grid_tiles(self, m: int) -> int:
         """The grid's width: the row tiles rounded up to whole clusters, so
-        that a cluster never straddles two cells; a tile past M works on
-        zeros."""
+        that a cluster never straddles two cells (with one block a cluster,
+        the row tiles)."""
         return -(-self.tiles(m) // self.cluster) * self.cluster
 
 
@@ -110,7 +112,7 @@ def plan_probe(dtype: torch.dtype, k: int, n: int) -> ProbePlan:
         depth = min(MAX_DEPTH, (SMEM_LIMIT - SMEM_RESERVE - buffers) // stage)
         if depth >= MIN_DEPTH:
             return ProbePlan("wgmma", WGMMA_TM, WGMMA_COLS, WGMMA_STAGE_ROWS, depth,
-                             CLUSTER["wgmma"], es, stage, buffers + depth * stage)
+                             CLUSTER, es, stage, buffers + depth * stage)
     for tm in ROW_TILES[dtype]:
         bn = _block_cols(dtype, tm)
         buffers = es * tm * (k + pad + n + pad)
@@ -121,7 +123,7 @@ def plan_probe(dtype: torch.dtype, k: int, n: int) -> ProbePlan:
             depth = min(MAX_DEPTH, (SMEM_LIMIT - SMEM_RESERVE - buffers) // stage)
             if depth >= MIN_DEPTH:
                 route = "mma_sync" if dtype == torch.bfloat16 else "fma"
-                return ProbePlan(route, tm, bn, kb, depth, CLUSTER[route], es, stage,
+                return ProbePlan(route, tm, bn, kb, depth, CLUSTER, es, stage,
                                  buffers + depth * stage)
     raise ValueError(f"matmul probe: K={k}, N={n} in {dtype} do not fit one block's "
                      f"shared memory at any row tile {ROW_TILES[dtype]}")
@@ -147,9 +149,9 @@ def unpack_weight(packed: torch.Tensor) -> torch.Tensor:
 def _library() -> ctypes.CDLL:
     lib = load(SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.msl_matmul_probe_wgmma.argtypes = [i, i, i, p, p, p, p, i, i, i, i, i, p, p, p]
+    lib.msl_matmul_probe_wgmma.argtypes = [i, i, p, p, p, p, i, i, i, i, i, p, p, p]
     lib.msl_matmul_probe_wgmma.restype = i
-    lib.msl_matmul_probe.argtypes = [i, i, i, i, i, i, p, p, p, p, i, i, i, i, i, p, p, p]
+    lib.msl_matmul_probe.argtypes = [i, i, i, i, i, p, p, p, p, i, i, i, i, i, p, p, p]
     lib.msl_matmul_probe.restype = i
     return lib
 
@@ -195,7 +197,7 @@ def _launch(t, x, a, b, chain: int, out_dtype: torch.dtype) -> torch.Tensor:
         if plan.route == "wgmma":
             wa, wb = pack_weight(a), pack_weight(b)  # part of the launch: it is timed with it
             err = lib.msl_matmul_probe_wgmma(
-                int(out_dtype == torch.bfloat16), plan.cluster, plan.depth, t.data_ptr(),
+                int(out_dtype == torch.bfloat16), plan.depth, t.data_ptr(),
                 x.data_ptr(), wa.data_ptr(), wb.data_ptr(), c, m, k, n, chain,
                 partial.data_ptr(), out.data_ptr(),
                 torch.cuda.current_stream(x.device).cuda_stream,
@@ -205,7 +207,7 @@ def _launch(t, x, a, b, chain: int, out_dtype: torch.dtype) -> torch.Tensor:
             return out
         err = lib.msl_matmul_probe(
             int(bf16), int(out_dtype == torch.bfloat16), plan.tm, plan.stage_rows, plan.depth,
-            plan.cluster, t.data_ptr(), x.data_ptr(),
+            t.data_ptr(), x.data_ptr(),
             a.data_ptr(), b.data_ptr(), c, m, k, n, chain, partial.data_ptr(),
             out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
         )

@@ -235,13 +235,12 @@ def test_pack_weight_round_trips_and_stages_are_contiguous(kin, nout):
 
 
 def test_plain_chain_on_unpacked_weights_equals_the_originals():
-    t, x, a, b = _inputs(16)
+    t = torch.from_numpy(_inputs(16)[0])
     k, n = 256, 256
     rng = np.random.default_rng(6)
     x = torch.from_numpy(rng.normal(size=(2, 16, k)).astype(np.float32) * 0.05).to(torch.bfloat16)
     a = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32) * 0.05).to(torch.bfloat16)
     b = torch.from_numpy(rng.normal(size=(n, k)).astype(np.float32) * 0.05).to(torch.bfloat16)
-    t = torch.from_numpy(t)
     want = matmul_chain_plain(t, x, a, b, 3, torch.bfloat16)
     ua = matmul_probe.unpack_weight(matmul_probe.pack_weight(a))
     ub = matmul_probe.unpack_weight(matmul_probe.pack_weight(b))
