@@ -23,7 +23,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from maxsquareloss_torch.experiments import bench_matmul
+from maxsquareloss_torch.experiments import bench_matmul, probe_plans
 from maxsquareloss_torch.kernels import matmul_probe
 from maxsquareloss_torch.kernels.matmul_probe import matmul_chain, matmul_chain_plain
 
@@ -267,3 +267,18 @@ def test_entry_point_runs_on_the_cpu(capsys):
     assert out["flops"] == 2 * 20 * 64 * 64 * 3 * 2
     assert "plain version on cpu" in line and "peak" not in line
     assert "197" not in line
+
+
+def test_probe_plans_script_runs_every_plan_on_the_cpu(capsys):
+    """The planner's alternatives at the defaults in bf16: one line a plan,
+    the planner's own choice among them, its constants restored after."""
+    before = (matmul_probe.STAGE_ROWS, matmul_probe.MAX_DEPTH)
+    rows = probe_plans.main(["--device", "cpu", "--m", "20", "--cells", "2", "--iters", "1"])
+    assert (matmul_probe.STAGE_ROWS, matmul_probe.MAX_DEPTH) == before
+    assert len(capsys.readouterr().out.strip().splitlines()) == len(rows)
+    assert [r["ring_depth"] for r in rows] == [2, 3, 4] and all(r["route"] == "wgmma" for r in rows)
+    assert [r["chosen"] for r in rows] == [False, False, True]
+    assert all(r["err_over_max"] == 0.0 for r in rows)  # the plain version against itself
+    fp32 = probe_plans.candidate_plans(torch.float32, 1024, 256)
+    assert {matmul_probe.plan_probe(torch.float32, 1024, 256).stage_rows} == {32}
+    assert len(fp32) >= 2  # 32-row stages x 2, 16-row stages at several depths
