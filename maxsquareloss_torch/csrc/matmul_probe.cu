@@ -34,13 +34,16 @@
 // - A block is 8 warps that multiply and one warp that fetches. The weights
 //   stream from L2 through a ring of `depth` stages of KB k-rows by BN
 //   columns that fills what the activation buffers leave of the block's 227
-//   KB. The fetching warp fills a stage with bulk asynchronous copies
-//   (cp.async.bulk, no tensor map) that complete the stage's `full`
-//   mbarrier; a multiplying warp waits for `full`, multiplies, and arrives on
-//   the stage's `empty` mbarrier, which the fetching warp waits for before
-//   it refills the slot. No barrier of the whole block stands between two
-//   stages, the warps drift apart, and the ring runs on across column passes
-//   and links: a pass's first stages land during the epilogue before it.
+//   KB. The wrapper packs a and b once per call into stage order
+//   (pack_weight), each stage laid out as the multiplying warps read it, so
+//   one lane of the fetching warp fills a slot with a single bulk
+//   asynchronous copy (cp.async.bulk, no tensor map) that completes the
+//   slot's `full` mbarrier; copies of a stage's rows one by one reached a
+//   third of that rate. A multiplying warp waits for `full`, multiplies, and
+//   arrives on the slot's `empty` mbarrier, which the fetching lane waits for
+//   before it refills the slot. No barrier of the whole block stands between
+//   two stages, the warps drift apart, and the ring runs on across column
+//   passes and links: a pass's first stages land during the epilogue before.
 // - x arrives by 16-byte cp.async, every piece of the tile in flight at once;
 //   then the thread that copied a piece adds t to it in place.
 // - Each link's epilogue applies the casts and the ReLU in the reference's
@@ -58,16 +61,15 @@
 // - The activation tiles lie in the layout wgmma reads without swizzle: core
 //   matrices of 8 rows x 16 bytes, 128 contiguous bytes each (act_offset).
 //   The fill from x, every epilogue and the final row sum use that map.
-// - The weights are (K, N) row-major, n-major for wgmma's B: the wrapper
-//   packs a and b once per call into stage order (pack_weight: 8 x 8 core
-//   matrices, 32 k-rows of one pass contiguous), so one bulk copy of 16 KB
-//   fills a stage, and the transpose flag of the instruction reads it.
+// - The weights are (K, N) row-major, n-major for wgmma's B: packed as 8 x 8
+//   core matrices, 32 k-rows of one pass in 16 contiguous KB, they are read
+//   with the transpose flag of the instruction.
 // - One stage's products stay in flight while the next stage's are issued; a
 //   slot is released when its products have completed.
 //
 // Routes "mma_sync" (bf16 elsewhere: TM 64 or 32) and "fma" (fp32: TM 32 or
-// 16): row-major activations and weight stages in rows padded by 16 bytes,
-// one bulk copy a stage row, a lane of the fetching warp a row.
+// 16): row-major activations and weight stages in rows padded by 16 bytes
+// (packed so, the last pass of a weight padded by zero columns).
 // - bf16: each warp a 32 x 64 output tile as 2 x 8 mma.sync m16n8k16 (bf16
 //   in, fp32 accumulators). A fragments come by ldmatrix.x4 from the
 //   activations, B fragments by ldmatrix.x4.trans from the weight stage; the
@@ -210,6 +212,25 @@ struct Ring {
   }
 };
 
+// The fetching warp's one working lane: the wrapper has packed a and b into
+// stage order (kernels/matmul_probe.py pack_weight), so stage s of a link is
+// the s-th run of stage_bytes in its weight, and one bulk copy fills a slot.
+__device__ void fetch_stages(const void* wa, const void* wb, int stages_a, int stages_b,
+                             uint32_t stage_bytes, int chain, unsigned char* slots, Ring ring) {
+  ring.parity = 1;
+  for (int link = 0; link < chain; ++link) {
+    const unsigned char* w = static_cast<const unsigned char*>((link & 1) ? wb : wa);
+    const int stages = (link & 1) ? stages_b : stages_a;
+    for (int s = 0; s < stages; ++s) {
+      mbar_wait(ring.empty + ring.slot, ring.parity);
+      mbar_expect_tx(ring.full + ring.slot, stage_bytes);
+      bulk_load(slots + (size_t)ring.slot * stage_bytes, w + (size_t)s * stage_bytes,
+                stage_bytes, ring.full + ring.slot);
+      ring.advance();
+    }
+  }
+}
+
 template <typename T>
 __host__ __device__ constexpr int pad_elems() {
   return kPadBytes / static_cast<int>(sizeof(T));
@@ -224,36 +245,8 @@ __host__ __device__ constexpr int block_cols() {
 
 // ---------------------------------------------------------------------------
 // Routes "mma_sync" (bf16) and "fma" (fp32): row-major activations and weight
-// stages in padded rows.
-
-// The fetching warp: for every link, for every pass of BN output columns, KB
-// k-rows at a time, the stage W[k0 : k0+KB, n0 : n0+BN) (row-major, ld = nout)
-// into rows of BN + pad, one bulk copy a row, a lane a row.
-template <typename T, int BN, int KB>
-__device__ void fetch_weights(const T* a, const T* b, int K, int N, int chain, T* ring_base,
-                              Ring ring) {
-  constexpr int ld = BN + pad_elems<T>();
-  const int lane = threadIdx.x & 31;
-  ring.parity = 1;
-  for (int link = 0; link < chain; ++link) {
-    const bool odd = link & 1;
-    const T* w = odd ? b : a;
-    const int kin = odd ? N : K, nout = odd ? K : N;
-    for (int n0 = 0; n0 < nout; n0 += BN) {
-      const uint32_t row_bytes = min(BN, nout - n0) * sizeof(T);
-      for (int k0 = 0; k0 < kin; k0 += KB) {
-        mbar_wait(ring.empty + ring.slot, ring.parity);
-        if (lane == 0) mbar_expect_tx(ring.full + ring.slot, KB * row_bytes);
-        __syncwarp();
-        T* ws = ring_base + (size_t)ring.slot * KB * ld;
-        for (int r = lane; r < KB; r += 32)
-          bulk_load(ws + r * ld, w + (size_t)(k0 + r) * nout + n0, row_bytes,
-                    ring.full + ring.slot);
-        ring.advance();
-      }
-    }
-  }
-}
+// stages in padded rows. A stage is W[k0 : k0+KB, n0 : n0+BN) in rows of
+// BN + pad; the wrapper pads a weight's last pass with zero columns.
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -412,11 +405,12 @@ __device__ void link_f32(const float* in, int ldin, int kin, int nout, float* ou
   }
 }
 
-// grid (row tiles, C). partial: (C, tiles, N) fp32.
+// grid (row tiles, C). wa, wb: the weights in stage order. partial: (C,
+// tiles, N) fp32.
 template <typename T, int TM, int KB>
 __global__ void __launch_bounds__(kBlockThreads, 1)
     chain_kernel(const float* __restrict__ t, const T* __restrict__ x,
-                 const T* __restrict__ a, const T* __restrict__ b, int M, int K, int N,
+                 const T* __restrict__ wa, const T* __restrict__ wb, int M, int K, int N,
                  int chain, bool out_bf16, int depth, float* __restrict__ partial) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[kMaxDepth], empty[kMaxDepth];
@@ -434,7 +428,10 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
   Ring::init(full, empty, depth);
   Ring ring{full, empty, depth, 0, 0};
   if (threadIdx.x >= kThreads) {
-    fetch_weights<T, BN, KB>(a, b, K, N, chain, ring_base, ring);
+    if (threadIdx.x == kThreads)
+      fetch_stages(wa, wb, (N + BN - 1) / BN * (K / KB), (K + BN - 1) / BN * (N / KB),
+                   KB * (BN + pad) * sizeof(T), chain,
+                   reinterpret_cast<unsigned char*>(ring_base), ring);
   } else {
     // y = x + (T) t, rows past M as zeros: every 16-byte piece is copied
     // asynchronously, all at once; then the thread that copied a piece adds t
@@ -519,7 +516,7 @@ int launch_chain(Kernel kernel, size_t smem, int tiles, int C, int N, void* part
 }
 
 template <typename T, int TM, int KB>
-int launch(const void* t, const void* x, const void* a, const void* b, int C, int M,
+int launch(const void* t, const void* x, const void* wa, const void* wb, int C, int M,
            int K, int N, int chain, bool out_bf16, int depth, void* partial, void* out,
            cudaStream_t s) {
   constexpr int pad = pad_elems<T>();
@@ -528,7 +525,7 @@ int launch(const void* t, const void* x, const void* a, const void* b, int C, in
                                    (size_t)depth * KB * (block_cols<T, TM>() + pad));
   return launch_chain(chain_kernel<T, TM, KB>, smem, (M + TM - 1) / TM, C, N, partial, out, s,
                       static_cast<const float*>(t), static_cast<const T*>(x),
-                      static_cast<const T*>(a), static_cast<const T*>(b), M, K, N, chain,
+                      static_cast<const T*>(wa), static_cast<const T*>(wb), M, K, N, chain,
                       out_bf16, depth);
 }
 
@@ -614,7 +611,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
   __shared__ __align__(8) uint64_t full[kMaxDepth], empty[kMaxDepth];
   unsigned char* buf_k = smem_raw;            // 64 x K
   unsigned char* buf_n = buf_k + 128 * K;     // 64 x N
-  unsigned char* stages = buf_n + 128 * N;    // depth stages
+  unsigned char* stages_base = buf_n + 128 * N;  // depth stages
 
   const int tile = blockIdx.x, cell = blockIdx.y;
   const int row0 = tile * 64;
@@ -623,23 +620,11 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
   Ring::init(full, empty, depth);
   Ring ring{full, empty, depth, 0, 0};
   if (threadIdx.x >= kThreads) {
-    // ---- the fetching warp: one lane streams the stages, which lie in order
-    // in wa and wb
+    // ---- the fetching warp
     if (threadIdx.x == kThreads) {
-      const int stages_per_link = (K / kWgKB) * (N / kWgBN);  // the same for a and b
-      ring.parity = 1;
-      for (int link = 0; link < chain; ++link) {
-        const unsigned char* w = reinterpret_cast<const unsigned char*>((link & 1) ? wb : wa);
-        for (int s = 0; s < stages_per_link; ++s) {
-          mbar_wait(ring.empty + ring.slot, ring.parity);
-          mbar_expect_tx(ring.full + ring.slot, kWgStageBytes);
-          bulk_load(stages + (size_t)ring.slot * kWgStageBytes,
-                    w + (size_t)s * kWgStageBytes, kWgStageBytes, ring.full + ring.slot);
-          ring.advance();
-        }
-      }
+      const int stages = (K / kWgKB) * (N / kWgBN);  // the same for a and b
+      fetch_stages(wa, wb, stages, stages, kWgStageBytes, chain, stages_base, ring);
     }
-    __syncwarp();
   } else {
     // ---- the two multiplying warpgroups
     const int tid = threadIdx.x;
@@ -687,7 +672,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
       for (int n0 = 0; n0 < nout; n0 += kWgBN) {
         for (int k0 = 0; k0 < kin; k0 += kWgKB) {
           mbar_wait(ring.full + ring.slot, ring.parity);
-          const unsigned char* ws = stages + (size_t)ring.slot * kWgStageBytes;
+          const unsigned char* ws = stages_base + (size_t)ring.slot * kWgStageBytes;
           wgmma_fence();
 #pragma unroll
           for (int ks = 0; ks < kWgKB / 16; ++ks) {
@@ -753,21 +738,22 @@ int launch_wgmma(const void* t, const void* x, const void* wa, const void* wb, i
 
 }  // namespace
 
-// x (C, M, K), a (K, N), b (N, K) contiguous and 16-byte aligned, all bf16
-// (bf16 != 0) or all fp32; t one fp32 on the device; K and N multiples of 64;
-// chain odd. The plan of kernels/matmul_probe.py plan_probe: tm the row tile
-// (bf16: 64 or 32, fp32: 32 or 16), kb the k-rows of a weight stage (32 or
-// 16), depth the stages of the ring. partial: C * ceil(M/tm) * N fp32 of
-// scratch; out (C, 1, N) fp32. Both kernels run in order on stream.
+// x (C, M, K) contiguous and 16-byte aligned; wa, wb: a (K, N) and b (N, K)
+// in stage order (kernels/matmul_probe.py pack_weight); all bf16 (bf16 != 0)
+// or all fp32; t one fp32 on the device; K and N multiples of 64; chain odd.
+// The plan of kernels/matmul_probe.py plan_probe: tm the row tile (bf16: 64
+// or 32, fp32: 32 or 16), kb the k-rows of a weight stage (32 or 16), depth
+// the stages of the ring. partial: C * ceil(M/tm) * N fp32 of scratch; out
+// (C, 1, N) fp32. Both kernels run in order on stream.
 extern "C" int msl_matmul_probe(int bf16, int out_bf16, int tm, int kb, int depth,
-                                const void* t, const void* x, const void* a, const void* b,
+                                const void* t, const void* x, const void* wa, const void* wb,
                                 int C, int M, int K, int N, int chain, void* partial,
                                 void* out, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (K % 64 || N % 64 || chain % 2 == 0) return (int)cudaErrorInvalidValue;
 #define MSL_PROBE_CASE(T, TM, KB)  \
   if (tm == TM && kb == KB)        \
-    return launch<T, TM, KB>(t, x, a, b, C, M, K, N, chain, out_bf16, depth, partial, out, s);
+    return launch<T, TM, KB>(t, x, wa, wb, C, M, K, N, chain, out_bf16, depth, partial, out, s);
   if (bf16) {
     MSL_PROBE_CASE(__nv_bfloat16, 64, 32)
     MSL_PROBE_CASE(__nv_bfloat16, 64, 16)
@@ -783,9 +769,8 @@ extern "C" int msl_matmul_probe(int bf16, int out_bf16, int tm, int kb, int dept
   return (int)cudaErrorInvalidValue;
 }
 
-// The same chain on the "wgmma" route: bf16, TM 64, K and N multiples of 256.
-// wa, wb: a and b in stage order (kernels/matmul_probe.py pack_weight);
-// partial: C * ceil(M/64) * N fp32 of scratch.
+// The same chain on the "wgmma" route: bf16, TM 64, K and N multiples of 256;
+// wa, wb in that route's stage order. partial: C * ceil(M/64) * N fp32.
 extern "C" int msl_matmul_probe_wgmma(int out_bf16, int depth, const void* t, const void* x,
                                       const void* wa, const void* wb, int C, int M, int K,
                                       int N, int chain, void* partial, void* out,

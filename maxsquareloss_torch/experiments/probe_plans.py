@@ -2,11 +2,11 @@
 
     python -m maxsquareloss_torch.experiments.probe_plans [--shape layer4] [--dtype float32]
 
-``kernels.matmul_probe.plan_probe`` takes the largest weight stage that
-leaves a ring of two stages or more, as deep as shared memory allows. This
-script shows what that choice is worth on the card: it caps the ring's depth
-and narrows the stage rows the planner may use (its module constants
-``MAX_DEPTH`` and ``STAGE_ROWS``), launches the kernel under every such plan
+``kernels.matmul_probe.plan_probe`` takes the stage size its route prefers
+and a ring as deep as shared memory allows. This script shows what that
+choice is worth on the card: it caps the ring's depth and narrows the stage
+rows the planner may use (its module constants ``MAX_DEPTH`` and
+``STAGE_ROWS``), launches the kernel under every such plan
 at the reference script's defaults or at the layer-4 widths, checks it
 against the plain version and prints one JSON line per plan: route, row
 tile, stage rows, ring depth, bytes in flight, ms (CUDA events, mean of
@@ -48,7 +48,7 @@ def candidate_plans(dtype: torch.dtype, k: int, n: int) -> list[tuple[tuple[int,
     """(stage rows allowed, depth cap) of every distinct plan: each stage
     size alone, at every ring depth from 2 up to what fits."""
     seen, out = set(), []
-    for rows in [matmul_probe.STAGE_ROWS] + [(r,) for r in matmul_probe.STAGE_ROWS]:
+    for rows in [(r,) for r in sorted(matmul_probe.STAGE_ROWS[dtype], reverse=True)]:
         for cap in range(matmul_probe.MIN_DEPTH, matmul_probe.MAX_DEPTH + 1):
             plan = _plan_with(dtype, k, n, rows, cap)
             if plan is not None and plan not in seen:
@@ -58,14 +58,16 @@ def candidate_plans(dtype: torch.dtype, k: int, n: int) -> list[tuple[tuple[int,
 
 
 def _plan_with(dtype, k, n, rows, cap):
-    saved = matmul_probe.STAGE_ROWS, matmul_probe.MAX_DEPTH
-    matmul_probe.STAGE_ROWS, matmul_probe.MAX_DEPTH = rows, cap
+    """The planner's plan with only ``rows`` allowed and the depth capped;
+    its constants are restored."""
+    saved = matmul_probe.STAGE_ROWS[dtype], matmul_probe.MAX_DEPTH
+    matmul_probe.STAGE_ROWS[dtype], matmul_probe.MAX_DEPTH = rows, cap
     try:
         return matmul_probe.plan_probe(dtype, k, n)
     except ValueError:
         return None
     finally:
-        matmul_probe.STAGE_ROWS, matmul_probe.MAX_DEPTH = saved
+        matmul_probe.STAGE_ROWS[dtype], matmul_probe.MAX_DEPTH = saved
 
 
 def _time_ms(fn, iters: int, device: torch.device) -> float:
@@ -100,12 +102,12 @@ def main(argv=None) -> list[dict]:
     x, a, b = randn(cells, m, k), randn(k, n), randn(n, k)
     want = matmul_chain_plain(t, x, a, b, CHAIN, dtype)
     flops = 2 * m * k * n * CHAIN * cells
-    saved = matmul_probe.STAGE_ROWS, matmul_probe.MAX_DEPTH
+    saved = matmul_probe.STAGE_ROWS[dtype], matmul_probe.MAX_DEPTH
     chosen = matmul_probe.plan_probe(dtype, k, n)
     rows_out = []
     try:
         for rows, cap in candidate_plans(dtype, k, n):
-            matmul_probe.STAGE_ROWS, matmul_probe.MAX_DEPTH = rows, cap
+            matmul_probe.STAGE_ROWS[dtype], matmul_probe.MAX_DEPTH = rows, cap
             plan = matmul_probe.plan_probe(dtype, k, n)
             got = matmul_chain(t, x, a, b, CHAIN, dtype)
             err = ((got - want).abs().max() / want.abs().max()).item()
@@ -119,7 +121,7 @@ def main(argv=None) -> list[dict]:
             })
             print(json.dumps(rows_out[-1]), flush=True)
     finally:
-        matmul_probe.STAGE_ROWS, matmul_probe.MAX_DEPTH = saved
+        matmul_probe.STAGE_ROWS[dtype], matmul_probe.MAX_DEPTH = saved
     return rows_out
 
 

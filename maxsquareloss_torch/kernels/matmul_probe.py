@@ -14,13 +14,14 @@ on the CUDA cores, bf16 products on the tensor cores (``wgmma`` where a
 ``csrc/matmul_probe.cu`` (its header note gives the design), built by
 ``kernels/build.py`` and called through ``ctypes`` on PyTorch's current
 stream. ``plan_probe`` holds the tile arithmetic: the route, the row tile,
-the weight ring and the shared memory of a launch.
+the weight ring and the shared memory of a launch; ``pack_weight`` puts a
+weight into the order the route streams it, once per call.
 
 Types: float32 and bfloat16, for ``x``/``a``/``b`` (one type) and for
 ``out_dtype``. ``chain`` must be odd: the reference's output block is N wide.
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises. The kernel also needs K and N to be
-multiples of 64 and 16-byte aligned tensors.
+multiples of 64 and a 16-byte aligned x.
 """
 
 from __future__ import annotations
@@ -37,7 +38,10 @@ DTYPES = (torch.float32, torch.bfloat16)
 SMEM_LIMIT = 232_448  # dynamic shared memory one H100 block may take
 PAD_BYTES = 16  # kPadBytes in the .cu
 ROW_TILES = {torch.bfloat16: (64, 32), torch.float32: (32, 16)}  # largest first
-STAGE_ROWS = (32, 16)  # k-rows of a weight stage, largest first
+# k-rows of a weight stage, in the planner's order of preference: the FMA
+# loop is bound by its arithmetic and wants few, large stages; the mma.sync
+# loop waits for the L2 and wants the deeper ring of small ones
+STAGE_ROWS = {torch.float32: (32, 16), torch.bfloat16: (16, 32)}
 MIN_DEPTH, MAX_DEPTH = 2, 8  # stages of the weight ring (kMaxDepth in the .cu)
 # the "wgmma" route: 64 rows, passes of 256 columns, stages of 32 k-rows
 # (kWgBN, kWgKB in the .cu) without padding
@@ -101,8 +105,8 @@ def _block_cols(dtype: torch.dtype, tm: int) -> int:
 
 def plan_probe(dtype: torch.dtype, k: int, n: int) -> ProbePlan:
     """The largest row tile whose two activation buffers leave room for a
-    weight ring of at least ``MIN_DEPTH`` stages, with the largest stage that
-    still gives such a ring (fewer barriers), as deep as the room allows."""
+    weight ring of at least ``MIN_DEPTH`` stages, with the first stage size
+    of ``STAGE_ROWS`` that gives such a ring, as deep as the room allows."""
     es = torch.finfo(dtype).bits // 8
     pad = PAD_BYTES // es
     if dtype == torch.bfloat16 and k % WGMMA_COLS == 0 and n % WGMMA_COLS == 0:
@@ -116,7 +120,7 @@ def plan_probe(dtype: torch.dtype, k: int, n: int) -> ProbePlan:
     for tm in ROW_TILES[dtype]:
         bn = _block_cols(dtype, tm)
         buffers = es * tm * (k + pad + n + pad)
-        for kb in STAGE_ROWS:
+        for kb in STAGE_ROWS[dtype]:
             if k % kb or n % kb:
                 continue
             stage = es * kb * (bn + pad)
@@ -129,21 +133,33 @@ def plan_probe(dtype: torch.dtype, k: int, n: int) -> ProbePlan:
                      f"shared memory at any row tile {ROW_TILES[dtype]}")
 
 
-def pack_weight(w: torch.Tensor) -> torch.Tensor:
-    """A (Kin, Nout) weight in the order the "wgmma" route streams it: for
-    every pass of 256 output columns, for every 8 k-rows, the 32 blocks of 8
-    columns as 8 x 8 core matrices of 128 contiguous bytes. A stage (32
-    k-rows of one pass) is then one contiguous run of bytes that a bulk copy
-    drops into shared memory in the layout ``wgmma`` reads."""
+def pack_weight(w: torch.Tensor, plan: ProbePlan) -> torch.Tensor:
+    """A (Kin, Nout) weight in the order the plan's route streams it, so that
+    a stage (``plan.stage_rows`` k-rows of one pass of ``plan.block_cols``
+    output columns) is one contiguous run of ``plan.stage_bytes`` that a
+    single bulk copy drops into shared memory as the kernel reads it.
+
+    "wgmma": (passes, Kin/8, 32, 8, 8): for every 8 k-rows the pass's 32
+    blocks of 8 columns as 8 x 8 core matrices of 128 contiguous bytes.
+    "mma_sync" and "fma": (passes, Kin, block_cols + pad): the pass's columns
+    row by row, every row padded by 16 bytes, the last pass by zero columns."""
     kin, nout = w.shape
-    return (w.reshape(kin // 8, 8, nout // WGMMA_COLS, WGMMA_COLS // 8, 8)
-            .permute(2, 0, 3, 1, 4).contiguous())
+    bn = plan.block_cols
+    if plan.route == "wgmma":
+        return w.reshape(kin // 8, 8, nout // bn, bn // 8, 8).permute(2, 0, 3, 1, 4).contiguous()
+    passes = -(-nout // bn)
+    rows = torch.nn.functional.pad(w, (0, passes * bn - nout)).reshape(kin, passes, bn)
+    return torch.nn.functional.pad(rows.permute(1, 0, 2), (0, PAD_BYTES // plan.elem_bytes))
 
 
-def unpack_weight(packed: torch.Tensor) -> torch.Tensor:
+def unpack_weight(packed: torch.Tensor, plan: ProbePlan, nout: int) -> torch.Tensor:
     """The (Kin, Nout) weight back from ``pack_weight``'s order."""
-    passes, kblocks, nblocks, _, _ = packed.shape
-    return packed.permute(1, 3, 0, 2, 4).reshape(kblocks * 8, passes * nblocks * 8)
+    if plan.route == "wgmma":
+        passes, kblocks, nblocks, _, _ = packed.shape
+        return packed.permute(1, 3, 0, 2, 4).reshape(kblocks * 8, passes * nblocks * 8)
+    passes, kin, _ = packed.shape
+    bn = plan.block_cols
+    return packed[:, :, :bn].permute(1, 0, 2).reshape(kin, passes * bn)[:, :nout]
 
 
 def _library() -> ctypes.CDLL:
@@ -179,8 +195,8 @@ def _check(t, x, a, b, chain: int, out_dtype: torch.dtype) -> None:
     for name, v in (("x", x), ("a", a), ("b", b), ("t", t)):
         if not v.is_contiguous():
             raise ValueError(f"matmul probe: {name} must be contiguous")
-        if name != "t" and v.data_ptr() % 16:
-            raise ValueError(f"matmul probe: {name} must be 16-byte aligned")
+    if x.data_ptr() % 16:
+        raise ValueError("matmul probe: x must be 16-byte aligned")
 
 
 def _launch(t, x, a, b, chain: int, out_dtype: torch.dtype) -> torch.Tensor:
@@ -194,23 +210,21 @@ def _launch(t, x, a, b, chain: int, out_dtype: torch.dtype) -> torch.Tensor:
     out = torch.empty((c, 1, n), dtype=torch.float32, device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
+        # packing is part of the launch: it is timed with it
+        wa, wb = pack_weight(a, plan), pack_weight(b, plan)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
         if plan.route == "wgmma":
-            wa, wb = pack_weight(a), pack_weight(b)  # part of the launch: it is timed with it
             err = lib.msl_matmul_probe_wgmma(
-                int(out_dtype == torch.bfloat16), plan.depth, t.data_ptr(),
-                x.data_ptr(), wa.data_ptr(), wb.data_ptr(), c, m, k, n, chain,
-                partial.data_ptr(), out.data_ptr(),
-                torch.cuda.current_stream(x.device).cuda_stream,
+                int(out_dtype == torch.bfloat16), plan.depth, t.data_ptr(), x.data_ptr(),
+                wa.data_ptr(), wb.data_ptr(), c, m, k, n, chain, partial.data_ptr(),
+                out.data_ptr(), stream,
             )
-            raise_on_error(err, lib, "matmul probe (wgmma)")
-            matmul_chain.launches += 1
-            return out
-        err = lib.msl_matmul_probe(
-            int(bf16), int(out_dtype == torch.bfloat16), plan.tm, plan.stage_rows, plan.depth,
-            t.data_ptr(), x.data_ptr(),
-            a.data_ptr(), b.data_ptr(), c, m, k, n, chain, partial.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
-        )
+        else:
+            err = lib.msl_matmul_probe(
+                int(bf16), int(out_dtype == torch.bfloat16), plan.tm, plan.stage_rows,
+                plan.depth, t.data_ptr(), x.data_ptr(), wa.data_ptr(), wb.data_ptr(), c, m, k,
+                n, chain, partial.data_ptr(), out.data_ptr(), stream,
+            )
     raise_on_error(err, lib, "matmul probe")
     matmul_chain.launches += 1
     return out

@@ -163,7 +163,7 @@ def test_plan_ring_fits_and_counts_its_bytes(dtype, k, n):
     limit = matmul_probe.SMEM_LIMIT - (matmul_probe.SMEM_RESERVE)
     assert plan.smem_bytes <= limit <= matmul_probe.SMEM_LIMIT == 232_448
     assert matmul_probe.MIN_DEPTH <= plan.depth <= matmul_probe.MAX_DEPTH
-    assert plan.stage_rows in matmul_probe.STAGE_ROWS
+    assert plan.stage_rows in matmul_probe.STAGE_ROWS[dtype]
     assert k % plan.stage_rows == 0 and n % plan.stage_rows == 0
     assert plan.stage_bytes == es * plan.stage_rows * (plan.block_cols + pad)
     assert plan.smem_bytes == es * plan.tm * (k + n + 2 * pad) + plan.depth * plan.stage_bytes
@@ -213,38 +213,68 @@ def test_wgmma_route_takes_the_defaults_and_not_the_layer4_widths():
     assert matmul_probe.plan_probe(torch.float32, 1024, 256).route == "fma"
 
 
-@pytest.mark.parametrize("kin,nout", [(1024, 256), (256, 1024), (64, 512)])
-def test_pack_weight_round_trips_and_stages_are_contiguous(kin, nout):
+@pytest.mark.parametrize("kin,nout", [(1024, 256), (256, 1024)])
+def test_pack_weight_wgmma_round_trips_and_stages_are_contiguous(kin, nout):
     """pack -> unpack is the identity; element (k, n) sits where the kernel's
-    descriptors look for it (pass, 8-row k-block, 8-column block, k, n); the
-    plain chain on the unpacked weights equals the plain chain on the
-    originals."""
+    descriptors look for it (pass, 8-row k-block, 8-column block, k, n); a
+    stage is one contiguous run."""
+    plan = matmul_probe.plan_probe(torch.bfloat16, 1024, 256)
+    assert plan.route == "wgmma"
     rng = np.random.default_rng(5)
     w = torch.from_numpy(rng.normal(size=(kin, nout)).astype(np.float32)).to(torch.bfloat16)
-    packed = matmul_probe.pack_weight(w)
+    packed = matmul_probe.pack_weight(w, plan)
     assert packed.is_contiguous() and packed.numel() == w.numel()
-    assert torch.equal(matmul_probe.unpack_weight(packed), w)
+    assert torch.equal(matmul_probe.unpack_weight(packed, plan, nout), w)
     flat = packed.reshape(-1)
     for k, n in rng.integers(0, [kin, nout], size=(200, 2)):
         k, n = int(k), int(n)
         block = (n // 256 * (kin // 8) + k // 8) * 32 + n % 256 // 8  # 128-byte core matrix
         assert flat[block * 64 + k % 8 * 8 + n % 8] == w[k, n]
-    stage = matmul_probe.WGMMA_STAGE_ROWS * matmul_probe.WGMMA_COLS  # elements, in order
-    first = matmul_probe.unpack_weight(flat[:stage].reshape(1, -1, 32, 8, 8))
-    assert torch.equal(first, w[:matmul_probe.WGMMA_STAGE_ROWS, :256])
+    stage = plan.stage_bytes // 2  # elements, in order
+    first = matmul_probe.unpack_weight(flat[:stage].reshape(1, -1, 32, 8, 8), plan, 256)
+    assert torch.equal(first, w[:plan.stage_rows, :256])
 
 
-def test_plain_chain_on_unpacked_weights_equals_the_originals():
+@pytest.mark.parametrize("dtype,k,n", [
+    (torch.float32, 1024, 256), (torch.float32, 2048, 512), (torch.bfloat16, 2048, 512),
+    (torch.float32, 256, 64), (torch.bfloat16, 64, 192),
+])
+def test_pack_weight_rows_round_trips_and_stages_are_contiguous(dtype, k, n):
+    """The padded-row routes: both weights of a chain round-trip; stage s of
+    a weight is its s-th run of ``stage_bytes``: ``stage_rows`` k-rows of one
+    pass, every row padded by 16 bytes, columns past Nout zero."""
+    plan = matmul_probe.plan_probe(dtype, k, n)
+    assert plan.route in ("fma", "mma_sync")
+    rng = np.random.default_rng(7)
+    pad = matmul_probe.PAD_BYTES // plan.elem_bytes
+    for kin, nout in ((k, n), (n, k)):
+        w = torch.from_numpy(rng.normal(size=(kin, nout)).astype(np.float32)).to(dtype)
+        packed = matmul_probe.pack_weight(w, plan)
+        passes = -(-nout // plan.block_cols)
+        assert packed.is_contiguous()
+        assert packed.shape == (passes, kin, plan.block_cols + pad)
+        assert packed.numel() * plan.elem_bytes == passes * (kin // plan.stage_rows) * plan.stage_bytes
+        assert torch.equal(matmul_probe.unpack_weight(packed, plan, nout), w)
+        per_stage = plan.stage_bytes // plan.elem_bytes
+        last = packed.reshape(-1)[-per_stage:].reshape(plan.stage_rows, plan.block_cols + pad)
+        cols = nout - (passes - 1) * plan.block_cols  # of the last pass
+        assert torch.equal(last[:, :cols], w[-plan.stage_rows:, -cols:])
+        assert not last[:, cols:].any()
+
+
+@pytest.mark.parametrize("dtype,k,n", [(torch.bfloat16, 256, 256), (torch.float32, 64, 128)],
+                         ids=["wgmma", "fma"])
+def test_plain_chain_on_unpacked_weights_equals_the_originals(dtype, k, n):
     t = torch.from_numpy(_inputs(16)[0])
-    k, n = 256, 256
+    plan = matmul_probe.plan_probe(dtype, k, n)
     rng = np.random.default_rng(6)
-    x = torch.from_numpy(rng.normal(size=(2, 16, k)).astype(np.float32) * 0.05).to(torch.bfloat16)
-    a = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32) * 0.05).to(torch.bfloat16)
-    b = torch.from_numpy(rng.normal(size=(n, k)).astype(np.float32) * 0.05).to(torch.bfloat16)
-    want = matmul_chain_plain(t, x, a, b, 3, torch.bfloat16)
-    ua = matmul_probe.unpack_weight(matmul_probe.pack_weight(a))
-    ub = matmul_probe.unpack_weight(matmul_probe.pack_weight(b))
-    assert torch.equal(matmul_chain_plain(t, x, ua, ub, 3, torch.bfloat16), want)
+    x = torch.from_numpy(rng.normal(size=(2, 16, k)).astype(np.float32) * 0.05).to(dtype)
+    a = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32) * 0.05).to(dtype)
+    b = torch.from_numpy(rng.normal(size=(n, k)).astype(np.float32) * 0.05).to(dtype)
+    want = matmul_chain_plain(t, x, a, b, 3, dtype)
+    ua = matmul_probe.unpack_weight(matmul_probe.pack_weight(a, plan), plan, n)
+    ub = matmul_probe.unpack_weight(matmul_probe.pack_weight(b, plan), plan, k)
+    assert torch.equal(matmul_chain_plain(t, x, ua, ub, 3, dtype), want)
 
 
 def test_entry_point_flags_match_the_reference_script():
@@ -272,13 +302,17 @@ def test_entry_point_runs_on_the_cpu(capsys):
 def test_probe_plans_script_runs_every_plan_on_the_cpu(capsys):
     """The planner's alternatives at the defaults in bf16: one line a plan,
     the planner's own choice among them, its constants restored after."""
-    before = (matmul_probe.STAGE_ROWS, matmul_probe.MAX_DEPTH)
+    before = (dict(matmul_probe.STAGE_ROWS), matmul_probe.MAX_DEPTH)
     rows = probe_plans.main(["--device", "cpu", "--m", "20", "--cells", "2", "--iters", "1"])
     assert (matmul_probe.STAGE_ROWS, matmul_probe.MAX_DEPTH) == before
     assert len(capsys.readouterr().out.strip().splitlines()) == len(rows)
     assert [r["ring_depth"] for r in rows] == [2, 3, 4] and all(r["route"] == "wgmma" for r in rows)
     assert [r["chosen"] for r in rows] == [False, False, True]
     assert all(r["err_over_max"] == 0.0 for r in rows)  # the plain version against itself
-    fp32 = probe_plans.candidate_plans(torch.float32, 1024, 256)
-    assert {matmul_probe.plan_probe(torch.float32, 1024, 256).stage_rows} == {32}
-    assert len(fp32) >= 2  # 32-row stages x 2, 16-row stages at several depths
+    # fp32 at the defaults: 32-row stages x 2, 16-row stages x 2, 3, 4
+    assert probe_plans.candidate_plans(torch.float32, 1024, 256) == [
+        ((32,), 2), ((16,), 2), ((16,), 3), ((16,), 4)]
+    assert matmul_probe.plan_probe(torch.float32, 1024, 256).stage_rows == 32
+    # the mma.sync route prefers the deeper ring of 16-row stages
+    layer4 = matmul_probe.plan_probe(torch.bfloat16, 2048, 512)
+    assert (layer4.route, layer4.stage_rows, layer4.depth) == ("mma_sync", 16, 4)
