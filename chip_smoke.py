@@ -255,6 +255,13 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def time_ms_median(fn, reps: int, windows: int = 5) -> float:
+    """The median of ``windows`` timings of ``reps`` calls each: for kernels
+    of tens of microseconds, where one stall of the host inside a window
+    would double its reading."""
+    return statistics.median(time_ms(fn, reps) for _ in range(windows))
+
+
 def phase_environment() -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -656,9 +663,9 @@ def phase_train_loss_kernels() -> list[dict]:
         def p_both():
             return torch.autograd.grad(plain(x, *rest), x, g)
 
-        reps = 200  # a 70 us kernel: a window long enough to ride out a stall of the host
-        pf1, kf1, kf2, pf2 = (time_ms(f, reps) for f in (p_fwd, k_fwd, k_fwd, p_fwd))
-        pb1, kb1, kb2, pb2 = (time_ms(f, reps) for f in (p_both, k_bwd, k_bwd, p_both))
+        reps = 40
+        pf1, kf1, kf2, pf2 = (time_ms_median(f, reps) for f in (p_fwd, k_fwd, k_fwd, p_fwd))
+        pb1, kb1, kb2, pb2 = (time_ms_median(f, reps) for f in (p_both, k_bwd, k_bwd, p_both))
         plain_fwd = (pf1 + pf2) / 2
         w_bytes = 0 if weights is None else weights.numel() * 4
         for direction, line, ms, plain_ms, nbytes, flops in (
