@@ -165,7 +165,7 @@ __device__ __forceinline__ float softmax_sq(const float* v, int C,
 
 // The image that holds each pixel of the current tile, for a block whose
 // first pixel is p0: one 64-bit division here, none per pixel
-// (kernels/fused_loss.py tile_image_indices restates this arithmetic).
+// (tests/test_torch_fused_loss.py restates this arithmetic).
 struct ImageIndex {
   long long n0;  // the image of the tile's first pixel
   int r0;        // that pixel's index in its image

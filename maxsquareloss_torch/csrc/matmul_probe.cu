@@ -755,14 +755,11 @@ extern "C" int msl_matmul_probe(int bf16, int out_bf16, int tm, int kb, int dept
   if (tm == TM && kb == KB)        \
     return launch<T, TM, KB>(t, x, wa, wb, C, M, K, N, chain, out_bf16, depth, partial, out, s);
   if (bf16) {
-    MSL_PROBE_CASE(__nv_bfloat16, 64, 32)
     MSL_PROBE_CASE(__nv_bfloat16, 64, 16)
-    MSL_PROBE_CASE(__nv_bfloat16, 32, 32)
     MSL_PROBE_CASE(__nv_bfloat16, 32, 16)
   } else {
     MSL_PROBE_CASE(float, 32, 32)
     MSL_PROBE_CASE(float, 32, 16)
-    MSL_PROBE_CASE(float, 16, 32)
     MSL_PROBE_CASE(float, 16, 16)
   }
 #undef MSL_PROBE_CASE

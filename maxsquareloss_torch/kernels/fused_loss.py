@@ -44,31 +44,6 @@ def fused_max_square_loss_reference(logits: torch.Tensor):
     return -torch.softmax(logits, dim=-1).square().mean() / 2.0
 
 
-def tile_image_indices(p0: int, hw: int, tiles: int) -> list[int]:
-    """The image index of every pixel of a block's ``tiles`` tiles, for a
-    block whose first pixel is ``p0`` and images of ``hw`` pixels: the
-    kernel's arithmetic (``ImageIndex`` in the .cu), restated. One division
-    at the block's first pixel; then a compare per pixel where an image
-    holds at least a tile (a tile crosses at most one image boundary), and
-    a division of a number below ``hw + THREADS`` where it holds less.
-    Equal to ``[pix // hw for pix in range(p0, p0 + tiles * THREADS)]``."""
-    n0, r0 = divmod(p0, hw)
-    out = []
-    for _ in range(tiles):
-        for t in range(THREADS):
-            off = r0 + t
-            out.append(n0 + (off >= hw) if hw >= THREADS else n0 + off // hw)
-        r0 += THREADS
-        if hw >= THREADS:
-            if r0 >= hw:
-                r0 -= hw
-                n0 += 1
-        else:
-            n0 += r0 // hw
-            r0 %= hw
-    return out
-
-
 def _library() -> ctypes.CDLL:
     lib = load(SOURCE)
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float

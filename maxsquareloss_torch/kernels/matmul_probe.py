@@ -40,13 +40,12 @@ PAD_BYTES = 16  # kPadBytes in the .cu
 ROW_TILES = {torch.bfloat16: (64, 32), torch.float32: (32, 16)}  # largest first
 # k-rows of a weight stage, in the planner's order of preference: the FMA
 # loop is bound by its arithmetic and wants few, large stages; the mma.sync
-# loop waits for the L2 and wants the deeper ring of small ones
-STAGE_ROWS = {torch.float32: (32, 16), torch.bfloat16: (16, 32)}
+# loop waits for the L2 and wants the deep ring of small ones
+STAGE_ROWS = {torch.float32: (32, 16), torch.bfloat16: (16,)}
 MIN_DEPTH, MAX_DEPTH = 2, 8  # stages of the weight ring (kMaxDepth in the .cu)
 # the "wgmma" route: 64 rows, passes of 256 columns, stages of 32 k-rows
 # (kWgBN, kWgKB in the .cu) without padding
 WGMMA_TM, WGMMA_COLS, WGMMA_STAGE_ROWS = 64, 256, 32
-CLUSTER = 1  # blocks that share each weight stage: one (sharing by multicast measured slower)
 SMEM_RESERVE = 1024  # static shared memory: the ring's barriers
 
 
@@ -71,7 +70,6 @@ class ProbePlan:
     block_cols: int   # output columns a block computes per pass (BN in the .cu)
     stage_rows: int   # k-rows of one weight stage (kb)
     depth: int        # stages of the weight ring
-    cluster: int      # blocks that share each weight stage (CLUSTER: one)
     elem_bytes: int
     stage_bytes: int
     smem_bytes: int   # dynamic shared memory: both activation buffers and the ring
@@ -83,18 +81,12 @@ class ProbePlan:
 
     @property
     def flop_per_l2_weight_byte(self) -> float:
-        """Every cluster streams each whole weight from L2 for its own rows."""
-        return 2.0 * self.tm * self.cluster / self.elem_bytes
+        """Every block streams each whole weight from L2 for its own rows."""
+        return 2.0 * self.tm / self.elem_bytes
 
     def tiles(self, m: int) -> int:
         """Row tiles that hold rows of a cell of M rows."""
         return -(-m // self.tm)
-
-    def grid_tiles(self, m: int) -> int:
-        """The grid's width: the row tiles rounded up to whole clusters, so
-        that a cluster never straddles two cells (with one block a cluster,
-        the row tiles)."""
-        return -(-self.tiles(m) // self.cluster) * self.cluster
 
 
 def _block_cols(dtype: torch.dtype, tm: int) -> int:
@@ -116,7 +108,7 @@ def plan_probe(dtype: torch.dtype, k: int, n: int) -> ProbePlan:
         depth = min(MAX_DEPTH, (SMEM_LIMIT - SMEM_RESERVE - buffers) // stage)
         if depth >= MIN_DEPTH:
             return ProbePlan("wgmma", WGMMA_TM, WGMMA_COLS, WGMMA_STAGE_ROWS, depth,
-                             CLUSTER, es, stage, buffers + depth * stage)
+                             es, stage, buffers + depth * stage)
     for tm in ROW_TILES[dtype]:
         bn = _block_cols(dtype, tm)
         buffers = es * tm * (k + pad + n + pad)
@@ -127,7 +119,7 @@ def plan_probe(dtype: torch.dtype, k: int, n: int) -> ProbePlan:
             depth = min(MAX_DEPTH, (SMEM_LIMIT - SMEM_RESERVE - buffers) // stage)
             if depth >= MIN_DEPTH:
                 route = "mma_sync" if dtype == torch.bfloat16 else "fma"
-                return ProbePlan(route, tm, bn, kb, depth, CLUSTER, es, stage,
+                return ProbePlan(route, tm, bn, kb, depth, es, stage,
                                  buffers + depth * stage)
     raise ValueError(f"matmul probe: K={k}, N={n} in {dtype} do not fit one block's "
                      f"shared memory at any row tile {ROW_TILES[dtype]}")
@@ -206,7 +198,7 @@ def _launch(t, x, a, b, chain: int, out_dtype: torch.dtype) -> torch.Tensor:
         raise ValueError(f"matmul probe: the kernel needs K and N multiples of 64, got {k}, {n}")
     bf16 = x.dtype == torch.bfloat16
     plan = plan_probe(x.dtype, k, n)
-    partial = torch.empty((c, plan.grid_tiles(m), n), dtype=torch.float32, device=x.device)
+    partial = torch.empty((c, plan.tiles(m), n), dtype=torch.float32, device=x.device)
     out = torch.empty((c, 1, n), dtype=torch.float32, device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):

@@ -121,6 +121,31 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(make, match):
         fused_iw_max_square_loss(x, w)
 
 
+def _tile_image_indices(p0: int, hw: int, tiles: int) -> list[int]:
+    """The image index of every pixel of a block's ``tiles`` tiles, for a
+    block whose first pixel is ``p0`` and images of ``hw`` pixels: the
+    kernel's arithmetic (``ImageIndex`` in the .cu), restated. One division
+    at the block's first pixel; then a compare per pixel where an image
+    holds at least a tile (a tile crosses at most one image boundary), and
+    a division of a number below ``hw + THREADS`` where it holds less.
+    Equal to ``[pix // hw for pix in range(p0, p0 + tiles * fused_loss.THREADS)]``."""
+    n0, r0 = divmod(p0, hw)
+    out = []
+    for _ in range(tiles):
+        for t in range(fused_loss.THREADS):
+            off = r0 + t
+            out.append(n0 + (off >= hw) if hw >= fused_loss.THREADS else n0 + off // hw)
+        r0 += fused_loss.THREADS
+        if hw >= fused_loss.THREADS:
+            if r0 >= hw:
+                r0 -= hw
+                n0 += 1
+        else:
+            n0 += r0 // hw
+            r0 %= hw
+    return out
+
+
 @pytest.mark.parametrize("hw", [1, 7, 99, 255, 256, 257, 1961, 2048, 5000])
 @pytest.mark.parametrize("block", [0, 1, 3])
 def test_tile_image_index_matches_integer_division(hw, block):
@@ -130,7 +155,7 @@ def test_tile_image_index_matches_integer_division(hw, block):
     256-pixel tile."""
     tiles = fused_loss.PX_PER_BLOCK // fused_loss.THREADS
     p0 = block * fused_loss.PX_PER_BLOCK
-    got = fused_loss.tile_image_indices(p0, hw, tiles)
+    got = _tile_image_indices(p0, hw, tiles)
     assert got == [pix // hw for pix in range(p0, p0 + fused_loss.PX_PER_BLOCK)]
 
 

@@ -23,7 +23,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from maxsquareloss_torch.experiments import bench_matmul, probe_plans
+from maxsquareloss_torch.experiments import bench_matmul
 from maxsquareloss_torch.kernels import matmul_probe
 from maxsquareloss_torch.kernels.matmul_probe import matmul_chain, matmul_chain_plain
 
@@ -163,7 +163,8 @@ def test_plan_ring_fits_and_counts_its_bytes(dtype, k, n):
     limit = matmul_probe.SMEM_LIMIT - (matmul_probe.SMEM_RESERVE)
     assert plan.smem_bytes <= limit <= matmul_probe.SMEM_LIMIT == 232_448
     assert matmul_probe.MIN_DEPTH <= plan.depth <= matmul_probe.MAX_DEPTH
-    assert plan.stage_rows in matmul_probe.STAGE_ROWS[dtype]
+    assert plan.stage_rows in ((matmul_probe.WGMMA_STAGE_ROWS,) if wgmma
+                               else matmul_probe.STAGE_ROWS[dtype])
     assert k % plan.stage_rows == 0 and n % plan.stage_rows == 0
     assert plan.stage_bytes == es * plan.stage_rows * (plan.block_cols + pad)
     assert plan.smem_bytes == es * plan.tm * (k + n + 2 * pad) + plan.depth * plan.stage_bytes
@@ -177,28 +178,41 @@ def test_plan_ring_fits_and_counts_its_bytes(dtype, k, n):
     (torch.float32, 1024, 256, 16.0), (torch.float32, 2048, 512, 8.0),
 ])
 def test_plan_flop_per_l2_weight_byte(dtype, k, n, flop_per_byte):
-    """A cluster streams each whole weight once for its tm * cluster rows:
-    2 * rows FLOP per weight element."""
+    """A block streams each whole weight once for its tm rows: 2 * rows FLOP
+    per weight element."""
     plan = matmul_probe.plan_probe(dtype, k, n)
-    assert plan.flop_per_l2_weight_byte == flop_per_byte * plan.cluster
-    per_link_flop = 2 * plan.tm * plan.cluster * k * n
+    assert plan.flop_per_l2_weight_byte == flop_per_byte
+    per_link_flop = 2 * plan.tm * k * n
     assert per_link_flop / (k * n * plan.elem_bytes) == plan.flop_per_l2_weight_byte
 
 
 @pytest.mark.parametrize("m", [13, 64, 1000, 1728])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-def test_plan_clusters_never_straddle_a_cell(dtype, m):
-    """The grid is (row tiles padded to whole clusters, cells): every member
-    of a cluster works on the same cell, and the padded tiles lie past M."""
+def test_plan_row_tiles_cover_a_cell(dtype, m):
+    """The grid is (row tiles, cells): a block works on one cell, the tiles
+    cover its M rows and none lies wholly past M."""
     plan = matmul_probe.plan_probe(dtype, 1024, 256)
     tiles = plan.tiles(m)
     assert (tiles - 1) * plan.tm < m <= tiles * plan.tm
-    grid_x = plan.grid_tiles(m)
-    assert grid_x % plan.cluster == 0 and 0 <= grid_x - tiles < plan.cluster
-    for first in range(0, grid_x, plan.cluster):
-        members = range(first, first + plan.cluster)
-        assert all(t < grid_x for t in members)  # one cell's row of the grid
-        assert members[0] * plan.tm < m  # no cluster lies wholly past M
+
+
+def test_kernel_has_an_instance_for_every_plan_and_no_other():
+    """The (type, row tile, stage rows) cases compiled into the .cu are the
+    ones the planner reaches over K and N in multiples of 64."""
+    src = matmul_probe.SOURCE.read_text()
+    compiled = {(name == "float", int(tm), int(kb))
+                for name, tm, kb in re.findall(r"^\s+MSL_PROBE_CASE\((\w+), (\d+), (\d+)\)$", src, re.M)}
+    planned = set()
+    for dtype in matmul_probe.DTYPES:
+        for k in range(64, 4097, 64):
+            for n in range(64, 4097, 64):
+                try:
+                    plan = matmul_probe.plan_probe(dtype, k, n)
+                except ValueError:
+                    continue
+                if plan.route != "wgmma":
+                    planned.add((dtype == torch.float32, plan.tm, plan.stage_rows))
+    assert planned == compiled and len(compiled) == 5
 
 
 def test_wgmma_route_takes_the_defaults_and_not_the_layer4_widths():
@@ -299,20 +313,10 @@ def test_entry_point_runs_on_the_cpu(capsys):
     assert "197" not in line
 
 
-def test_probe_plans_script_runs_every_plan_on_the_cpu(capsys):
-    """The planner's alternatives at the defaults in bf16: one line a plan,
-    the planner's own choice among them, its constants restored after."""
-    before = (dict(matmul_probe.STAGE_ROWS), matmul_probe.MAX_DEPTH)
-    rows = probe_plans.main(["--device", "cpu", "--m", "20", "--cells", "2", "--iters", "1"])
-    assert (matmul_probe.STAGE_ROWS, matmul_probe.MAX_DEPTH) == before
-    assert len(capsys.readouterr().out.strip().splitlines()) == len(rows)
-    assert [r["ring_depth"] for r in rows] == [2, 3, 4] and all(r["route"] == "wgmma" for r in rows)
-    assert [r["chosen"] for r in rows] == [False, False, True]
-    assert all(r["err_over_max"] == 0.0 for r in rows)  # the plain version against itself
-    # fp32 at the defaults: 32-row stages x 2, 16-row stages x 2, 3, 4
-    assert probe_plans.candidate_plans(torch.float32, 1024, 256) == [
-        ((32,), 2), ((16,), 2), ((16,), 3), ((16,), 4)]
-    assert matmul_probe.plan_probe(torch.float32, 1024, 256).stage_rows == 32
-    # the mma.sync route prefers the deeper ring of 16-row stages
+def test_plan_stage_rows_follow_the_route():
+    """The FMA loop takes few, large stages; the mma.sync loop the deep ring
+    of small ones."""
+    defaults = matmul_probe.plan_probe(torch.float32, 1024, 256)
+    assert (defaults.route, defaults.stage_rows, defaults.depth) == ("fma", 32, 2)
     layer4 = matmul_probe.plan_probe(torch.bfloat16, 2048, 512)
     assert (layer4.route, layer4.stage_rows, layer4.depth) == ("mma_sync", 16, 4)
