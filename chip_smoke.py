@@ -69,8 +69,28 @@ Phases, one JSON object per line on stdout:
      losses of iterations 4-6 (relative 1e-4). Reports steps/s beside the
      bare step's, the idle share over two iterations, peak memory, and the
      checkpoint's save time and size;
- 11. cli: when PIL is installed, ``tools.solve_gta5`` for 2 iterations on a
-     small on-disk domain-shift pair.
+ 11. cli: ``tools.solve_gta5`` for 2 iterations on a small on-disk
+     domain-shift pair at 128x256 (PIL is required: the run fails without it);
+ 12. serving_cli: ``tools.evaluate`` on that run's ``checkpoint_latest.pth``
+     (single scale: mIoU within 1e-4 of ``evaluate`` on the trainer's model
+     in this process; scales 0.75,1.0 + flip; --full_res_labels) and
+     ``tools.predict`` with scales 0.75,1.0 + flip (a PNG pair per image,
+     trainIds in 0..18, the first image's equal to ``make_predict_fn`` on
+     99.9 % of the pixels), each with its exact eval-kernel launch count;
+ 13. crosscity: ``tools.solve_crosscity`` for 2 iterations, Cityscapes → a
+     synthetic NTHU Rio at 128x256, 13 classes;
+ 14. bench: ``maxsquareloss_torch.bench`` in this process in modes uda and
+     source (5 timed steps after 2), infer at 1024x512 with 1024x512 and
+     1024x2048 labels, and e2e at the protocol's disk sizes over 16 images
+     a domain for one epoch a leg; each prints its JSON line;
+ 15. efficacy: the adaptation-efficacy gate at ``tests/test_adaptation.py``'s
+     protocol (seed 0, --blocks 1,1,2,1, 128x64, batch 8, 300 source and
+     200 UDA iterations, lambda 64): IW_maxsquare must beat the
+     lambda_target 0 control and source-only by more than 0.03 mIoU.
+     Phases 11-15 record every kernel launch's shape; each shape no earlier
+     phase checked is then held against the plain version (tolerances of
+     phases 3 and 6).
+All full-width phases run R101 (blocks 3,4,23,3) in fp32 with TF32 off.
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 
 Exits non-zero, printing no result, when CUDA is absent or a check fails.
@@ -92,6 +112,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 from maxsquareloss_torch.config import TrainConfig
@@ -115,7 +136,12 @@ from maxsquareloss_torch.kernels.fused_loss import (
     fused_max_square_loss_reference,
 )
 from maxsquareloss_torch.kernels.matmul_probe import matmul_chain, matmul_chain_plain
-from maxsquareloss_torch.models.deeplabv2 import DeepLabV2, init_deeplabv2, valid_logits_hw
+from maxsquareloss_torch.models.deeplabv2 import (
+    Bottleneck,
+    DeepLabV2,
+    init_deeplabv2,
+    valid_logits_hw,
+)
 from maxsquareloss_torch.ops.histogram import class_histogram, iw_class_weights
 from maxsquareloss_torch.predict import make_predict_fn
 from maxsquareloss_torch.train import checkpoint as ckpt_lib
@@ -193,6 +219,9 @@ STEP_RTOL, STEP_PARAM_RTOL_L2 = 1e-4, 1e-3
 # left nondeterministic, as in training); validation over 2 batches of 2
 TRAINER_ITERS, TRAINER_SAVE_ITER, TRAINER_RESUME_RTOL = 6, 3, 1e-4
 VAL_BATCH = 2
+# the CLI phases: full-width R101 on small on-disk sets at 128x256
+CLI_SIZE = ["--base_size", "256,128", "--crop_size", "256,128"]
+CLI_COMMON = ["--batch_size", "2", "--num_workers", "4", "--tqdm", "false"]
 
 # the launch count of every kernel, by the name it has in the kernels line
 COUNTERS = {
@@ -571,18 +600,18 @@ def _rel_l2(got, want) -> float:
     return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
 
 
-def _loss_inputs(gen, n, h, w):
+def _loss_inputs(gen, n, h, w, c=NUM_CLASSES):
     """Logits with exact ties between classes 3 and 11 at the max on every
     7th pixel, and IW weights from a guidance label that ignores class 5,
     so class 5 takes the degenerate weight 1.0 where it is the argmax."""
-    logits = torch.randn(n, h, w, NUM_CLASSES, generator=gen) * 3.0
-    tied = logits.view(-1, NUM_CLASSES)[::7]
+    logits = torch.randn(n, h, w, c, generator=gen) * 3.0
+    tied = logits.view(-1, c)[::7]
     top = tied.amax(dim=-1) + 1.0
     tied[:, 3] = top
     tied[:, 11] = top
     logits = logits.cuda()
     amax = logits.argmax(dim=-1)
-    weights = iw_class_weights(class_histogram(torch.where(amax == 5, -1, amax), NUM_CLASSES))
+    weights = iw_class_weights(class_histogram(torch.where(amax == 5, -1, amax), c))
     check(bool((weights == 1.0).any() and (amax == 5).any()), "no degenerate IW weight")
     check(bool((amax == 3).any()), "no tied pixel")
     return logits, weights
@@ -702,6 +731,23 @@ def phase_train_loss_kernels() -> list[dict]:
     return entries
 
 
+def _hold_emit(gen, name, n, h, w, cin, cmid, d) -> tuple[tuple, tuple, dict]:
+    """One shape's inputs, the emit kernel's (out, h1, h2), and its errors
+    against the plain version."""
+    args = _block_inputs(gen, n, h, w, cin, cmid)
+    got = fused_bottleneck_emit(*args, d)
+    want = fused_bottleneck_emit_reference(*args, d)
+    torch.cuda.synchronize()
+    row = {"layer": name, "shape": [n, h, w, cin], "cmid": cmid, "dilation": d,
+           **_tile_report(n, h, w, cin, cmid, d)}
+    for label, a, b in zip(("out", "h1", "h2"), got, want):
+        check(bool(torch.isfinite(a).all()), f"emit {name}: non-finite {label}")
+        max_abs, worst = _worst(a, b)
+        check(worst <= 1.0, f"emit {name} {label}: {max_abs:.3g} abs, {worst:.3g}x the tolerance")
+        row[f"{label}_max_abs_err"], row[f"{label}_worst_over_tol"] = max_abs, worst
+    return args, got, row
+
+
 def phase_train_block() -> tuple[set, dict]:
     """The emit bottleneck at every training shape (out, h1, h2), timed;
     its autograd backward at one shape per layer. Returns the checked
@@ -709,23 +755,13 @@ def phase_train_block() -> tuple[set, dict]:
     gen = torch.Generator().manual_seed(2)
     checked, rows = set(), []
     for name, n, h, w, cin, cmid, d, per_fwd in TRAIN_SHAPES:
-        args = _block_inputs(gen, n, h, w, cin, cmid)
-        got = fused_bottleneck_emit(*args, d)
-        want = fused_bottleneck_emit_reference(*args, d)
-        torch.cuda.synchronize()
-        row = {"layer": name, "shape": [n, h, w, cin], "cmid": cmid, "dilation": d,
-               **_tile_report(n, h, w, cin, cmid, d)}
-        for label, a, b in zip(("out", "h1", "h2"), got, want):
-            check(bool(torch.isfinite(a).all()), f"emit {name}: non-finite {label}")
-            max_abs, worst = _worst(a, b)
-            check(worst <= 1.0, f"emit {name} {label}: {max_abs:.3g} abs, {worst:.3g}x the tolerance")
-            row[f"{label}_max_abs_err"], row[f"{label}_worst_over_tol"] = max_abs, worst
+        args, got, row = _hold_emit(gen, name, n, h, w, cin, cmid, d)
         checked.add((n, h, w, cin, cmid, d))
         if name == "layer3":  # no atomics: a second call gives the same bits
             check(all(torch.equal(a, b) for a, b in zip(got, fused_bottleneck_emit(*args, d))),
                   f"emit {name}: two calls differ (not bitwise deterministic)")
             row["bitwise_repeatable"] = True
-        del got, want
+        del got
 
         def kernel():
             return fused_bottleneck_emit(*args, d)
@@ -1196,41 +1232,281 @@ def phase_trainer(bare_steps_per_s: float) -> dict[str, int]:
     return counts
 
 
-def phase_cli() -> None:
+LOSSES = {
+    "fused_iw_max_square_loss": (fused_iw_max_square_loss, fused_iw_max_square_loss_reference),
+    "fused_max_square_loss": (fused_max_square_loss, fused_max_square_loss_reference),
+}
+
+
+@contextlib.contextmanager
+def recorded_shapes():
+    """The shape of every kernel launch of the paths run inside: the
+    bottleneck's (N, H, W, Cin, Cmid, d), eval and emit, from every fused
+    block's forward, and the losses' logits (N, H, W, C) from the train
+    step's calls."""
+    seen = {"fused_bottleneck": set(), "fused_bottleneck_emit": set(),
+            **{name: set() for name in LOSSES}}
+    forward = Bottleneck.forward
+
+    def recording_forward(self, x, kernel, train_kernel):
+        if self.fusable and kernel is fused_bottleneck:
+            n, cin, h, w = x.shape
+            key = "fused_bottleneck_emit" if torch.is_grad_enabled() else "fused_bottleneck"
+            seen[key].add((n, h, w, cin, self.conv1.out_channels, self.dilation))
+        return forward(self, x, kernel, train_kernel)
+
+    def recording_loss(name, fn):
+        def loss(logits, *rest):
+            seen[name].add(tuple(logits.shape))
+            return fn(logits, *rest)
+        return loss
+
+    saved = {name: getattr(train_steps, name) for name in LOSSES}
+    Bottleneck.forward = recording_forward
+    for name, fn in saved.items():
+        setattr(train_steps, name, recording_loss(name, fn))
+    try:
+        yield seen
+    finally:
+        Bottleneck.forward = forward
+        for name, fn in saved.items():
+            setattr(train_steps, name, fn)
+
+
+def hold_path_shapes(path: str, seen: dict, checked: dict) -> None:
+    """Hold each kernel against its plain version at every shape ``path``
+    launched it at that no phase has checked yet; adds them to ``checked``."""
+    gen = torch.Generator().manual_seed(5)
+    for kernel, shapes in seen.items():
+        for shape in sorted(shapes - checked[kernel]):
+            if kernel == "fused_bottleneck":
+                args, row = _hold_block(gen, path, *shape)
+            elif kernel == "fused_bottleneck_emit":
+                args, _, row = _hold_emit(gen, path, *shape)
+            else:
+                args = _loss_inputs(gen, *shape)
+                fn, plain = LOSSES[kernel]
+                weights = None if kernel == "fused_max_square_loss" else args[1]
+                row = _hold_loss(kernel, fn, plain, args[0], weights)
+            emit({"phase": "kernel_check", "kernel": kernel, "path": path, **row})
+            checked[kernel].add(shape)
+            del args
+    torch.cuda.empty_cache()
+
+
+def phase_cli(root: str) -> UDATrainer:
     """One short ``solve_gta5`` run through the real CLI on a small on-disk
-    domain-shift pair, when PIL (which writes and reads the PNGs) is
-    installed; full-width R101 at 128x256 crops."""
-    if importlib.util.find_spec("PIL") is None:
-        emit({"phase": "cli", "skipped": "PIL is not installed on this machine"})
-        return
+    domain-shift pair under ``root`` (PIL writes and reads the PNGs: the run
+    fails without it); full-width R101 at 128x256 crops. Returns the trainer,
+    whose model ``phase_serving_cli`` holds the serving CLIs against."""
+    check(importlib.util.find_spec("PIL") is not None, "PIL is not installed: the CLI phases need it")
     from maxsquareloss_torch.data.synthetic import write_domain_shift_pair
     from maxsquareloss_torch.tools import solve_gta5
 
-    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    data = os.path.join(root, "data")
+    write_domain_shift_pair(data, n_source=8, n_target_train=8, n_target_val=4, hw=(128, 256))
+    zero_counts()
+    t0 = time.perf_counter()
+    trainer = solve_gta5.main([
+        "--data_root_path", data, "--checkpoint_dir", os.path.join(root, "run"),
+        *CLI_SIZE, "--target_base_size", "256,128", "--target_crop_size", "256,128",
+        *CLI_COMMON, "--iter_stop", "2", "--iw_hist", "argmax"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    check(trainer.state.iteration == 2, f"solve_gta5 ended at {trainer.state.iteration}")
+    check(os.path.exists(os.path.join(root, "run", ckpt_lib.LATEST)), "solve_gta5: no checkpoint")
+    check(counts["fused_bottleneck_emit"] == 2 * 58 and counts["fused_bottleneck"] > 0,
+          f"solve_gta5 launches {counts}")
+    miou = _scalars(os.path.join(root, "run"))["val/MIoU"][2]["value"]
+    emit({"phase": "cli", "entry": "maxsquareloss_torch.tools.solve_gta5", "seconds": seconds,
+          "iterations": 2, "val_MIoU": miou, "launch_counts": counts})
+    return trainer
+
+
+def _counted_cli(name: str, fn, images: int | None, expect: dict[str, int]) -> tuple:
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after: (its result, the counts, the JSON line's fields). ``expect`` maps
+    kernels to the launches they must show; every other count must be 0."""
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    want = {k: expect.get(k, 0) for k in counts}
+    check(counts == want, f"{name}: launches {counts}, expected {want}")
+    line = {"entry": name, "seconds": seconds, "launch_counts": counts}
+    if images:
+        line.update(images=images, images_per_s_with_load=images / seconds)
+    return out, counts, line
+
+
+def phase_serving_cli(root: str, trainer: UDATrainer) -> None:
+    """The port's ``evaluate`` and ``predict`` CLIs on ``phase_cli``'s
+    checkpoint: the file round trip and the CLI must give the in-process
+    model's mIoU (1e-4) and trainIds (99.9 % of pixels). Each line's rate
+    includes loading the model."""
+    from PIL import Image
+
+    from maxsquareloss_torch.data.transforms import img_transform
+    from maxsquareloss_torch.tools import evaluate as evaluate_cli
+    from maxsquareloss_torch.tools import predict as predict_cli
+
+    data = os.path.join(root, "data")
+    n_val = len(trainer.val_loader.dataset)
+    batches = -(-n_val // trainer.val_loader.batch_size)
+    want = evaluate(trainer.model, trainer.cfg, trainer.val_loader)["MIoU"]
+    served = ["--dataset", "cityscapes", "--data_root_path", data,
+              "--pretrained_ckpt_file", os.path.join(root, "run", ckpt_lib.LATEST),
+              *CLI_SIZE, *CLI_COMMON]
+    scales = ["--scales", ",".join(str(s) for s in PREDICT_SCALES), "--flip", "true"]
+    for case, flags, forwards in (("single_scale", [], batches),
+                                  ("multiscale_flip", scales, batches * len(PREDICT_SCALES)),
+                                  ("full_res_labels", ["--full_res_labels", "true"], batches)):
+        out, _, line = _counted_cli(
+            "maxsquareloss_torch.tools.evaluate",
+            lambda: evaluate_cli.main([*served, "--checkpoint_dir", os.path.join(root, f"ev_{case}"),
+                                       *flags]),
+            n_val, {"fused_bottleneck": 29 * forwards})
+        check(all(math.isfinite(v) for v in out.values()), f"evaluate {case}: {out}")
+        if case == "single_scale":
+            check(abs(out["MIoU"] - want) <= 1e-4,
+                  f"evaluate CLI mIoU {out['MIoU']} vs the in-process model's {want}")
+        emit({"phase": "serving_cli", "case": case, **line, **out, "in_process_MIoU": want})
+
+    pred_dir = os.path.join(root, "pred")
+    n, _, line = _counted_cli(
+        "maxsquareloss_torch.tools.predict",
+        lambda: predict_cli.main([*served, "--checkpoint_dir", os.path.join(root, "ev_pred"),
+                                  "--output_dir", pred_dir, *scales]),
+        n_val, {"fused_bottleneck": 29 * n_val * len(PREDICT_SCALES)})
+    with open(os.path.join(data, "Cityscapes", "val.txt")) as f:
+        rels = f.read().split()
+    stems = [os.path.splitext(os.path.basename(r))[0] for r in rels]
+    written = sorted(f for f in os.listdir(pred_dir) if f.endswith(".png"))
+    check(n == len(rels) and written == sorted(f"{s}_{k}.png" for s in stems
+                                               for k in ("trainids", "color")),
+          f"predict wrote {written}")
+    for stem in stems:
+        ids = np.asarray(Image.open(os.path.join(pred_dir, f"{stem}_trainids.png")))
+        check(bool(((ids < 19) | (ids == 255)).all()), f"predict {stem}: trainIds out of range")
+    first = np.asarray(Image.open(os.path.join(pred_dir, f"{stems[0]}_trainids.png")))
+    pil = Image.open(os.path.join(data, "Cityscapes", rels[0])).convert("RGB")
+    x = torch.from_numpy(img_transform(pil, trainer.cfg.numpy_transform)[None]).cuda()
+    ref = make_predict_fn(trainer.cfg, trainer.model, PREDICT_SCALES, flip=True,
+                          out_hw=first.shape)(x)[0].cpu().numpy()
+    agree = float((first == ref).mean())
+    check(agree >= 0.999, f"predict CLI trainIds agree with the in-process model on {agree:.5f}")
+    emit({"phase": "serving_cli", "case": "predict_multiscale_flip", **line,
+          "first_image_agreement": agree})
+
+
+def phase_crosscity() -> None:
+    """``solve_crosscity`` for 2 iterations, Cityscapes → a synthetic NTHU
+    Rio at 128x256, full-width R101 on the 13-class protocol."""
+    from maxsquareloss_torch.data.synthetic import write_crosscity, write_domain_shift_pair
+    from maxsquareloss_torch.tools import solve_crosscity
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_crosscity_")
     try:
         data = os.path.join(root, "data")
-        write_domain_shift_pair(data, n_source=8, n_target_train=8, n_target_val=4, hw=(128, 256))
-        zero_counts()
-        t0 = time.perf_counter()
-        trainer = solve_gta5.main([
-            "--data_root_path", data, "--checkpoint_dir", os.path.join(root, "run"),
-            "--base_size", "256,128", "--crop_size", "256,128", "--target_base_size", "256,128",
-            "--target_crop_size", "256,128", "--batch_size", "2", "--iter_stop", "2",
-            "--num_workers", "4", "--tqdm", "false", "--iw_hist", "argmax"])
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        counts = read_counts()
-        check(trainer.state.iteration == 2, f"solve_gta5 ended at {trainer.state.iteration}")
-        check(os.path.exists(os.path.join(root, "run", ckpt_lib.LATEST)), "solve_gta5: no checkpoint")
-        check(counts["fused_bottleneck_emit"] == 2 * 58 and counts["fused_bottleneck"] > 0,
-              f"solve_gta5 launches {counts}")
-        miou = _scalars(os.path.join(root, "run"))["val/MIoU"][2]["value"]
-        emit({"phase": "cli", "entry": "maxsquareloss_torch.tools.solve_gta5", "seconds": seconds,
-              "iterations": 2, "val_MIoU": miou, "launch_counts": counts})
+        write_domain_shift_pair(data, n_source=1, n_target_train=8, n_target_val=1, hw=(128, 256))
+        write_crosscity(data, "Rio", n_train=8, n_val=4, hw=(128, 256))
+        run = os.path.join(root, "run")
+        trainer, counts, line = _counted_cli(
+            "maxsquareloss_torch.tools.solve_crosscity",
+            lambda: solve_crosscity.main([
+                "--city_name", "Rio", "--data_root_path", data, "--checkpoint_dir", run, *CLI_SIZE,
+                "--target_base_size", "256,128", "--target_crop_size", "256,128", *CLI_COMMON,
+                "--iter_stop", "2", "--iw_hist", "argmax"]),
+            2 * 2 * 2, {"fused_bottleneck_emit": 2 * 58, "fused_iw_max_square_loss": 2,
+                        "fused_iw_max_square_loss_backward": 2, "fused_bottleneck": 29 * 2})
+        check(trainer.state.iteration == 2, f"solve_crosscity ended at {trainer.state.iteration}")
+        check(trainer.cfg.num_classes == 13, f"solve_crosscity: {trainer.cfg.num_classes} classes")
+        check(os.path.exists(os.path.join(run, ckpt_lib.LATEST)), "solve_crosscity: no checkpoint")
+        miou = _scalars(run)["val/MIoU"][2]["value"]
+        check(math.isfinite(miou), f"solve_crosscity: val/MIoU {miou}")
+        emit({"phase": "crosscity", **line, "iterations": 2, "num_classes": 13, "val_MIoU": miou})
         del trainer
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_bench() -> None:
+    """The port's bench, in this process, in each mode: its JSON on a line of
+    its own, then the run's launch counts, each exact."""
+    from maxsquareloss_torch import bench
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_bench_")
+    warmup, steps = 2, 5
+    calls = warmup + 2 * steps  # warm-up, then two timed passes
+    short = ["--steps", str(steps), "--warmup", str(warmup)]
+    # e2e: 16 images a domain at batch 8 are 2 steps an epoch; 4 legs of a
+    # priming and a timed epoch, then 2 + 6 device-only steps
+    e2e_steps = 4 * 2 * 2 + 8
+    uda = {"fused_bottleneck_emit": 58, "fused_iw_max_square_loss": 1,
+           "fused_iw_max_square_loss_backward": 1}
+    runs = (
+        ("uda", ["--mode", "uda", *short],
+         {**{k: v * calls for k, v in uda.items()}, "fused_bottleneck": 29 * calls}),
+        ("source", ["--mode", "source", *short], {"fused_bottleneck_emit": 58 * calls}),
+        ("infer", ["--mode", "infer", *short], {"fused_bottleneck": 29 * calls}),
+        ("infer_fullres_labels", ["--mode", "infer", "--label_hw", "1024,2048", *short],
+         {"fused_bottleneck": 29 * calls}),
+        ("e2e", ["--mode", "e2e", "--n_per_domain", "16", "--epochs", "1",
+                 "--data_root", os.path.join(root, "data")],
+         {k: v * e2e_steps for k, v in uda.items()}),
+    )
+    try:
+        for name, argv, expect in runs:
+            result, _, line = _counted_cli("maxsquareloss_torch.bench", lambda: bench.main(argv),
+                                           None, expect)
+            check(result["value"] > 0, f"bench {name}: value {result['value']}")
+            check(math.isfinite(result["extra"]["final_loss"]),
+                  f"bench {name}: final_loss {result['extra']['final_loss']}")
+            emit({"phase": "bench", "run": name, "argv": argv, "seconds": line["seconds"],
+                  "metric": result["metric"], "value": result["value"],
+                  "launch_counts": line["launch_counts"]})
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_efficacy() -> None:
+    """The adaptation-efficacy gate at ``tests/test_adaptation.py``'s
+    protocol through the port's CLIs on the card: seed 0, 300 source
+    iterations, then the lambda_target 0 control and IW_maxsquare at lambda
+    64 for 200 iterations each (--blocks 1,1,2,1, 128x64, batch 8). UDA must
+    beat both the control and source-only by more than 0.03."""
+    from maxsquareloss_torch.experiments import adaptation_efficacy
+
+    args = adaptation_efficacy.parse_args(["--seeds", "0", "--modes", "IW_maxsquare@64"])
+    uda_steps = 2 * args.iters_uda  # the control's and the IW arm's
+    # --blocks 1,1,2,1 has one identity block; 4 evaluations of 16 images in
+    # batches of 8
+    expect = {"fused_bottleneck_emit": args.iters_src + 2 * uda_steps, "fused_bottleneck": 4 * 2,
+              **{k: args.iters_uda for k in ("fused_iw_max_square_loss",
+                                              "fused_iw_max_square_loss_backward",
+                                              "fused_max_square_loss",
+                                              "fused_max_square_loss_backward")}}
+    work = tempfile.mkdtemp(prefix="chip_smoke_efficacy_")
+    try:
+        res, counts, line = _counted_cli("maxsquareloss_torch.experiments.adaptation_efficacy",
+                                         lambda: adaptation_efficacy.run_seed(work, 0, args),
+                                         None, expect)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    src, ctrl, uda = res["source_only"], res["control_l0"], res["IW_maxsquare@64"]
+    emit({"phase": "efficacy", "seed": 0, "iters_src": args.iters_src, "iters_uda": args.iters_uda,
+          "in_domain": res["in_domain"], "source_only": src, "control_l0": ctrl,
+          "IW_maxsquare_lambda64": uda, "uda_minus_control": uda - ctrl,
+          "uda_minus_source_only": uda - src, "wall_seconds": line["seconds"],
+          "launch_counts": counts})
+    check(uda > ctrl + 0.03, f"UDA {uda:.4f} does not beat the lambda_target=0 control {ctrl:.4f} by 0.03")
+    check(uda > src + 0.03, f"UDA {uda:.4f} does not beat source-only {src:.4f} by 0.03")
 
 
 def main() -> int:
@@ -1238,6 +1514,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; it needs a GPU",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     phase_environment()
     phase_build()
     checked, kernel = phase_kernels()
@@ -1251,9 +1528,29 @@ def main() -> int:
     probe = phase_probe()
     probe["launches"] = phase_probe_main()
     phase_trainer(bare_steps_per_s)
-    phase_cli()
+    # the later paths: every launch shape no phase above checked is held
+    # against the plain version after the path's run
+    loss_checked = {(*shape, NUM_CLASSES) for shape in LOSS_SHAPES}
+    checked_all = {"fused_bottleneck": checked, "fused_bottleneck_emit": emit_checked,
+                   **{name: set(loss_checked) for name in LOSSES}}
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        with recorded_shapes() as seen:
+            trainer = phase_cli(root)
+            phase_serving_cli(root, trainer)
+            del trainer
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    hold_path_shapes("cli", seen, checked_all)
+    for path, phase in (("crosscity", phase_crosscity), ("bench", phase_bench),
+                        ("efficacy", phase_efficacy)):
+        with recorded_shapes() as seen:
+            phase()
+        hold_path_shapes(path, seen, checked_all)
     for k in (kernel, *train_kernels, probe):
         check(k["launches"] > 0, f"the main path launched no {k['name']}")
+    emit({"phase": "summary", "wall_seconds": time.perf_counter() - t_start})
     emit({"kernels": [{key: v for key, v in k.items() if key not in ("shapes", "checks")}
                       for k in (kernel, *train_kernels, probe)]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,13 +14,18 @@ What is ported so far:
   every target mode with self-produced guidance and the IW histogram
   (``ops/``), one backward, torch SGD over the 1x/10x groups at the poly
   LR (``optim.py``);
-- training from the command line: the GTA5 / SYNTHIA / Cityscapes datasets,
-  transforms and ``SegDataLoader`` (``data/``), ``Trainer`` and
-  ``UDATrainer`` with validation, reference-layout ``.pth`` checkpoints,
-  resume and preemption (``train/``), the flag-for-flag config
-  (``config.py``) and the CLIs ``tools/train_source.py`` and
-  ``tools/solve_gta5.py``;
-- the matmul calibration probe (``experiments/bench_matmul.py``).
+- training from the command line: the GTA5 / SYNTHIA / Cityscapes / NTHU
+  cross-city datasets, transforms and ``SegDataLoader`` (``data/``),
+  ``Trainer`` and ``UDATrainer`` with validation, reference-layout ``.pth``
+  checkpoints, resume and preemption (``train/``), the flag-for-flag config
+  (``config.py``) and the CLIs ``tools/{train_source,solve_gta5,
+  solve_crosscity}.py``; a trainer starts from the JAX package's initial
+  weights for its ``--seed`` (``utils/jax_random.py``);
+- serving and data tools: ``tools/evaluate.py``, ``tools/predict.py``,
+  ``tools/prepare_dataset.py``;
+- the benchmark entry point ``bench.py`` (with ``experiments/bench_e2e.py``),
+  the adaptation-efficacy harness (``experiments/adaptation_efficacy.py``)
+  and the matmul calibration probe (``experiments/bench_matmul.py``).
 The 29 stride-1 identity bottlenecks of ResNet-101 run in one fused CUDA
 kernel each (``kernels/fused_block.py``, ``csrc/fused_bottleneck.cu``;
 with grad enabled the kernel also writes h1/h2 for the block's backward),

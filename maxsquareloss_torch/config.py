@@ -121,17 +121,19 @@ class TrainConfig:
 # (field, value that is fine, why not) for every option the port lacks
 _UNPORTED = (
     ("concat_batches", False, "--concat_batches waits on the masked-canvas mode of the "
-     "fused bottleneck (ROADMAP Queue 2, with the bottleneck redesign)"),
+     "fused bottleneck (ROADMAP Queue 1 item 1, with Queue 2's bottleneck redesign)"),
     ("compute_dtype", "float32", "--compute_dtype bfloat16 waits on bf16 training "
-     "(ROADMAP Queue 1, beyond parity)"),
-    ("remat", "", "--remat waits on bf16 training and remat (ROADMAP Queue 1, beyond parity)"),
-    ("quantize", "", "--quantize waits on int8 PTQ (ROADMAP Queue 1, beyond parity)"),
-    ("loader", "threads", "--loader grain waits on the grain pipeline (ROADMAP Queue 1, data)"),
-    ("sp", 1, "--sp > 1 waits on DDP and spatial partitioning (ROADMAP Queue 1, DDP)"),
-    ("profile", False, "--profile waits on its torch.profiler mapping (ROADMAP Queue 1, "
+     "(ROADMAP Queue 1 item 4, beyond parity)"),
+    ("remat", "", "--remat waits on bf16 training and remat (ROADMAP Queue 1 item 4, "
      "beyond parity)"),
-    ("debug_nans", False, "--debug_nans waits on its anomaly-mode mapping (ROADMAP Queue 1, "
-     "beyond parity)"),
+    ("quantize", "", "--quantize waits on int8 PTQ (ROADMAP Queue 1 item 4, beyond parity)"),
+    ("loader", "threads", "--loader grain waits on the grain pipeline (ROADMAP Queue 1 "
+     "item 2, hostops and grain)"),
+    ("sp", 1, "--sp > 1 waits on DDP and spatial partitioning (ROADMAP Queue 1 item 3, DDP)"),
+    ("profile", False, "--profile waits on its torch.profiler mapping (ROADMAP Queue 1 "
+     "item 4, beyond parity)"),
+    ("debug_nans", False, "--debug_nans waits on its anomaly-mode mapping (ROADMAP Queue 1 "
+     "item 4, beyond parity)"),
     ("freeze_bn", True, "--freeze_bn false: BN is always frozen (folded into buffers), "
      "as in the JAX package"),
 )
@@ -145,7 +147,7 @@ def check_supported(cfg: TrainConfig) -> None:
     if (cfg.num_processes or 1) > 1 or cfg.coordinator_address or cfg.process_id:
         raise NotImplementedError(
             "more than one process is not ported: the port runs one process on one "
-            "card (DDP and torchrun: ROADMAP Queue 1, DDP)")
+            "card (DDP and torchrun: ROADMAP Queue 1 item 3, DDP)")
     for name in ("xla_options", "compilation_cache_dir"):
         if getattr(cfg, name) not in ("auto", ""):
             raise NotImplementedError(

@@ -7,7 +7,8 @@
 - ``DomainShiftRenderer`` / ``write_domain_shift_pair``: the synthetic
   domain-shift pair (class colours on an RGB lattice, a global colour shift
   on the target) written in the GTA5 + Cityscapes layouts, which the CLIs
-  train on. PIL is imported only to write the PNGs.
+  train on; ``write_crosscity`` writes one NTHU city. PIL is imported only
+  to write the PNGs.
 """
 
 from __future__ import annotations
@@ -189,3 +190,34 @@ def write_domain_shift_pair(
         with open(os.path.join(cs, f"{split}.txt"), "w") as f:
             f.write("\n".join(rels))
     return r
+
+
+def write_crosscity(
+    base: str,
+    city: str = "Rio",
+    n_train: int = 8,
+    n_val: int = 8,
+    hw: tuple[int, int] = (64, 128),
+    seed: int = 1,
+) -> None:
+    """Write one NTHU city, ``<base>/NTHU/<city>/{Images,Labels}/{Train,
+    Test}``, with ``<base>/NTHU/{train,val}.txt``: per-pixel random raw
+    Cityscapes ids and each pixel painted its class colour."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    colors = np.zeros((256, 3), np.uint8)
+    colors[list(MAPPED_RAW_IDS)] = np.rint(lattice_colors()).astype(np.uint8)
+    root = os.path.join(base, "NTHU")
+    for sub, n, list_name in (("Train", n_train, "train"), ("Test", n_val, "val")):
+        os.makedirs(os.path.join(root, city, "Images", sub), exist_ok=True)
+        os.makedirs(os.path.join(root, city, "Labels", sub), exist_ok=True)
+        names = []
+        for i in range(n):
+            name = f"{sub.lower()}_{i:04d}.png"
+            lab = rng.choice(MAPPED_RAW_IDS, size=hw).astype(np.uint8)
+            Image.fromarray(colors[lab]).save(os.path.join(root, city, "Images", sub, name))
+            Image.fromarray(lab).save(os.path.join(root, city, "Labels", sub, name))
+            names.append(name)
+        with open(os.path.join(root, f"{list_name}.txt"), "w") as f:
+            f.write("\n".join(names))

@@ -228,25 +228,64 @@ class DeepLabV2(nn.Module):
 
 def init_deeplabv2(
     cfg: DeepLabV2Config,
-    generator: torch.Generator,
+    generator: torch.Generator | int,
     device: str | torch.device | None = None,
 ) -> DeepLabV2:
-    """Random-init DeepLabV2 from a (CPU) ``torch.Generator``, on ``device``.
+    """Random-init DeepLabV2 on ``device``: Kaiming fan_out normal for trunk
+    convs, N(0, 0.01) for the heads with zero biases, frozen BN as identity
+    except bn3 (scale 0.1).
 
-    Kaiming fan_out normal for trunk convs, N(0, 0.01) for the heads with
-    zero biases, frozen BN as identity except bn3 (scale 0.1).
+    ``generator``: a (CPU) ``torch.Generator``, or an int seed, which draws
+    the JAX package's weights for that seed (``init_deeplabv2(
+    jax.random.key(seed))``, to a few ulp; ``utils/jax_random.py``).
     """
     device = resolve_device(device)
     model = DeepLabV2(cfg)
-    for name, m in model.named_modules():
-        if isinstance(m, nn.Conv2d):
-            if name.startswith(("layer5", "layer6")):
-                classifier_normal_(m.weight, generator)
-                nn.init.zeros_(m.bias)
-            else:
-                kaiming_normal_(m.weight, generator)
+    if isinstance(generator, int):
+        _init_as_jax(model, generator, device)
+    else:
+        for name, m in model.named_modules():
+            if isinstance(m, nn.Conv2d):
+                if name.startswith(("layer5", "layer6")):
+                    classifier_normal_(m.weight, generator)
+                    nn.init.zeros_(m.bias)
+                else:
+                    kaiming_normal_(m.weight, generator)
     model.pack_weights()
     return model.to(device=device, memory_format=torch.channels_last).eval()
+
+
+@torch.no_grad()
+def _init_as_jax(model: DeepLabV2, seed: int, device: torch.device) -> None:
+    """The JAX package's key tree: one key for the stem, one per block (split
+    4 ways: conv1, conv2, conv3, downsample), one per head (split 4 ways, one
+    per ASPP conv); each HWIO draw transposed to OIHW."""
+    from maxsquareloss_torch.utils import jax_random
+
+    def draw(conv: nn.Conv2d, k, std: float) -> None:
+        cout, cin, kh, kw = conv.weight.shape
+        w = jax_random.normal(k, (kh, kw, cin, cout), device) * torch.tensor(
+            std, dtype=torch.float32, device=device)
+        conv.weight.copy_(w.permute(3, 2, 0, 1))
+
+    def kaiming(conv: nn.Conv2d, k) -> None:
+        cout, _, kh, kw = conv.weight.shape
+        draw(conv, k, math.sqrt(2.0 / (kh * kw * cout)))
+
+    keys = iter(jax_random.split(jax_random.key(seed), 256))
+    kaiming(model.conv1, next(keys))
+    for li in range(1, 5):
+        for block in getattr(model, f"layer{li}"):
+            ks = jax_random.split(next(keys), 4)
+            for conv, k in zip((block.conv1, block.conv2, block.conv3), ks):
+                kaiming(conv, k)
+            if block.downsample is not None:
+                kaiming(block.downsample[0], ks[3])
+    heads = (model.layer5, model.layer6) if model.cfg.multi_level else (model.layer6,)
+    for head in heads:
+        for conv, k in zip(head.conv2d_list, jax_random.split(next(keys), len(ASPP_DILATIONS))):
+            draw(conv, k, 0.01)
+            conv.bias.zero_()
 
 
 def param_groups(model: DeepLabV2, head_mult: float = 10.0) -> list[dict]:

@@ -12,6 +12,7 @@ import torch
 
 from maxsquareloss_torch.config import TrainConfig
 from maxsquareloss_torch.data.cityscapes import CityscapesDataset
+from maxsquareloss_torch.data.crosscity import CrossCityDataset
 from maxsquareloss_torch.data.gta5 import GTA5Dataset
 from maxsquareloss_torch.data.loader import SegDataLoader
 from maxsquareloss_torch.data.synthia import SynthiaDataset
@@ -21,6 +22,7 @@ DATASET_CLS = {
     "cityscapes": CityscapesDataset,
     "gta5": GTA5Dataset,
     "synthia": SynthiaDataset,
+    "crosscity": CrossCityDataset,
 }
 
 
@@ -58,9 +60,6 @@ def make_loader(
     target: bool = False,
     **dataset_kw,
 ) -> SegDataLoader:
-    if dataset_name not in DATASET_CLS:
-        raise NotImplementedError(
-            f"dataset {dataset_name!r} is not ported (cross-city: ROADMAP Queue 1, data)")
     if cfg.cache_dir:
         dataset_kw.setdefault("cache_dir", os.path.join(cfg.cache_dir, f"{dataset_name}_{split}"))
     ds = DATASET_CLS[dataset_name](

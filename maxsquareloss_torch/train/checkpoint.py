@@ -117,12 +117,14 @@ def load_checkpoint(path: str) -> Any:
 
 def load_weights(model: torch.nn.Module, blob: Any, num_classes: int | None = None) -> list[str]:
     """Load the weights of ``blob`` (bare, ``module.``-prefixed or a full
-    checkpoint) into ``model``; heads of another class count are skipped.
+    checkpoint) into ``model``; heads of another class count are skipped,
+    and so is a head the model lacks (the aux head of a multi-level file in
+    a ``--multi false`` model, which the JAX package carries along unused).
     Repacks the eval kernel's weights. Returns the keys left at init."""
     sd = blob.get("state_dict", blob) if isinstance(blob, dict) else blob
     params, frozen = torch_state_dict_to_pytrees(sd, num_classes=num_classes)
     missing, unexpected = model.load_state_dict(state_dict_from_jax(params, frozen), strict=False)
-    if unexpected or any(not k.startswith(HEADS) for k in missing):
+    if any(not k.startswith(HEADS) for k in (*missing, *unexpected)):
         raise ValueError(f"checkpoint does not fit the model: missing {missing[:5]}, "
                          f"unexpected {unexpected[:5]}")
     model.pack_weights()

@@ -73,8 +73,8 @@ class Trainer:
         self.num_eval_classes = num_eval_classes or cfg.num_classes
 
         if model is None:
-            model = init_deeplabv2(model_config(cfg), torch.Generator().manual_seed(cfg.seed),
-                                   device=self.device)
+            # the JAX package's initial weights for the same --seed
+            model = init_deeplabv2(model_config(cfg), cfg.seed, device=self.device)
         else:
             model = model.to(device=self.device, memory_format=torch.channels_last).eval()
         self.model = model
