@@ -1452,7 +1452,7 @@ def phase_bench() -> None:
     runs = (
         ("uda", ["--mode", "uda", *short],
          {**{k: v * calls for k, v in uda.items()}, "fused_bottleneck": 29 * calls}),
-        ("source", ["--mode", "source", *short], {"fused_bottleneck_emit": 58 * calls}),
+        ("source", ["--mode", "source", *short], {"fused_bottleneck_emit": 29 * calls}),
         ("infer", ["--mode", "infer", *short], {"fused_bottleneck": 29 * calls}),
         ("infer_fullres_labels", ["--mode", "infer", "--label_hw", "1024,2048", *short],
          {"fused_bottleneck": 29 * calls}),
