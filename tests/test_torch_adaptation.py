@@ -13,9 +13,8 @@ and checks that every arm reports a finite mIoU.
 The margins were set on the JAX package's seed-0 run, so the port's trainer
 starts from the JAX package's initial weights for its ``--seed``
 (``init_deeplabv2(cfg, seed)``): from another draw of the same distribution
-the port's seed 0 adapts by 0.0295, under the margin, while from JAX's it
-matches the JAX run's mIoUs to 5e-4. The fast tests hold those draws against
-``jax.random``.
+the port's seed 0 adapted by 0.0295, under the margin. The fast tests hold
+those draws against ``jax.random``.
 """
 
 from __future__ import annotations
