@@ -69,25 +69,39 @@ Phases, one JSON object per line on stdout:
      losses of iterations 4-6 (relative 1e-4). Reports steps/s beside the
      bare step's, the idle share over two iterations, peak memory, and the
      checkpoint's save time and size;
- 11. cli: ``tools.solve_gta5`` for 2 iterations on a small on-disk
+ 11. concat: the UDA step with --concat_batches (source and target as one
+     forward over 8 images on the 1280x640 canvas, the target images valid
+     over their 1024x512 extents). Both bottleneck kernels in the masked
+     mode at the step's 4 identity-block shapes against the masked plain
+     version (rtol = atol = 1e-4), h1 exactly 0 in the pad region, the same
+     bits on a second call, each timed beside the unmasked kernel; one
+     concat step against one two-forward step and one plain-path concat
+     step from the same weights (the train phase's limits); 2 warm-up and
+     REPS timed steps of each (steps/s, peak memory; 29 masked emit launches
+     a concat step against 58 unmasked, each loss kernel once a direction);
+     a profile of one concat step; a UDATrainer with --concat_batches true
+     --profile for 6 iterations, whose trace under checkpoint_dir/profile
+     must name the bottleneck kernel;
+ 12. cli: ``tools.solve_gta5`` for 2 iterations on a small on-disk
      domain-shift pair at 128x256 (PIL is required: the run fails without it);
- 12. serving_cli: ``tools.evaluate`` on that run's ``checkpoint_latest.pth``
+ 13. serving_cli: ``tools.evaluate`` on that run's ``checkpoint_latest.pth``
      (single scale: mIoU within 1e-4 of ``evaluate`` on the trainer's model
      in this process; scales 0.75,1.0 + flip; --full_res_labels) and
      ``tools.predict`` with scales 0.75,1.0 + flip (a PNG pair per image,
      trainIds in 0..18, the first image's equal to ``make_predict_fn`` on
      99.9 % of the pixels), each with its exact eval-kernel launch count;
- 13. crosscity: ``tools.solve_crosscity`` for 2 iterations, Cityscapes → a
+ 14. crosscity: ``tools.solve_crosscity`` for 2 iterations, Cityscapes → a
      synthetic NTHU Rio at 128x256, 13 classes;
- 14. bench: ``maxsquareloss_torch.bench`` in this process in modes uda and
-     source (5 timed steps after 2), infer at 1024x512 with 1024x512 and
+ 15. bench: ``maxsquareloss_torch.bench`` in this process in modes uda,
+     uda with --concat (equal crops: one unmasked forward over 16 images)
+     and source (5 timed steps after 2), infer at 1024x512 with 1024x512 and
      1024x2048 labels, and e2e at the protocol's disk sizes over 16 images
      a domain for one epoch a leg; each prints its JSON line;
- 15. efficacy: the adaptation-efficacy gate at ``tests/test_adaptation.py``'s
+ 16. efficacy: the adaptation-efficacy gate at ``tests/test_adaptation.py``'s
      protocol (seed 0, --blocks 1,1,2,1, 128x64, batch 8, 300 source and
      200 UDA iterations, lambda 64): IW_maxsquare must beat the
      lambda_target 0 control and source-only by more than 0.03 mIoU.
-     Phases 11-15 record every kernel launch's shape; each shape no earlier
+     Phases 12-16 record every kernel launch's shape; each shape no earlier
      phase checked is then held against the plain version (tolerances of
      phases 3 and 6).
 All full-width phases run R101 (blocks 3,4,23,3) in fp32 with TF32 off.
@@ -128,6 +142,7 @@ from maxsquareloss_torch.kernels.fused_block import (
     fused_bottleneck_emit,
     fused_bottleneck_emit_reference,
     fused_bottleneck_reference,
+    valid_mask,
 )
 from maxsquareloss_torch.kernels.fused_loss import (
     fused_iw_max_square_loss,
@@ -140,6 +155,7 @@ from maxsquareloss_torch.models.deeplabv2 import (
     Bottleneck,
     DeepLabV2,
     init_deeplabv2,
+    make_canvas_masks,
     valid_logits_hw,
 )
 from maxsquareloss_torch.ops.histogram import class_histogram, iw_class_weights
@@ -202,6 +218,14 @@ TRAIN_BATCH = TRAIN_CFG.batch_size
 SRC_HW = TRAIN_CFG.crop_size[::-1]
 TGT_HW = TRAIN_CFG.target_crop_size[::-1]
 TRAIN_SHAPES = block_shapes(TRAIN_BATCH, SRC_HW) + block_shapes(TRAIN_BATCH, TGT_HW)
+# the concat UDA step (--concat_batches): the same batches as one forward over
+# 8 images on a canvas of the larger crop, the target images valid over
+# their own extents (layer1 161x321 valid over 129x257, layers 2-4 81x161
+# over 65x129)
+CONCAT_CFG = dataclasses.replace(TRAIN_CFG, concat_batches=True)
+CANVAS_HW = (max(SRC_HW[0], TGT_HW[0]), max(SRC_HW[1], TGT_HW[1]))
+CANVAS_GROUPS = [(TRAIN_BATCH, SRC_HW), (TRAIN_BATCH, TGT_HW)]
+CONCAT_SHAPES = block_shapes(2 * TRAIN_BATCH, CANVAS_HW)
 # the main path's; one whose pixel count is no multiple of the 256-pixel tile;
 # one with images smaller than a tile, over two blocks (40 * 99 pixels)
 LOSS_SHAPES = ((TRAIN_BATCH, *TGT_HW), (1, 37, 53), (40, 9, 11))
@@ -227,6 +251,9 @@ CLI_COMMON = ["--batch_size", "2", "--num_workers", "4", "--tqdm", "false"]
 COUNTERS = {
     "fused_bottleneck": (fused_bottleneck, "launches"),
     "fused_bottleneck_emit": (fused_bottleneck_emit, "launches"),
+    # the masked-canvas launches among those two counts
+    "fused_bottleneck_masked": (fused_bottleneck, "masked_launches"),
+    "fused_bottleneck_emit_masked": (fused_bottleneck_emit, "masked_launches"),
     "fused_iw_max_square_loss": (fused_iw_max_square_loss, "launches"),
     "fused_iw_max_square_loss_backward": (fused_iw_max_square_loss, "backward_launches"),
     "fused_max_square_loss": (fused_max_square_loss, "launches"),
@@ -489,9 +516,9 @@ def phase_slice(checked: set) -> dict:
     # record the shape of every launch on the main path
     seen = set()
 
-    def recording_kernel(x, *args):
+    def recording_kernel(x, *args):  # args: w1..b3, dilation, valid
         n, cin, h, w = x.shape
-        seen.add((n, h, w, cin, args[0].shape[-1], args[-1]))
+        seen.add((n, h, w, cin, args[0].shape[-1], args[9]))
         return fused_bottleneck(x, *args)
 
     model.block_fn = recording_kernel
@@ -731,12 +758,12 @@ def phase_train_loss_kernels() -> list[dict]:
     return entries
 
 
-def _hold_emit(gen, name, n, h, w, cin, cmid, d) -> tuple[tuple, tuple, dict]:
+def _hold_emit(gen, name, n, h, w, cin, cmid, d, valid=None) -> tuple[tuple, tuple, dict]:
     """One shape's inputs, the emit kernel's (out, h1, h2), and its errors
-    against the plain version."""
+    against the plain version (masked by ``valid``, if given)."""
     args = _block_inputs(gen, n, h, w, cin, cmid)
-    got = fused_bottleneck_emit(*args, d)
-    want = fused_bottleneck_emit_reference(*args, d)
+    got = fused_bottleneck_emit(*args, d, valid)
+    want = fused_bottleneck_emit_reference(*args, d, valid)
     torch.cuda.synchronize()
     row = {"layer": name, "shape": [n, h, w, cin], "cmid": cmid, "dilation": d,
            **_tile_report(n, h, w, cin, cmid, d)}
@@ -894,9 +921,9 @@ def phase_train(emit_checked: set) -> tuple[dict[str, int], float]:
     # record the shape of every emit launch on the main path
     seen = set()
 
-    def recording(x, *args):
+    def recording(x, *args):  # args: w1..b3, dilation, valid
         n, cin, h, w = x.shape
-        seen.add((n, h, w, cin, args[0].shape[-1], args[-1]))
+        seen.add((n, h, w, cin, args[0].shape[-1], args[9]))
         return FusedBottleneckFn.apply(x, *args)
 
     model.train_block_fn = recording
@@ -950,6 +977,278 @@ def phase_train(emit_checked: set) -> tuple[dict[str, int], float]:
           "maxsquare_metrics": metrics[-1]})
     phase_profile("train_step", lambda: step(state, *pairs[0]), top_n=16)
     return counts, statistics.median(steps_per_s)
+
+
+def _block_work(n, h, w, cin, cmid, emit, conv1_pixels) -> tuple[int, int]:
+    """(FLOP, bytes) one masked launch needs: conv1 over ``conv1_pixels``
+    (the valid ones: h1 is 0 elsewhere), conv2 and conv3 over every pixel;
+    x read and out written once, h1 and h2 written with ``emit``, the
+    weights and BN read once."""
+    px = n * h * w
+    flops = 2 * (conv1_pixels * cin * cmid + px * (9 * cmid * cmid + cmid * cin))
+    nbytes = 4 * (2 * px * (cin + (cmid if emit else 0)) + 2 * cin * cmid + 9 * cmid * cmid
+                  + 4 * cmid + 2 * cin)
+    return flops, nbytes
+
+
+def phase_concat_kernels() -> tuple[set, dict]:
+    """The masked-canvas mode of both bottleneck kernels at each identity
+    block shape of the concat step (N 8 on the canvas, 4 images valid over
+    all of it and 4 over the target's extents) against the masked plain
+    version (rtol = atol = 1e-4); the emitted h1 exactly 0 in the pad region;
+    a second call the same bits; each timed beside the unmasked kernel at the
+    same shape. Returns the checked shapes and the kernels-line entry of the
+    masked emit kernel (times per concat step)."""
+    gen = torch.Generator().manual_seed(6)
+    masks = make_canvas_masks(CANVAS_HW, CANVAS_GROUPS, "cuda")
+    rows, checked = [], set()
+    for name, n, h, w, cin, cmid, d, per_fwd in CONCAT_SHAPES:
+        valid = masks["os4" if name == "layer1" else "os8"].valid
+        extents = valid.tolist()
+        args, got, row = _hold_emit(gen, name, n, h, w, cin, cmid, d, valid)
+        pad = (valid_mask(valid, h, w) == 0).expand_as(got[1])
+        h1_pad_max = got[1][pad].abs().max().item()
+        check(h1_pad_max == 0.0, f"masked emit {name}: h1 is {h1_pad_max} in the pad region")
+        check(bool((got[1][~pad] > 0).any()), f"masked emit {name}: h1 is 0 everywhere")
+        check(all(torch.equal(a, b) for a, b in zip(got, fused_bottleneck_emit(*args, d, valid))),
+              f"masked emit {name}: two calls differ (not bitwise deterministic)")
+        del got
+        out_e = fused_bottleneck(*args, d, valid)
+        max_abs, worst = _worst(out_e, fused_bottleneck_reference(*args, d, valid))
+        check(worst <= 1.0, f"masked eval {name}: {max_abs:.3g} abs, {worst:.3g}x the tolerance")
+        check(torch.equal(out_e, fused_bottleneck(*args, d, valid)),
+              f"masked eval {name}: two calls differ (not bitwise deterministic)")
+        del out_e
+
+        def emit_k(v=valid):
+            return fused_bottleneck_emit(*args, d, v)
+
+        def eval_k(v=valid):
+            return fused_bottleneck(*args, d, v)
+
+        def plain():
+            return fused_bottleneck_emit_reference(*args, d, valid)
+
+        def unmasked(f):
+            return lambda: f(None)
+
+        p1, e1, u1, v1, w1, e2, u2, v2, w2, p2 = (time_ms(f, 5) for f in (
+            plain, emit_k, unmasked(emit_k), eval_k, unmasked(eval_k),
+            emit_k, unmasked(emit_k), eval_k, unmasked(eval_k), plain))
+        torch.backends.cudnn.allow_tf32 = True  # cuDNN at PyTorch's defaults
+        lib_ms = time_ms(plain, 5)
+        torch.backends.cudnn.allow_tf32 = False
+        valid_px = sum(vh * vw for vh, vw in extents)
+        flops, nbytes = _block_work(n, h, w, cin, cmid, True, valid_px)
+        eval_flops, eval_bytes = _block_work(n, h, w, cin, cmid, False, valid_px)
+        row.update({
+            "valid_extents": sorted({tuple(e) for e in extents}), "valid_pixel_share": valid_px / (n * h * w),
+            "h1_pad_max_abs": h1_pad_max, "bitwise_repeatable": True,
+            "eval_max_abs_err": max_abs, "eval_worst_over_tol": worst,
+            "per_forward": per_fwd, "ms": (e1 + e2) / 2, "unmasked_ms": (u1 + u2) / 2,
+            "eval_ms": (v1 + v2) / 2, "eval_unmasked_ms": (w1 + w2) / 2,
+            "plain_ms": (p1 + p2) / 2, "library_ms": lib_ms,
+            "bound_ms": max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3,
+            "eval_bound_ms": max(eval_flops / PEAK_FP32_FLOPS, eval_bytes / PEAK_BYTES) * 1e3,
+            "tflops": flops / ((e1 + e2) / 2) / 1e9,
+        })
+        emit({"phase": "concat_kernel", "kernel": "fused_bottleneck_emit_masked", **row})
+        rows.append(row)
+        checked.add((n, h, w, cin, cmid, d))
+        del args
+    torch.cuda.empty_cache()
+
+    def per_step(key):  # one canvas forward a step
+        return sum(r[key] * r["per_forward"] for r in rows)
+
+    emit({"phase": "concat_kernel_summary", "blocks_per_step": sum(r["per_forward"] for r in rows),
+          **{f"{k}_per_step": per_step(k) for k in (
+              "ms", "unmasked_ms", "eval_ms", "eval_unmasked_ms", "plain_ms", "library_ms",
+              "bound_ms", "eval_bound_ms")}})
+    return checked, {
+        "name": "fused_bottleneck_emit_masked", "route": "cuda",
+        "source": "maxsquareloss_torch/csrc/fused_bottleneck.cu",
+        "replaces": "experiments/retired_pallas/fused_block.py:153",
+        "launches": None,  # filled from the main path's run
+        "max_abs_err": max(max(r["eval_max_abs_err"],
+                               *(r[f"{k}_max_abs_err"] for k in ("out", "h1", "h2")))
+                           for r in rows),
+        # times and bound: the 29 identity blocks of one concat step
+        "ms": per_step("ms"), "plain_ms": per_step("plain_ms"),
+        "bound_ms": per_step("bound_ms"), "bound_by": "operations",
+        "library_ms": per_step("library_ms"),
+        "library": "the plain F.conv2d chain with the mask multiply, cuDNN at PyTorch "
+                   "defaults (TF32 convs)",
+        "shapes": rows,
+    }
+
+
+def _parity(name, m_k, model, m_ref, ref_model, p0) -> dict:
+    """One step's metrics (rel STEP_RTOL) and every parameter's change
+    (relative L2 STEP_PARAM_RTOL_L2) against a reference step's."""
+    check(set(m_k) == set(m_ref), f"{name}: metrics {sorted(m_k)} vs {sorted(m_ref)}")
+    metric_err = {}
+    for k in m_k:
+        a, b = m_k[k].item(), m_ref[k].item()
+        metric_err[k] = abs(a - b) / max(abs(b), 1e-30)
+        check(math.isfinite(a) and abs(a - b) <= STEP_RTOL * abs(b),
+              f"{name} {k}: {a} vs {b}")
+    ref_params = dict(ref_model.named_parameters())
+    param_err = {n: _rel_l2(p.detach() - p0[n], ref_params[n].detach() - p0[n])
+                 for n, p in model.named_parameters()}
+    worst = max(param_err, key=param_err.get)
+    check(param_err[worst] <= STEP_PARAM_RTOL_L2,
+          f"{name}: {worst} change off by {param_err[worst]:.3g} (relative L2)")
+    return {"metric_rel_err": metric_err, "param_change_rel_l2_max": param_err[worst],
+            "param_change_rel_l2_worst": worst,
+            "param_change_rel_l2_median": statistics.median(param_err.values())}
+
+
+def phase_concat(emit_checked: set, masked_checked: set) -> dict[str, int]:
+    """The concat UDA step (--concat_batches) at the protocol's crops: one
+    kernel-path concat step against one kernel-path two-forward step and
+    one plain-path concat step from the same weights (PERF.md's training
+    limits); then the counted main path, 2 warm-up and REPS timed steps of
+    each, the two-forward steps first (each model's peak memory, the other
+    model freed); last, a short UDATrainer with --concat_batches true
+    --profile, whose trace must name the kernel. Returns the concat steps'
+    launch counts."""
+    cfg = CONCAT_CFG
+    pairs = _train_pairs()
+    model = init_deeplabv2(model_config(cfg), torch.Generator().manual_seed(0), device="cuda")
+    two = DeepLabV2(model.cfg).to(device="cuda", memory_format=torch.channels_last)
+    two.load_state_dict(model.state_dict())
+    plain = DeepLabV2(model.cfg, plain_blocks=True).to(
+        device="cuda", memory_format=torch.channels_last)
+    plain.load_state_dict(model.state_dict())
+    p0 = {name: p.detach().clone() for name, p in model.named_parameters()}
+    concat_step, two_step = make_uda_train_step(cfg), make_uda_train_step(TRAIN_CFG)
+
+    state, m_c = concat_step(make_train_state(model, cfg), *pairs[0])
+    two_state, m_t = two_step(make_train_state(two, TRAIN_CFG), *pairs[0])
+    with plain_losses():
+        _, m_p = concat_step(make_train_state(plain, cfg), *pairs[0])
+    emit({"phase": "concat_parity", "metrics": {k: v.item() for k, v in m_c.items()},
+          "vs_two_forward_kernel_path": _parity("concat vs two-forward", m_c, model, m_t, two, p0),
+          "vs_plain_path": _parity("concat kernel vs plain path", m_c, model, m_p, plain, p0)})
+    del plain, m_p, p0
+    torch.cuda.empty_cache()
+
+    seen = {"concat": set(), "two_forward": set()}
+
+    def recorder(key):
+        def recording(x, *args):  # args: w1..b3, dilation, valid
+            n, cin, h, w = x.shape
+            seen[key].add((n, h, w, cin, args[0].shape[-1], args[9]))
+            check((args[10] is not None) == (key == "concat"), f"{key}: masked launch mismatch")
+            return FusedBottleneckFn.apply(x, *args)
+        return recording
+
+    loss_counts = {"fused_iw_max_square_loss": 1, "fused_iw_max_square_loss_backward": 1}
+    runs = (("two_forward", two_step, {"fused_bottleneck_emit": 58, **loss_counts}),
+            ("concat", concat_step, {"fused_bottleneck_emit": 29,
+                                     "fused_bottleneck_emit_masked": 29, **loss_counts}))
+    states = {"two_forward": two_state, "concat": state}
+    results, counts = {}, {}
+    for key, fn, per_step in runs:
+        st = states.pop(key)
+        st.model.train_block_fn = recorder(key)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start_alloc = torch.cuda.memory_allocated()
+        # the main path, counted: every launch from here to the read is the path's
+        zero_counts()
+        secs, metrics = [], []
+        for i in range(WARMUP_STEPS + REPS):
+            before = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, m = fn(st, *pairs[i % len(pairs)])
+            torch.cuda.synchronize()
+            if i >= WARMUP_STEPS:
+                secs.append(time.perf_counter() - t0)
+            delta = {k: v - before[k] for k, v in read_counts().items()}
+            want = {k: per_step.get(k, 0) for k in delta}
+            check(delta == want, f"{key} step {i}: launches {delta}, expected {want}")
+            metrics.append({k: v.item() for k, v in m.items()})
+        counts[key] = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        for i, m in enumerate(metrics):
+            check(all(math.isfinite(v) for v in m.values()), f"{key} step {i}: non-finite {m}")
+        rates = sorted(1.0 / t for t in secs)
+        results[key] = {"seconds": secs, "steps_per_s_median": statistics.median(rates),
+                        "steps_per_s_min": rates[0], "steps_per_s_max": rates[-1],
+                        "images_per_s_median": 2 * TRAIN_BATCH * statistics.median(rates),
+                        "peak_memory_bytes": peak, "peak_memory_gib": peak / 2**30,
+                        "allocated_at_start_gib": start_alloc / 2**30,
+                        "launch_counts": counts[key], "launch_shapes": sorted(seen[key]),
+                        "last_metrics": metrics[-1]}
+        st.model.train_block_fn = FusedBottleneckFn.apply
+        if key == "two_forward":
+            del st, two, two_state
+            torch.cuda.empty_cache()
+    check(seen["two_forward"] <= emit_checked,
+          f"emit launched at unchecked shapes {sorted(seen['two_forward'] - emit_checked)}")
+    check(seen["concat"] <= masked_checked,
+          f"masked emit launched at unchecked shapes {sorted(seen['concat'] - masked_checked)}")
+    emit({"phase": "concat", "run": "uda_IW_maxsquare_r101_concat", "iw_hist": cfg.iw_hist,
+          "batch": TRAIN_BATCH, "source_hw": list(SRC_HW), "target_hw": list(TGT_HW),
+          "canvas_hw": list(CANVAS_HW), "warmup": WARMUP_STEPS, "reps": REPS, **results,
+          "concat_over_two_forward_steps_per_s": results["concat"]["steps_per_s_median"]
+          / results["two_forward"]["steps_per_s_median"]})
+    phase_profile("concat_train_step", lambda: concat_step(state, *pairs[0]), top_n=16)
+    del state, model
+    torch.cuda.empty_cache()
+    phase_concat_trainer()
+    return counts["concat"]
+
+
+def phase_concat_trainer() -> None:
+    """UDATrainer with --concat_batches true --profile over the trainer
+    phase's in-memory loaders, TRAINER_ITERS iterations: 29 masked emit
+    launches an iteration, and a torch.profiler trace of iterations 2-5
+    under checkpoint_dir/profile that names the bottleneck kernel."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_concat_trainer_")
+    try:
+        cfg = dataclasses.replace(
+            CONCAT_CFG, profile=True, iter_stop=TRAINER_ITERS, num_workers=8, tqdm=False,
+            show_num_images=0, checkpoint_dir=os.path.join(root, "run"))
+        model = init_deeplabv2(model_config(cfg), torch.Generator().manual_seed(0), device="cuda")
+        src, tgt, _ = _trainer_loaders(cfg)
+        trainer = UDATrainer(cfg, src, tgt, None, model=model)
+        per_iter = {"fused_bottleneck_emit": 29, "fused_bottleneck_emit_masked": 29,
+                    "fused_iw_max_square_loss": 1, "fused_iw_max_square_loss_backward": 1}
+        _, counts, line = _counted_cli(
+            "UDATrainer --concat_batches true --profile", trainer.train, None,
+            {k: v * TRAINER_ITERS for k, v in per_iter.items()})
+        check(trainer.state.iteration == TRAINER_ITERS, f"trainer ended at {trainer.state.iteration}")
+        trace = trainer.profiler.path
+        check(trace is not None and os.path.dirname(trace) == os.path.join(cfg.checkpoint_dir, "profile"),
+              f"profile trace at {trace}")
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = {}
+        for e in events:
+            if e.get("cat") == "kernel":
+                kernels[e["name"]] = kernels.get(e["name"], 0.0) + e.get("dur", 0.0)
+        named = [k for k in kernels if "fused_bottleneck_kernel" in k]
+        check(bool(named), "the profile trace names no fused_bottleneck_kernel")
+        losses = _scalars(cfg.checkpoint_dir)["train/loss"]
+        check(all(math.isfinite(r["value"]) for r in losses.values()), "non-finite trainer loss")
+        ts = [losses[i]["ts"] for i in range(1, TRAINER_ITERS + 1)]
+        top = sorted(kernels.items(), key=lambda kv: kv[1], reverse=True)[:10]
+        emit({"phase": "concat_trainer", **line, "iterations": TRAINER_ITERS,
+              "trace": os.path.relpath(trace, root), "trace_bytes": os.path.getsize(trace),
+              "trace_kernel_events": sum(1 for e in events if e.get("cat") == "kernel"),
+              "trace_device_ms_iterations_2_5": sum(kernels.values()) / 1e3,
+              "trace_top_kernels_ms": [{"name": k[:90], "ms": v / 1e3} for k, v in top],
+              "steps_per_s_iterations_2_6_with_profiler":
+                  statistics.median(1.0 / (b - a) for a, b in zip(ts[1:], ts[2:])),
+              "losses": {i: r["value"] for i, r in losses.items()}})
+        del trainer, model
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def _probe_inputs(gen, m, k, n, cells, dtype):
@@ -1248,12 +1547,13 @@ def recorded_shapes():
             **{name: set() for name in LOSSES}}
     forward = Bottleneck.forward
 
-    def recording_forward(self, x, kernel, train_kernel):
+    def recording_forward(self, x, kernel, train_kernel, mask=None):
         if self.fusable and kernel is fused_bottleneck:
+            check(mask is None, "a masked launch on a path whose shapes are held unmasked")
             n, cin, h, w = x.shape
             key = "fused_bottleneck_emit" if torch.is_grad_enabled() else "fused_bottleneck"
             seen[key].add((n, h, w, cin, self.conv1.out_channels, self.dilation))
-        return forward(self, x, kernel, train_kernel)
+        return forward(self, x, kernel, train_kernel, mask)
 
     def recording_loss(name, fn):
         def loss(logits, *rest):
@@ -1452,6 +1752,10 @@ def phase_bench() -> None:
     runs = (
         ("uda", ["--mode", "uda", *short],
          {**{k: v * calls for k, v in uda.items()}, "fused_bottleneck": 29 * calls}),
+        # equal crops: one unmasked forward over 16 images a step
+        ("uda_concat", ["--mode", "uda", "--concat", *short],
+         {"fused_bottleneck_emit": 29 * calls, "fused_iw_max_square_loss": calls,
+          "fused_iw_max_square_loss_backward": calls, "fused_bottleneck": 29 * calls}),
         ("source", ["--mode", "source", *short], {"fused_bottleneck_emit": 29 * calls}),
         ("infer", ["--mode", "infer", *short], {"fused_bottleneck": 29 * calls}),
         ("infer_fullres_labels", ["--mode", "infer", "--label_hw", "1024,2048", *short],
@@ -1528,6 +1832,9 @@ def main() -> int:
     probe = phase_probe()
     probe["launches"] = phase_probe_main()
     phase_trainer(bare_steps_per_s)
+    masked_checked, masked_kernel = phase_concat_kernels()
+    masked_kernel["launches"] = phase_concat(emit_checked, masked_checked)[
+        "fused_bottleneck_emit_masked"]
     # the later paths: every launch shape no phase above checked is held
     # against the plain version after the path's run
     loss_checked = {(*shape, NUM_CLASSES) for shape in LOSS_SHAPES}
@@ -1548,11 +1855,12 @@ def main() -> int:
         with recorded_shapes() as seen:
             phase()
         hold_path_shapes(path, seen, checked_all)
-    for k in (kernel, *train_kernels, probe):
+    kernels = (kernel, *train_kernels, masked_kernel, probe)
+    for k in kernels:
         check(k["launches"] > 0, f"the main path launched no {k['name']}")
     emit({"phase": "summary", "wall_seconds": time.perf_counter() - t_start})
     emit({"kernels": [{key: v for key, v in k.items() if key not in ("shapes", "checks")}
-                      for k in (kernel, *train_kernels, probe)]})
+                      for k in kernels]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

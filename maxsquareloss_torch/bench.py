@@ -8,8 +8,10 @@ configuration, one JSON line::
 Modes:
   uda     the multi-level UDA train step (source CE + IW max-square target
           + self-produced guidance) on ``--batch`` source and ``--batch``
-          target images; ``--with_infer`` (default on) also times
-          single-scale val inference and records it as ``value_infer_fp32``
+          target images (``--concat``: as one forward over both batches,
+          the step's ``--concat_batches``); ``--with_infer`` (default on)
+          also times single-scale val inference and records it as
+          ``value_infer_fp32``
   source  the supervised step on ``--batch`` source images
   infer   val inference: forward (+``--scales``/``--flip``) + upsample +
           argmax + confusion matrix; ``--label_hw`` larger than ``--hw`` is
@@ -25,9 +27,8 @@ spread is visible. One process drives one card, so a rate per chip is the
 rate. Runs on the card; ``--device cpu`` runs the plain PyTorch versions on
 the host.
 
-Only fp32 is ported: ``--dtype bfloat16``, ``--remat``, ``--concat``,
-``--quantize``, ``--fp32_parity true``, ``--xla_options`` and
-``--comparator`` raise.
+Only fp32 is ported: ``--dtype bfloat16``, ``--remat``, ``--quantize``,
+``--fp32_parity true``, ``--xla_options`` and ``--comparator`` raise.
 """
 
 from __future__ import annotations
@@ -82,6 +83,7 @@ def measure_step_rate(args, device: torch.device) -> dict:
     batch = args.batch
     cfg = TrainConfig(
         multi=True, num_classes=19, target_mode="IW_maxsquare", iw_hist=args.iw_hist,
+        concat_batches=args.concat,
         blocks=tuple(int(v) for v in args.blocks.split(",")), batch_size=batch,
         eval_h_chunk=args.eval_h_chunk, device=str(device),
     )
@@ -141,12 +143,11 @@ def _check_supported(args) -> None:
     """Raise on every flag whose feature the port does not have."""
     unported = (
         (args.dtype != "float32", "--dtype bfloat16 waits on bf16 training "
-         "(ROADMAP Queue 1 item 4, beyond parity)"),
-        (args.remat, "--remat waits on bf16 training and remat (ROADMAP Queue 1 item 4)"),
-        (args.concat, "--concat waits on --concat_batches (ROADMAP Queue 1 item 1)"),
-        (args.quantize, "--quantize waits on int8 PTQ (ROADMAP Queue 1 item 4)"),
+         "(ROADMAP Queue 1 item 3, beyond parity)"),
+        (args.remat, "--remat waits on bf16 training and remat (ROADMAP Queue 1 item 3)"),
+        (args.quantize, "--quantize waits on int8 PTQ (ROADMAP Queue 1 item 3)"),
         (args.fp32_parity, "--fp32_parity is the JAX bench's batch-8 + stage-remat leg; "
-         "here fp32 is the headline and remat is not ported (ROADMAP Queue 1 item 4)"),
+         "here fp32 is the headline and remat is not ported (ROADMAP Queue 1 item 3)"),
         (args.xla_options is not None, "--xla_options configures XLA, which the port does not use"),
         (args.comparator is not None, "--comparator: the port's JSON carries no comparator "
          "and no vs_baseline"),
@@ -173,7 +174,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     # counting the argmax runs the same kernels
     p.add_argument("--iw_hist", default="argmax", choices=("guidance", "argmax"))
     p.add_argument("--remat", default="", choices=("", "stages"))
-    p.add_argument("--concat", action="store_true")
+    p.add_argument("--concat", action="store_true",
+                   help="UDA: one concatenated source+target forward (--concat_batches)")
     p.add_argument("--scales", default="1.0", help="infer mode: comma-separated eval scales")
     p.add_argument("--flip", type=str2bool, default=False, help="infer mode: flip TTA")
     p.add_argument("--label_hw", default="",
@@ -220,6 +222,7 @@ def main(argv=None) -> dict:
     m = measure_step_rate(args, device)
     extra = {
         "chips": 1, "global_batch": args.batch, "blocks": args.blocks, "iw_hist": args.iw_hist,
+        "concat_batches": args.concat,
         "step_ms": min(m["step_ms_passes"]), "step_ms_passes": m["step_ms_passes"],
         "final_loss": m["final_loss"], "peak_memory_bytes": m["peak_memory_bytes"],
         **device_report(device),

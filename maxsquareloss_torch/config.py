@@ -33,7 +33,7 @@ class TrainConfig:
     compute_dtype: str = "float32"     # the fused kernels take float32 only
     remat: str = ""
     xla_options: str = "auto"          # the JAX package's compiler knob; none here
-    concat_batches: bool = False       # UDA: one masked-canvas forward (not ported)
+    concat_batches: bool = False       # UDA: one masked-canvas forward for both batches
 
     # optimizer (reference defaults: SGD 2.5e-4, momentum .9, wd 5e-4)
     lr: float = 2.5e-4
@@ -98,8 +98,8 @@ class TrainConfig:
     quantize: str = ""                 # int8 PTQ (not ported)
     calib_batches: int = 4
     calib_mode: str = "amax"
-    profile: bool = False              # trace capture (not ported)
-    debug_nans: bool = False           # NaN sanitizer (not ported)
+    profile: bool = False              # torch.profiler trace of iterations 2-5
+    debug_nans: bool = False           # anomaly mode; a non-finite loss raises
     # graceful preemption: on SIGTERM, finish the in-flight step, write a
     # mid-epoch checkpoint (carrying the exact batch offset) and return
     preempt_save: bool = True
@@ -120,20 +120,14 @@ class TrainConfig:
 
 # (field, value that is fine, why not) for every option the port lacks
 _UNPORTED = (
-    ("concat_batches", False, "--concat_batches waits on the masked-canvas mode of the "
-     "fused bottleneck (ROADMAP Queue 1 item 1, with Queue 2's bottleneck redesign)"),
     ("compute_dtype", "float32", "--compute_dtype bfloat16 waits on bf16 training "
-     "(ROADMAP Queue 1 item 4, beyond parity)"),
-    ("remat", "", "--remat waits on bf16 training and remat (ROADMAP Queue 1 item 4, "
+     "(ROADMAP Queue 1 item 3, beyond parity)"),
+    ("remat", "", "--remat waits on bf16 training and remat (ROADMAP Queue 1 item 3, "
      "beyond parity)"),
-    ("quantize", "", "--quantize waits on int8 PTQ (ROADMAP Queue 1 item 4, beyond parity)"),
+    ("quantize", "", "--quantize waits on int8 PTQ (ROADMAP Queue 1 item 3, beyond parity)"),
     ("loader", "threads", "--loader grain waits on the grain pipeline (ROADMAP Queue 1 "
-     "item 2, hostops and grain)"),
-    ("sp", 1, "--sp > 1 waits on DDP and spatial partitioning (ROADMAP Queue 1 item 3, DDP)"),
-    ("profile", False, "--profile waits on its torch.profiler mapping (ROADMAP Queue 1 "
-     "item 4, beyond parity)"),
-    ("debug_nans", False, "--debug_nans waits on its anomaly-mode mapping (ROADMAP Queue 1 "
-     "item 4, beyond parity)"),
+     "item 1, hostops and grain)"),
+    ("sp", 1, "--sp > 1 waits on DDP and spatial partitioning (ROADMAP Queue 1 item 2, DDP)"),
     ("freeze_bn", True, "--freeze_bn false: BN is always frozen (folded into buffers), "
      "as in the JAX package"),
 )
@@ -147,7 +141,7 @@ def check_supported(cfg: TrainConfig) -> None:
     if (cfg.num_processes or 1) > 1 or cfg.coordinator_address or cfg.process_id:
         raise NotImplementedError(
             "more than one process is not ported: the port runs one process on one "
-            "card (DDP and torchrun: ROADMAP Queue 1 item 3, DDP)")
+            "card (DDP and torchrun: ROADMAP Queue 1 item 2, DDP)")
     for name in ("xla_options", "compilation_cache_dir"):
         if getattr(cfg, name) not in ("auto", ""):
             raise NotImplementedError(

@@ -86,6 +86,13 @@
 //   columns [d, d+TW), which are the strip itself: the halo columns and
 //   the rows j0-1 and j0+RS that a segment computes only as conv2's
 //   neighbours are never written. No atomics: two calls give the same bits.
+// - Masked canvas (valid non-null, N x 2 ints: image n's valid rows and
+//   columns on a canvas batch of unequal crops, the JAX package's
+//   _bottleneck(..., mask=...)): h1 is exact zeros past image n's valid
+//   rows and columns, as it is outside the image. conv1_row is the only
+//   place h1 is made, so the ring, conv2's input and the emitted h1 are all
+//   the masked h1; conv2, conv3, h2 and out run over the whole canvas as
+//   before. A runtime argument: no template instance of its own.
 // - Left for later: more pixels per weight pass at layer4 (thread block
 //   clusters with multicast weight stages) and the tensor cores. Split-TF32
 //   mma.sync (three products) was measured at this structure: 1.17x the FMA
@@ -118,6 +125,7 @@ struct Args {
   float* out;
   float* h1;  // (N, H, W, Cmid) with emit, else null
   float* h2;  // (N, H, W, Cmid) with emit, else null
+  const int* valid;  // (N, 2) valid rows and columns of each image, or null
   int N, H, W, Cin, Cmid, d, TW, RS, S;
   // from plan_tiles: conv3's columns per pass, the pixels per thread tile of
   // each conv, the pixel stride of h1/h2, the floats of one weight stage
@@ -212,16 +220,20 @@ __device__ __forceinline__ float4 bn_relu(const float* v, float4 s, float4 b) {
 }
 
 // h1 for image row r at columns [col0 - d, col0 + TW + d) into one ring slot;
-// exact zeros at pixels outside the image. One pass over w1: BN = Cmid.
+// exact zeros at pixels outside the image, and outside its valid rows and
+// columns on a masked canvas. One pass over w1: BN = Cmid.
 template <int PX, int KB>
 __device__ __forceinline__ void conv1_row(const Args& a, float* slot, float* wst,
                                           float* xst, int n, int r, int col0) {
   const int P1 = a.TW + 2 * a.d;
   const int tid = threadIdx.x, nt = blockDim.x;
+  // image n's valid extent (the wrapper keeps it within [1, H] x [1, W])
+  const int vh = a.valid ? __ldg(a.valid + 2 * n) : a.H;
+  const int vw = a.valid ? __ldg(a.valid + 2 * n + 1) : a.W;
   // the slot held the last trip's h2 and the stage buffers its weights: their
   // readers (conv3) are done
   __syncthreads();
-  if (r < 0 || r >= a.H) {  // the same for the whole block
+  if (r < 0 || r >= vh) {  // the same for the whole block: a block has one image
     const int nq = a.Cmid >> 2;
     for (int i = tid; i < P1 * nq; i += nt)
       *reinterpret_cast<float4*>(slot + (i / nq) * a.ldh + (i % nq) * 4) =
@@ -232,7 +244,7 @@ __device__ __forceinline__ void conv1_row(const Args& a, float* slot, float* wst
   const int groups = bn / kCh;
   const int q = tid % groups, c0 = (tid / groups) * PX;  // first pixel of the tile
   const int colf = col0 - a.d + c0;                        // its image column
-  const bool active = c0 < P1 && colf < a.W && colf + PX > 0;
+  const bool active = c0 < P1 && colf < vw && colf + PX > 0;
   const float* xrow = a.x + (size_t)(n * a.H + r) * a.W * a.Cin;
   constexpr int kXLd = KB + 4;
   const int xlen = a.xs_px * kXLd;
@@ -274,7 +286,7 @@ __device__ __forceinline__ void conv1_row(const Args& a, float* slot, float* wst
       const int col = col0 - a.d + c;
       if (c < P1)
         *reinterpret_cast<float4*>(slot + c * a.ldh + ch) =
-            (col >= 0 && col < a.W) ? bn_relu(&acc[p][hf * 4], s, b)
+            (col >= 0 && col < vw) ? bn_relu(&acc[p][hf * 4], s, b)
                                     : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
@@ -500,10 +512,14 @@ bool px_ok(int px) { return px >= 1 && px <= 8; }
 // TW + 2d; ldh >= Cmid; kb 8 or 16; wstage >= kb * max(Cmid, bn3) floats;
 // xs_px >= TW + 2d.
 // h1, h2: both null (eval) or both (N, H, W, Cmid) outputs (training).
+// valid: null, or N x 2 ints on the device, each image's valid rows in
+// [1, H] and columns in [1, W] (kernels/fused_block.py _check); it must be
+// 4-byte aligned.
 extern "C" int msl_fused_bottleneck_f32(
     const void* x, const void* w1, const void* w2, const void* w3,
     const void* s1, const void* b1, const void* s2, const void* b2,
-    const void* s3, const void* b3, void* out, void* h1, void* h2, int N,
+    const void* s3, const void* b3, void* out, void* h1, void* h2,
+    const void* valid, int N,
     int H, int W, int Cin, int Cmid, int d, int TW, int RS, int S, int threads,
     int smem_bytes, int bn3, int px1, int px2, int px3, int ldh, int wstage,
     int xs_px, int kb, void* stream) {
@@ -522,6 +538,8 @@ extern "C" int msl_fused_bottleneck_f32(
   a.h1 = static_cast<float*>(h1);
   a.h2 = static_cast<float*>(h2);
   if ((h1 == nullptr) != (h2 == nullptr)) return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(valid) % alignof(int)) return (int)cudaErrorInvalidValue;
+  a.valid = static_cast<const int*>(valid);
   a.N = N;
   a.H = H;
   a.W = W;

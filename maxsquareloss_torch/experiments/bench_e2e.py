@@ -205,6 +205,7 @@ def run_e2e(args) -> dict:
         multi=True, num_classes=19, target_mode="IW_maxsquare",
         # see maxsquareloss_torch/bench.py --iw_hist: random weights
         iw_hist=getattr(args, "iw_hist", "argmax"),
+        concat_batches=getattr(args, "concat", False),
         blocks=tuple(blocks), batch_size=args.batch, gaussian_blur=True,
         # torchvision normalization: from a random init the caffe transform
         # (inputs +-128, no std division) diverges to NaN within an epoch
@@ -280,6 +281,7 @@ def run_e2e(args) -> dict:
             "global_batch": args.batch,
             "blocks": ",".join(str(b) for b in cfg.blocks),
             "iw_hist": cfg.iw_hist,
+            "concat_batches": cfg.concat_batches,
             "final_loss": loss,
             "chips": 1,
             **device_report(device),

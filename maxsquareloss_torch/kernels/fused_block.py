@@ -19,6 +19,13 @@ version; on a CUDA tensor they launch the kernel or raise.
   kernels; its backward is the adjoint chain of ``_bwd``
   (``bottleneck_backward``) as PyTorch ops over the saved x, h1, h2 and
   out, as the JAX package left it to XLA.
+
+Each takes ``valid``, ``None`` or a contiguous (N, 2) int32 tensor on x's
+device: the masked-canvas mode of the JAX package's ``_bottleneck(...,
+mask=...)``. Image n's h1 is then zero outside its first ``valid[n, 0]``
+rows and ``valid[n, 1]`` columns before conv2 reads it, and the emitted h1
+is that masked h1, so the unchanged backward holds: h1 > 0 is exactly the
+mask times the ReLU's derivative.
 """
 
 from __future__ import annotations
@@ -43,13 +50,24 @@ SMEM_SM = 233472         # bytes of shared memory per SM on sm_90
 BLOCK_SMEM_RESERVED = 1024  # bytes the runtime reserves per resident block
 
 
-def fused_bottleneck_emit_reference(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation):
-    """The plain version: ``F.conv2d`` chain + affine frozen BN + ReLU;
-    (out, h1, h2), each channels_last (h1, h2: (N, Cmid, H, W))."""
+def valid_mask(valid: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """The 0/1 float (N, 1, H, W) mask of the per-image valid extents."""
+    rows = torch.arange(h, device=valid.device) < valid[:, :1]
+    cols = torch.arange(w, device=valid.device) < valid[:, 1:]
+    return (rows[:, None, :, None] & cols[:, None, None, :]).float()
+
+
+def fused_bottleneck_emit_reference(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation,
+                                    valid=None):
+    """The plain version: ``F.conv2d`` chain + affine frozen BN + ReLU, h1
+    masked by ``valid``; (out, h1, h2), each channels_last (h1, h2:
+    (N, Cmid, H, W))."""
     def bn(y, s, b):
         return y * s.view(1, -1, 1, 1) + b.view(1, -1, 1, 1)
 
     h1 = F.relu(bn(F.conv2d(x, w1.permute(3, 2, 0, 1)), s1, b1))
+    if valid is not None:
+        h1 = h1 * valid_mask(valid, *x.shape[2:])
     h2 = F.relu(bn(
         F.conv2d(h1, w2.permute(3, 2, 0, 1), padding=dilation, dilation=dilation),
         s2, b2,
@@ -58,10 +76,11 @@ def fused_bottleneck_emit_reference(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilat
     return tuple(t.contiguous(memory_format=torch.channels_last) for t in (y, h1, h2))
 
 
-def fused_bottleneck_reference(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation):
+def fused_bottleneck_reference(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation,
+                               valid=None):
     """The plain version of the block's output (differentiable)."""
     return fused_bottleneck_emit_reference(
-        x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation)[0]
+        x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation, valid)[0]
 
 
 class TilePlan(NamedTuple):
@@ -203,12 +222,12 @@ def plan_tiles(n: int, h: int, w: int, cin: int, cmid: int, d: int, sm_count: in
 def _library() -> ctypes.CDLL:
     lib = load(SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.msl_fused_bottleneck_f32.argtypes = [p] * 13 + [i] * 19 + [p]
+    lib.msl_fused_bottleneck_f32.argtypes = [p] * 14 + [i] * 19 + [p]
     lib.msl_fused_bottleneck_f32.restype = i
     return lib
 
 
-def _check(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation):
+def _check(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation, valid=None):
     if x.dim() != 4:
         raise ValueError(f"fused bottleneck: x must be 4-D NCHW, got {tuple(x.shape)}")
     n, cin, h, w = x.shape
@@ -232,9 +251,28 @@ def _check(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation):
         raise ValueError("fused bottleneck: x must be channels_last contiguous")
     if dilation < 1:
         raise ValueError(f"fused bottleneck: dilation {dilation} < 1")
+    if valid is None:
+        return
+    if tuple(valid.shape) != (n, 2) or valid.dtype != torch.int32:
+        raise ValueError(f"fused bottleneck: valid must be ({n}, 2) int32, got "
+                         f"{tuple(valid.shape)} {valid.dtype}")
+    if valid.device != x.device or not valid.is_contiguous():
+        raise ValueError(f"fused bottleneck: valid must be contiguous on {x.device}")
+    # the extents are read back once per tensor, version and map size: a
+    # canvas step hands the same two tensors to all its blocks, and a read
+    # back per launch would stop the host at each of them (an inference
+    # tensor keeps no version; the kernel reads no memory by the extents,
+    # they only choose between h1 and zero)
+    key = (None if valid.is_inference() else valid._version, h, w)
+    if getattr(valid, "_msl_checked", None) != key:
+        rows, cols = valid[:, 0], valid[:, 1]
+        if bool(((rows < 1) | (rows > h) | (cols < 1) | (cols > w)).any()):
+            raise ValueError(f"fused bottleneck: valid extents {valid.tolist()} outside "
+                             f"[1, {h}] x [1, {w}]")
+        valid._msl_checked = key
 
 
-def _launch(args, dilation: int, emit: bool):
+def _launch(args, dilation: int, emit: bool, valid=None):
     """One kernel launch on CUDA tensors: out, and h1/h2 with ``emit``."""
     x, w1 = args[0], args[1]
     n, cin, h, w = x.shape
@@ -255,28 +293,34 @@ def _launch(args, dilation: int, emit: bool):
         err = lib.msl_fused_bottleneck_f32(
             *(t.data_ptr() for t in args), out.data_ptr(),
             *((t.data_ptr() for t in hs) if emit else (None, None)),
+            None if valid is None else valid.data_ptr(),
             n, h, w, cin, cmid, dilation, *plan, stream,
         )
     raise_on_error(err, lib, "fused bottleneck")
     return (out, *hs)
 
 
-def fused_bottleneck_emit(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation: int):
+def fused_bottleneck_emit(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation: int,
+                          valid=None):
     """The training forward: (out, h1, h2) in one kernel, with
-    h1 = relu(bn1(conv1 x)) and h2 = relu(bn2(conv2 h1)), each
-    (N, Cmid, H, W) channels_last; arguments as ``fused_bottleneck``."""
+    h1 = relu(bn1(conv1 x)) (masked by ``valid``) and h2 = relu(bn2(conv2
+    h1)), each (N, Cmid, H, W) channels_last; arguments as
+    ``fused_bottleneck``. ``masked_launches`` counts the launches with
+    ``valid``."""
     args = (x, w1, w2, w3, s1, b1, s2, b2, s3, b3)
-    _check(*args, dilation)
+    _check(*args, dilation, valid)
     if x.device.type == "cpu":
-        return fused_bottleneck_emit_reference(*args, dilation)
+        return fused_bottleneck_emit_reference(*args, dilation, valid)
     if x.device.type != "cuda":
         raise ValueError(f"fused bottleneck: no kernel for device {x.device}")
-    outs = _launch(args, dilation, emit=True)
+    outs = _launch(args, dilation, emit=True, valid=valid)
     fused_bottleneck_emit.launches += 1
+    fused_bottleneck_emit.masked_launches += valid is not None
     return outs
 
 
 fused_bottleneck_emit.launches = 0
+fused_bottleneck_emit.masked_launches = 0
 
 
 def bottleneck_backward(dy, x, h1, h2, out, w1, w2, w3, s1, s2, s3, dilation: int):
@@ -312,14 +356,16 @@ def bottleneck_backward(dy, x, h1, h2, out, w1, w2, w3, s1, s2, s3, dilation: in
 class FusedBottleneckFn(torch.autograd.Function):
     """The identity block for training, with a gradient for x and the three
     HWIO kernels (frozen BN gets none); ``apply`` takes the arguments of
-    ``fused_bottleneck``. Forward: ``fused_bottleneck_emit`` on kernels
-    made contiguous here, so strided views of the convs' weights may come
-    in; backward: ``bottleneck_backward`` over the saved x, h1, h2, out."""
+    ``fused_bottleneck``, ``valid`` positional. Forward:
+    ``fused_bottleneck_emit`` on kernels made contiguous here, so strided
+    views of the convs' weights may come in; backward:
+    ``bottleneck_backward`` over the saved x, h1 (masked), h2, out."""
 
     @staticmethod
-    def forward(ctx, x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation):
+    def forward(ctx, x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation, valid=None):
         w1, w2, w3 = (w.contiguous() for w in (w1, w2, w3))
-        out, h1, h2 = fused_bottleneck_emit(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation)
+        out, h1, h2 = fused_bottleneck_emit(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation,
+                                            valid)
         ctx.save_for_backward(x, h1, h2, out, w1, w2, w3, s1, s2, s3)
         ctx.dilation = dilation
         return out
@@ -327,10 +373,10 @@ class FusedBottleneckFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         grads = bottleneck_backward(dy, *ctx.saved_tensors, ctx.dilation)
-        return (*grads, *(None,) * 7)
+        return (*grads, *(None,) * 8)
 
 
-def fused_bottleneck(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation: int):
+def fused_bottleneck(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation: int, valid=None):
     """Stride-1 identity-residual bottleneck in one kernel (eval: no h1/h2).
 
     Args:
@@ -338,18 +384,23 @@ def fused_bottleneck(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation: int):
       w1/w2/w3: HWIO kernels (1,1,Cin,Cmid), (3,3,Cmid,Cmid), (1,1,Cmid,Cin).
       s1..b3: folded frozen-BN scale/bias vectors.
       dilation: conv2's dilation (and zero padding).
+      valid: None, or (N, 2) int32 valid (rows, columns) of each image on a
+        canvas: h1 is zero past them before conv2 (``masked_launches``
+        counts these launches).
     Returns:
       (N, Cin, H, W) float32, channels_last.
     """
     args = (x, w1, w2, w3, s1, b1, s2, b2, s3, b3)
-    _check(*args, dilation)
+    _check(*args, dilation, valid)
     if x.device.type == "cpu":
-        return fused_bottleneck_reference(*args, dilation)
+        return fused_bottleneck_reference(*args, dilation, valid)
     if x.device.type != "cuda":
         raise ValueError(f"fused bottleneck: no kernel for device {x.device}")
-    (out,) = _launch(args, dilation, emit=False)
+    (out,) = _launch(args, dilation, emit=False, valid=valid)
     fused_bottleneck.launches += 1
+    fused_bottleneck.masked_launches += valid is not None
     return out
 
 
 fused_bottleneck.launches = 0
+fused_bottleneck.masked_launches = 0

@@ -23,12 +23,22 @@ ResNet-101's 33) runs as one fused kernel: with grad enabled (training)
 that ``pack_weights`` makes. The stem, the 4 downsample blocks and the
 heads are cuDNN convs. ``param_groups`` gives the optimizer's 1x/10x
 groups.
+
+Masked canvas (the UDA step's ``--concat_batches`` at unequal crops):
+images of different sizes are zero-padded at the bottom and right onto one
+canvas, and ``forward(x, masks=make_canvas_masks(...))`` re-zeroes the pad
+region before every op that reads neighbours (the stem's maxpool, each
+block's 3x3, the ASPP heads), as the JAX package's ``apply_deeplabv2``
+does. The valid pixels then see exactly the zero padding of a forward of
+the unpadded image. The identity blocks take the per-image valid extents
+and zero h1 inside the kernel.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +48,7 @@ from maxsquareloss_torch.kernels.fused_block import (
     FusedBottleneckFn,
     fused_bottleneck,
     fused_bottleneck_reference,
+    valid_mask,
 )
 from maxsquareloss_torch.models.layers import (
     FrozenBN,
@@ -53,6 +64,16 @@ LAYER_STRIDES = (1, 2, 1, 1)
 LAYER_DILATIONS = (1, 1, 2, 4)
 ASPP_DILATIONS = (6, 12, 18, 24)
 EXPANSION = 4
+
+
+class CanvasMask(NamedTuple):
+    """The pad region of a canvas batch at one resolution: ``mask`` the 0/1
+    float (N, 1, H, W) channels_last tensor for the PyTorch multiplies,
+    ``valid`` each image's (valid rows, valid columns) as a contiguous
+    (N, 2) int32 tensor for the fused bottleneck kernel."""
+
+    mask: torch.Tensor
+    valid: torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,20 +138,25 @@ class Bottleneck(nn.Module):
         cout, cin, kh, kw = getattr(self, f"conv{i}").weight.shape
         return getattr(self, f"w{i}_hwio").view(kh, kw, cin, cout)
 
-    def forward(self, x: torch.Tensor, kernel, train_kernel) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, kernel, train_kernel,
+                mask: CanvasMask | None = None) -> torch.Tensor:
         """``kernel`` (no grad, packed HWIO weights) and ``train_kernel``
         (grad enabled, HWIO views of ``conv{i}.weight``): the fused
-        bottleneck or its plain version, for the identity blocks; the others
-        run as cuDNN convs."""
+        bottleneck or its plain version, for the identity blocks, which take
+        ``mask``'s valid extents; the others run as cuDNN convs and multiply
+        h1 by ``mask``'s 0/1 mask before conv2."""
+        valid = None if mask is None else mask.valid
         if self.fusable:
             bn = (self.bn1.scale, self.bn1.bias, self.bn2.scale, self.bn2.bias,
                   self.bn3.scale, self.bn3.bias)
             if torch.is_grad_enabled():
                 w = (getattr(self, f"conv{i}").weight.permute(2, 3, 1, 0) for i in (1, 2, 3))
-                return train_kernel(x, *w, *bn, self.dilation)
+                return train_kernel(x, *w, *bn, self.dilation, valid)
             return kernel(x, self._hwio(1), self._hwio(2), self._hwio(3), *bn,
-                          self.dilation)
+                          self.dilation, valid)
         y = F.relu(self.bn1(self.conv1(x)))
+        if mask is not None:
+            y = y * mask.mask
         y = F.relu(self.bn2(self.conv2(y)))
         y = self.bn3(self.conv3(y))
         residual = x if self.downsample is None else self.downsample(x)
@@ -147,7 +173,9 @@ class Classifier(nn.Module):
             for d in ASPP_DILATIONS
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: CanvasMask | None = None) -> torch.Tensor:
+        if mask is not None:
+            x = x * mask.mask
         out = None
         for conv in self.conv2d_list:
             y = conv(x)
@@ -194,9 +222,10 @@ class DeepLabV2(nn.Module):
             self.layer5 = Classifier(1024, cfg.num_classes)
         self.layer6 = Classifier(2048, cfg.num_classes)
 
-    def _stage(self, layer: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+    def _stage(self, layer: nn.Sequential, x: torch.Tensor,
+               mask: CanvasMask | None) -> torch.Tensor:
         for block in layer:
-            x = block(x, self.block_fn, self.train_block_fn)
+            x = block(x, self.block_fn, self.train_block_fn, mask)
         return x
 
     def pack_weights(self) -> None:
@@ -205,20 +234,28 @@ class DeepLabV2(nn.Module):
             if isinstance(m, Bottleneck) and m.fusable:
                 m.pack_weights()
 
-    def forward(self, x: torch.Tensor, aux: bool = True):
+    def forward(self, x: torch.Tensor, aux: bool = True,
+                masks: dict[str, CanvasMask] | None = None):
         """(N, H, W, 3) normalized images → (aux_or_None, main), each
         (N, H/8, W/8, num_classes) float32. ``aux=False`` skips the layer5
-        head (the eval/predict path reads only the main head)."""
+        head (the eval/predict path reads only the main head). ``masks``
+        (``make_canvas_masks``): a canvas batch whose pad region is re-zeroed
+        before the maxpool (``pool_in``), before every block's 3x3 (``os4``
+        in layer1, ``os8`` in layers 2-4) and before both heads (``os8``)."""
+        m = masks or {}
         y = x.float().permute(0, 3, 1, 2)
         y = y.contiguous(memory_format=torch.channels_last)
-        y = self.pool(F.relu(self.bn1(self.conv1(y))))
-        y = self._stage(self.layer1, y)
-        y = self._stage(self.layer2, y)
-        y3 = self._stage(self.layer3, y)
+        y = F.relu(self.bn1(self.conv1(y)))
+        if masks is not None:
+            y = y * m["pool_in"].mask
+        y = self.pool(y)
+        y = self._stage(self.layer1, y, m.get("os4"))
+        y = self._stage(self.layer2, y, m.get("os8"))
+        y3 = self._stage(self.layer3, y, m.get("os8"))
         aux_out = (
-            self.layer5(y3) if aux and self.cfg.multi_level else None
+            self.layer5(y3, m.get("os8")) if aux and self.cfg.multi_level else None
         )
-        main = self.layer6(self._stage(self.layer4, y3))
+        main = self.layer6(self._stage(self.layer4, y3, m.get("os8")), m.get("os8"))
 
         def nhwc(t):
             return t.permute(0, 2, 3, 1).float()
@@ -300,13 +337,50 @@ def param_groups(model: DeepLabV2, head_mult: float = 10.0) -> list[dict]:
             {"params": heads, "lr_mult": head_mult}]
 
 
-def valid_logits_hw(hw: tuple[int, int]) -> tuple[int, int]:
-    """(H, W) of the logits a plain forward of an (H, W) input produces:
-    conv 7x7/2 p3 → ceil-mode maxpool 3x3/2 p1 → layer2's 1x1 stride 2."""
+def _valid_sizes(hw: tuple[int, int]) -> dict[str, tuple[int, int]]:
+    """Feature-map extents of an (H, W) input at the three mask points:
+    ``pool_in`` after the conv 7x7/2 p3, ``os4`` after the ceil-mode
+    maxpool 3x3/2 p1, ``os8`` after layer2's 1x1 stride 2 (layers 2-4 and
+    both heads)."""
 
-    def os8(v: int) -> int:
-        v = (v + 2 * 3 - 7) // 2 + 1
-        v = math.ceil((v + 2 * 1 - 3) / 2) + 1
+    def conv1(v: int) -> int:
+        return (v + 2 * 3 - 7) // 2 + 1
+
+    def pool(v: int) -> int:
+        return math.ceil((v + 2 * 1 - 3) / 2) + 1
+
+    def stride2(v: int) -> int:
         return (v - 1) // 2 + 1
 
-    return os8(hw[0]), os8(hw[1])
+    h1, w1 = conv1(hw[0]), conv1(hw[1])
+    h2, w2 = pool(h1), pool(w1)
+    return {"pool_in": (h1, w1), "os4": (h2, w2), "os8": (stride2(h2), stride2(w2))}
+
+
+def valid_logits_hw(hw: tuple[int, int]) -> tuple[int, int]:
+    """(H, W) of the logits a plain forward of an (H, W) input produces."""
+    return _valid_sizes(hw)["os8"]
+
+
+def make_canvas_masks(
+    canvas_hw: tuple[int, int],
+    groups: list[tuple[int, tuple[int, int]]],
+    device: str | torch.device = "cpu",
+) -> dict[str, CanvasMask] | None:
+    """The masks of a batch of groups padded at the bottom and right onto a
+    shared (H, W) canvas, by mask point (``pool_in``, ``os4``, ``os8``).
+
+    ``groups``: [(n_images, (valid H, valid W)), ...] in batch order.
+    Returns None when every group fills the canvas (nothing to mask).
+    """
+    canvas_hw = tuple(canvas_hw)
+    if all(tuple(hw) == canvas_hw for _, hw in groups):
+        return None
+    canvas = _valid_sizes(canvas_hw)
+    masks = {}
+    for key, (ch, cw) in canvas.items():
+        valid = torch.tensor([_valid_sizes(tuple(hw))[key] for n, hw in groups
+                              for _ in range(n)], dtype=torch.int32, device=device)
+        mask = valid_mask(valid, ch, cw).contiguous(memory_format=torch.channels_last)
+        masks[key] = CanvasMask(mask, valid)
+    return masks

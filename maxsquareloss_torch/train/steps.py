@@ -9,10 +9,14 @@ eval kernel's packed weights. The UDA step's target loss for
 on the upsampled target logits; the softmax that feeds the guidance, the
 histogram and the IW weights runs under ``torch.no_grad()``, as the JAX
 code's ``stop_gradient``s imply. Metrics come back as 0-d tensors on the
-model's device: the step never reads a value back to the host.
+model's device: the step reads no value back to the host, unless
+``--debug_nans`` asks it to check the loss.
 
-Not ported yet: ``--concat_batches`` (one masked-canvas forward for both
-batches), so source and target always run as two forwards.
+``--concat_batches``: the UDA step runs source and target as one forward
+over a canvas batch (zero-padded at the bottom and right to the larger
+crop, the pad region re-zeroed by the model's canvas masks), then slices
+each batch's valid logits back out; with frozen BN it computes what the two
+forwards do.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from maxsquareloss_torch.config import TrainConfig
 from maxsquareloss_torch.data.palette import IMAGENET_MEAN, IMAGENET_STD, IMG_MEAN
@@ -27,7 +32,11 @@ from maxsquareloss_torch.kernels.fused_loss import (
     fused_iw_max_square_loss,
     fused_max_square_loss,
 )
-from maxsquareloss_torch.models.deeplabv2 import DeepLabV2Config
+from maxsquareloss_torch.models.deeplabv2 import (
+    DeepLabV2Config,
+    make_canvas_masks,
+    valid_logits_hw,
+)
 from maxsquareloss_torch.ops.losses import (
     cross_entropy,
     entropy_loss,
@@ -37,6 +46,7 @@ from maxsquareloss_torch.ops.losses import (
 )
 from maxsquareloss_torch.ops.resize import upsample_logits
 from maxsquareloss_torch.optim import make_sgd, poly_lr, set_lr
+from maxsquareloss_torch.utils.debug import anomaly_mode
 
 
 def model_config(cfg: TrainConfig) -> DeepLabV2Config:
@@ -92,8 +102,32 @@ def _forward_upsampled(model, x, out_hw):
     return aux, main
 
 
-def _source_loss(model, x, y, cfg: TrainConfig):
-    aux, main = _forward_upsampled(model, x, y.shape[-2:])
+def _concat_forward_upsampled(model, xs, out_hw_s, xt):
+    """One forward over source and target on a shared canvas: each batch
+    zero-padded at the bottom and right to (max H, max W), after
+    normalization (a padded uint8 image would put -IMG_MEAN under the stem's
+    7x7 at the valid border). Returns the upsampled (aux_s, main_s) at
+    ``out_hw_s`` and (aux_t, main_t) at the target's size."""
+    n = xs.shape[0]
+    src_hw, tgt_hw = tuple(xs.shape[1:3]), tuple(xt.shape[1:3])
+    canvas = (max(src_hw[0], tgt_hw[0]), max(src_hw[1], tgt_hw[1]))
+
+    def to_canvas(img, hw):  # NHWC: pad W, then H, at the far side
+        return F.pad(img, (0, 0, 0, canvas[1] - hw[1], 0, canvas[0] - hw[0]))
+
+    masks = make_canvas_masks(canvas, [(n, src_hw), (xt.shape[0], tgt_hw)], xs.device)
+    aux_all, main_all = model(torch.cat([to_canvas(xs, src_hw), to_canvas(xt, tgt_hw)]),
+                              masks=masks)
+
+    def heads(rows, hw, out_hw):
+        vh, vw = valid_logits_hw(hw)
+        return tuple(None if t is None else upsample_logits(t[rows, :vh, :vw], out_hw)
+                     for t in (aux_all, main_all))
+
+    return heads(slice(0, n), src_hw, out_hw_s), heads(slice(n, None), tgt_hw, tgt_hw)
+
+
+def _source_metrics(aux, main, y, cfg: TrainConfig):
     loss = cross_entropy(main, y)
     metrics = {"loss_source": loss.detach()}
     if aux is not None:
@@ -101,6 +135,10 @@ def _source_loss(model, x, y, cfg: TrainConfig):
         metrics["loss_source_aux"] = loss_aux.detach()
         loss = loss + cfg.lambda_seg * loss_aux
     return loss, metrics
+
+
+def _source_loss(model, x, y, cfg: TrainConfig):
+    return _source_metrics(*_forward_upsampled(model, x, y.shape[-2:]), y, cfg)
 
 
 def target_loss_fn(logits_main: torch.Tensor, logits_aux: torch.Tensor | None,
@@ -157,7 +195,12 @@ def target_loss_fn(logits_main: torch.Tensor, logits_aux: torch.Tensor | None,
 
 def _apply_update(state: TrainState, loss: torch.Tensor, cfg: TrainConfig) -> float:
     """One backward and one SGD step at the LR of ``state.iteration``
-    (before the increment); refresh the packed eval weights. The LR."""
+    (before the increment); refresh the packed eval weights. The LR.
+    ``--debug_nans``: a loss that is not finite raises ``FloatingPointError``
+    before the update (the step's one read back under the flag)."""
+    if cfg.debug_nans and not bool(torch.isfinite(loss)):
+        raise FloatingPointError(f"iteration {state.iteration}: loss is not finite "
+                                 f"({loss.item()})")
     lr = poly_lr(cfg.lr, state.iteration, cfg.iter_max, cfg.poly_power)
     set_lr(state.optimizer, lr)
     state.optimizer.zero_grad(set_to_none=True)
@@ -176,12 +219,14 @@ def _finish_metrics(metrics: dict, loss: torch.Tensor, lr: float) -> dict:
 
 def make_supervised_train_step(cfg: TrainConfig):
     """Source-only supervised step: ``step(state, x, y) → (state, metrics)``
-    for NHWC images and (N, H, W) labels on the model's device."""
+    for NHWC images and (N, H, W) labels on the model's device. With
+    ``--debug_nans`` the step runs in autograd's anomaly mode."""
 
     def step(state: TrainState, x: torch.Tensor, y: torch.Tensor):
         x, y = _prepare_inputs(x, y, cfg)
-        loss, metrics = _source_loss(state.model, x, y, cfg)
-        lr = _apply_update(state, loss, cfg)
+        with anomaly_mode(cfg.debug_nans):
+            loss, metrics = _source_loss(state.model, x, y, cfg)
+            lr = _apply_update(state, loss, cfg)
         return state, _finish_metrics(metrics, loss, lr)
 
     return step
@@ -192,13 +237,17 @@ def make_uda_train_step(cfg: TrainConfig):
     xt) → (state, metrics)``. Source CE (+ ``lambda_seg`` aux CE) +
     ``lambda_target`` x target loss (+ ``lambda_target * lambda_seg`` x the
     aux head's guidance CE), one backward, one SGD step. Source and target
-    run as two forwards (the JAX step's non-concat branch)."""
+    run as two forwards, or as one canvas forward with
+    ``--concat_batches`` (the JAX step's two branches). With
+    ``--debug_nans`` the step runs in autograd's anomaly mode."""
 
-    def step(state: TrainState, xs: torch.Tensor, ys: torch.Tensor, xt: torch.Tensor):
-        xs, ys = _prepare_inputs(xs, ys, cfg)
-        xt, _ = _prepare_inputs(xt, None, cfg)
-        src_loss, metrics = _source_loss(state.model, xs, ys, cfg)
-        aux_t, main_t = _forward_upsampled(state.model, xt, (xt.shape[1], xt.shape[2]))
+    def loss_fn(model, xs, ys, xt):
+        if cfg.concat_batches:
+            src, (aux_t, main_t) = _concat_forward_upsampled(model, xs, ys.shape[-2:], xt)
+            src_loss, metrics = _source_metrics(*src, ys, cfg)
+        else:
+            src_loss, metrics = _source_loss(model, xs, ys, cfg)
+            aux_t, main_t = _forward_upsampled(model, xt, (xt.shape[1], xt.shape[2]))
         tgt_loss, label, tmetrics = target_loss_fn(main_t, aux_t, cfg)
         metrics.update(tmetrics)
         total = src_loss + cfg.lambda_target * tgt_loss
@@ -209,7 +258,14 @@ def make_uda_train_step(cfg: TrainConfig):
             metrics["loss_target_aux"] = loss_aux_t.detach()
             total = total + cfg.lambda_target * cfg.lambda_seg * loss_aux_t
         metrics["loss_target"] = (cfg.lambda_target * tgt_loss).detach()
-        lr = _apply_update(state, total, cfg)
+        return total, metrics
+
+    def step(state: TrainState, xs: torch.Tensor, ys: torch.Tensor, xt: torch.Tensor):
+        xs, ys = _prepare_inputs(xs, ys, cfg)
+        xt, _ = _prepare_inputs(xt, None, cfg)
+        with anomaly_mode(cfg.debug_nans):
+            total, metrics = loss_fn(state.model, xs, ys, xt)
+            lr = _apply_update(state, total, cfg)
         return state, _finish_metrics(metrics, total, lr)
 
     return step

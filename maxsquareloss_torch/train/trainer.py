@@ -13,6 +13,11 @@ step, checkpoint mid-epoch, return).
 Batches reach the device through ``data.loader.device_prefetch`` on the
 current stream. As in the JAX loop, the metrics come back to the host every
 iteration; here in ONE ``torch.stack(...).tolist()``, a single sync.
+
+``--profile`` writes a ``torch.profiler`` trace of iterations 2-5 under
+``<checkpoint_dir>/profile`` (``utils.debug.StepProfiler``);
+``--debug_nans`` is the train steps' (anomaly mode, ``FloatingPointError``
+on a loss that is not finite).
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from maxsquareloss_torch.train.steps import (
     make_train_state,
     model_config,
 )
+from maxsquareloss_torch.utils.debug import StepProfiler
 from maxsquareloss_torch.utils.device import resolve_device
 from maxsquareloss_torch.utils.logging import SummaryWriter, setup_logger
 
@@ -88,6 +94,7 @@ class Trainer:
         self._resume_skip = 0       # batches to skip on the next epoch (resume)
         self._preempt_requested = False  # SIGTERM seen
         self.preempted = False           # stopped early
+        self.profiler = StepProfiler(cfg.checkpoint_dir, cfg.profile, self.device)
 
     # hooks for UDATrainer -------------------------------------------------
 
@@ -232,6 +239,9 @@ class Trainer:
                     break
             self.writer.flush()
         finally:
+            # a run that ends before the trace's last iteration writes what it has
+            if self.profiler.stop(self.state.iteration):
+                self.logger.info(f"wrote profiler trace {self.profiler.path}")
             if prev_handler is not None:
                 signal.signal(signal.SIGTERM, prev_handler)
 
@@ -249,9 +259,12 @@ class Trainer:
             except ImportError:
                 pass
         for batch in batches:
+            self.profiler.before_step(self.state.iteration)
             self.state, metrics = self._run_step(batch)
             self._epoch_batch += 1
             it = self.state.iteration
+            if self.profiler.after_step(it):
+                self.logger.info(f"wrote profiler trace {self.profiler.path}")
             imgs += self._batch_images(batch)
             # every metric to the host in one sync (the JAX loop reads each)
             m = dict(zip(metrics, torch.stack(list(metrics.values())).tolist()))

@@ -75,7 +75,7 @@ def test_infer_mode(label_hw, capsys):
 
 
 UNPORTED = [
-    ["--dtype", "bfloat16"], ["--remat", "stages"], ["--concat"], ["--quantize", "int8"],
+    ["--dtype", "bfloat16"], ["--remat", "stages"], ["--quantize", "int8"],
     ["--fp32_parity", "true"], ["--xla_options", "auto"], ["--comparator", "15"],
 ]
 

@@ -2,8 +2,8 @@
 (JAX init, carried across by ``convert.state_dict_from_jax``, which also
 carries the JAX step's trained parameters across for the comparison) on
 the same seeded numpy batches: every ``--target_mode`` with and without the aux head,
-plus ``--iw_hist argmax`` and ``--guidance_mask per_head_or``, and the
-supervised step. ``blocks=(2,2,2,2)`` gives every layer an identity block,
+plus ``--iw_hist argmax``, ``--guidance_mask per_head_or`` and
+``--concat_batches`` (unequal and equal crops), and the supervised step. ``blocks=(2,2,2,2)`` gives every layer an identity block,
 so the fused block's backward is on the path; the heads are scaled up so
 that the softmax is peaked enough for the guidance threshold to pass on
 some pixels.
@@ -69,11 +69,11 @@ def jax_weights():
     return {True: (params, frozen), False: (single, frozen)}
 
 
-def _batches(seed=22):
+def _batches(seed=22, tgt_hw=TGT_HW):
     rng = np.random.default_rng(seed)
     return [(rng.normal(0, 1, (2, *SRC_HW, 3)).astype(np.float32),
              rng.integers(-1, 19, (2, *SRC_HW)).astype(np.int32),
-             rng.normal(0, 1, (2, *TGT_HW, 3)).astype(np.float32))
+             rng.normal(0, 1, (2, *tgt_hw, 3)).astype(np.float32))
             for _ in range(STEPS)]
 
 
@@ -113,9 +113,9 @@ def _run_port(cfg, params, frozen, batches, uda):
     return metrics, after_1
 
 
-def _compare(cfg_kw, weights, uda):
+def _compare(cfg_kw, weights, uda, tgt_hw=TGT_HW):
     params, frozen = weights[cfg_kw["multi"]]
-    batches = _batches()
+    batches = _batches(tgt_hw=tgt_hw)
     jm, j1 = _run_jax(JTrainConfig(data_parallel=False, **cfg_kw), params, frozen, batches, uda)
     tm, t1 = _run_port(TrainConfig(**cfg_kw), params, frozen, batches, uda)
     for i, (j, t) in enumerate(zip(jm, tm)):
@@ -142,12 +142,19 @@ UDA_CASES = [
     # no pixel clears the threshold: the guidance CE over an all-ignored
     # label is 0 (torch's CE would be NaN) and every IW weight is 1.0
     {"target_mode": "IW_maxsquare", "multi": True, "threshold": 0.9},
+    # one canvas forward over both batches: at the unequal crops (masked)
+    # and at equal crops (no masks)
+    {"target_mode": "IW_maxsquare", "multi": True, "concat_batches": True},
+    {"target_mode": "IW_maxsquare", "multi": True, "concat_batches": True,
+     "tgt_hw": SRC_HW},
 ]
 
 
 @pytest.mark.parametrize("case", UDA_CASES, ids=lambda c: "-".join(str(v) for v in c.values()))
 def test_uda_step_matches_jax(jax_weights, case):
-    tm = _compare(_cfg_kw(**case), jax_weights, uda=True)
+    case = dict(case)
+    tgt_hw = case.pop("tgt_hw", TGT_HW)
+    tm = _compare(_cfg_kw(**case), jax_weights, uda=True, tgt_hw=tgt_hw)
     if case.get("threshold") == 0.9:
         assert tm[0]["guidance_valid_frac"] == 0.0 == tm[0]["loss_target_aux"]
         assert tm[0]["iw_pixel_w_max"] == 1.0

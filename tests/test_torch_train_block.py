@@ -2,7 +2,8 @@
 plain version on the CPU and the adjoint-chain backward) against
 ``jax.grad`` of the JAX package's live ``_bottleneck`` and of the retired
 Pallas fused block in interpret mode (its ``emit=True`` forward and XLA
-backward). Seeded numpy inputs, a random cotangent, NHWC on both sides.
+backward), and in the masked-canvas mode against ``_bottleneck(...,
+mask=...)``. Seeded numpy inputs, a random cotangent, NHWC on both sides.
 Tolerance rtol 1e-4, atol 1e-5: fp32 sums over up to N*H*W pixels (the
 weight gradients) in another order."""
 
@@ -38,14 +39,16 @@ def _one_torch_thread():
     torch.set_num_threads(threads)
 
 
-def _jax_grads(reference, p, f, x, cot, d):
-    """(out, dx, {conv: dw}) from jax.grad of sum(block(x) * cot)."""
+def _jax_grads(reference, p, f, x, cot, d, mask=None):
+    """(out, dx, {conv: dw}) from jax.grad of sum(block(x) * cot); ``mask``
+    (N, H, W, 1) the live block's canvas mask."""
     bn = [jnp.asarray(v) for v in _bn_args(f)]
     jf = {k: {kk: jnp.asarray(vv) for kk, vv in v.items()} for k, v in f.items()}
 
     def block(x, ws):
         if reference == "bottleneck":
-            return _bottleneck({k: {"w": ws[k]} for k in CONVS}, jf, x, stride=1, dilation=d)
+            return _bottleneck({k: {"w": ws[k]} for k in CONVS}, jf, x, stride=1, dilation=d,
+                               mask=None if mask is None else jnp.asarray(mask))
         return pallas_fused(x, *(ws[k] for k in CONVS), *bn, d)
 
     def loss(x, ws):
@@ -81,6 +84,51 @@ def test_train_block_grads_match_jax(n, h, w, cin, cmid, d, reference):
     for k, wt in zip(CONVS, ws):
         assert wt.grad.shape == wt.shape
         np.testing.assert_allclose(wt.grad.numpy(), want_dw[k], **tol, err_msg=k)
+
+
+def _canvas(n, h, w):
+    """Per-image valid extents on an (h, w) canvas (the first image fills it
+    when there are two) and the (N, H, W, 1) 0/1 mask they give."""
+    small = (max(1, h - 4), max(1, w - 5))
+    valid = [(h, w), small][-n:]
+    mask = np.zeros((n, h, w, 1), np.float32)
+    for i, (vh, vw) in enumerate(valid):
+        mask[i, :vh, :vw] = 1.0
+    return torch.tensor(valid, dtype=torch.int32), mask
+
+
+@pytest.mark.parametrize("n,h,w,cin,cmid,d", CASES)
+def test_masked_train_block_grads_match_jax(n, h, w, cin, cmid, d):
+    """The masked-canvas block: out and the gradients of x and the three
+    kernels against jax.grad of the live ``_bottleneck(..., mask=...)``, so
+    the unchanged adjoint chain over the emitted (masked) h1 is the masked
+    block's gradient; the eval forward gives the same out; the emitted h1 is
+    exactly 0 in the pad region."""
+    rng = np.random.default_rng(6)
+    p, f, x = _make_case(rng, n, h, w, cin, cmid)
+    cot = rng.normal(size=x.shape).astype(np.float32)
+    valid, mask = _canvas(n, h, w)
+    assert (mask == 0).any()
+    want_out, want_dx, want_dw = _jax_grads("bottleneck", p, f, x, cot, d, mask)
+
+    xt = torch.from_numpy(x.copy()).permute(0, 3, 1, 2).requires_grad_(True)
+    ws = [torch.from_numpy(p[k].copy()).requires_grad_(True) for k in CONVS]
+    bn = [torch.from_numpy(v) for v in _bn_args(f)]
+    out = FusedBottleneckFn.apply(xt, *ws, *bn, d, valid)
+    (out * torch.from_numpy(cot).permute(0, 3, 1, 2)).sum().backward()
+
+    tol = dict(rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(out.detach().permute(0, 2, 3, 1).numpy(), want_out, **tol)
+    np.testing.assert_allclose(xt.grad.permute(0, 2, 3, 1).numpy(), want_dx, **tol)
+    for k, wt in zip(CONVS, ws):
+        np.testing.assert_allclose(wt.grad.numpy(), want_dw[k], **tol, err_msg=k)
+
+    args = (xt.detach(), *(w.detach() for w in ws), *bn, d, valid)
+    torch.testing.assert_close(fused_bottleneck(*args), out.detach(), rtol=0, atol=0)
+    _, h1, _ = fused_bottleneck_emit(*args)
+    h1 = h1.permute(0, 2, 3, 1).numpy()
+    assert (h1[mask[..., 0] == 0] == 0.0).all()
+    assert (h1[mask[..., 0] == 1] > 0).any()
 
 
 @pytest.mark.parametrize("n,h,w,cin,cmid,d", CASES[:2])

@@ -234,9 +234,9 @@ def test_synthia_protocol_reports_16_and_13(tmp_path):
 
 
 UNPORTED = [
-    ("--concat_batches", "true"), ("--compute_dtype", "bfloat16"), ("--remat", "stages"),
-    ("--quantize", "int8"), ("--loader", "grain"), ("--sp", "2"), ("--profile", None),
-    ("--debug_nans", None), ("--num_processes", "2"), ("--coordinator_address", "h:1"),
+    ("--compute_dtype", "bfloat16"), ("--remat", "stages"),
+    ("--quantize", "int8"), ("--loader", "grain"), ("--sp", "2"),
+    ("--num_processes", "2"), ("--coordinator_address", "h:1"),
     ("--freeze_bn", "false"), ("--xla_options", "a=b"),
 ]
 
@@ -253,7 +253,7 @@ def test_unported_flags_raise(tmp_path, flag, value):
 
 
 def test_unported_field_raises_in_the_trainer(tmp_path):
-    cfg = dataclasses.replace(_cfg(tmp_path), concat_batches=True)
+    cfg = dataclasses.replace(_cfg(tmp_path), compute_dtype="bfloat16")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(cfg, _loader(), None)
 
