@@ -103,7 +103,24 @@ Phases, one JSON object per line on stdout:
      lambda_target 0 control and source-only by more than 0.03 mIoU.
      Phases 12-16 record every kernel launch's shape; each shape no earlier
      phase checked is then held against the plain version (tolerances of
-     phases 3 and 6).
+     phases 3 and 6);
+ 17. ddp: data parallelism, each rank a process started by ``torchrun``
+     (this script with ``--ddp-worker``, or a CLI module). The emit and IW
+     loss kernels are first held against their plain versions at the
+     ranks' shapes. (a) two gloo ranks share the card (NCCL refuses two
+     ranks on one device), each with 2 of the 4 + 4 images: an
+     IW_maxsquare step, then a hard step whose ranks differ in their valid
+     pixel counts, against the one-process steps on the same global
+     batches from the same weights (the train phase's limits), with each
+     rank's launch counts beside the one-process counts and no DDP
+     warning about gradient strides; (b) ``torchrun --nproc_per_node``
+     (the card count) with NCCL: ``solve_gta5`` for 2 iterations with a
+     validation and a checkpoint, its ``--continue_training`` resume to
+     iteration 4, ``tools.evaluate`` (the one-process mIoU within 1e-4),
+     and the UDATrainer at full width within 5 % of the bare step in the
+     same process; (c) with two or more cards, (a) over them with NCCL and
+     the step rate at 4 + 4 images a card beside one card's; with one
+     card a line says it did not run.
 All full-width phases run R101 (blocks 3,4,23,3) in fp32 with TF32 off.
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 
@@ -118,6 +135,7 @@ import importlib.util
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -1029,14 +1047,18 @@ def phase_concat_kernels() -> tuple[set, dict]:
         def plain():
             return fused_bottleneck_emit_reference(*args, d, valid)
 
+        @torch.no_grad()
+        def eval_plain():  # the eval path runs without grad
+            return fused_bottleneck_reference(*args, d, valid)
+
         def unmasked(f):
             return lambda: f(None)
 
-        p1, e1, u1, v1, w1, e2, u2, v2, w2, p2 = (time_ms(f, 5) for f in (
-            plain, emit_k, unmasked(emit_k), eval_k, unmasked(eval_k),
-            emit_k, unmasked(emit_k), eval_k, unmasked(eval_k), plain))
+        p1, q1, e1, u1, v1, w1, e2, u2, v2, w2, q2, p2 = (time_ms(f, 5) for f in (
+            plain, eval_plain, emit_k, unmasked(emit_k), eval_k, unmasked(eval_k),
+            emit_k, unmasked(emit_k), eval_k, unmasked(eval_k), eval_plain, plain))
         torch.backends.cudnn.allow_tf32 = True  # cuDNN at PyTorch's defaults
-        lib_ms = time_ms(plain, 5)
+        lib_ms, eval_lib_ms = time_ms(plain, 5), time_ms(eval_plain, 5)
         torch.backends.cudnn.allow_tf32 = False
         valid_px = sum(vh * vw for vh, vw in extents)
         flops, nbytes = _block_work(n, h, w, cin, cmid, True, valid_px)
@@ -1048,6 +1070,7 @@ def phase_concat_kernels() -> tuple[set, dict]:
             "per_forward": per_fwd, "ms": (e1 + e2) / 2, "unmasked_ms": (u1 + u2) / 2,
             "eval_ms": (v1 + v2) / 2, "eval_unmasked_ms": (w1 + w2) / 2,
             "plain_ms": (p1 + p2) / 2, "library_ms": lib_ms,
+            "eval_plain_ms": (q1 + q2) / 2, "eval_library_ms": eval_lib_ms,
             "bound_ms": max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3,
             "eval_bound_ms": max(eval_flops / PEAK_FP32_FLOPS, eval_bytes / PEAK_BYTES) * 1e3,
             "tflops": flops / ((e1 + e2) / 2) / 1e9,
@@ -1064,7 +1087,7 @@ def phase_concat_kernels() -> tuple[set, dict]:
     emit({"phase": "concat_kernel_summary", "blocks_per_step": sum(r["per_forward"] for r in rows),
           **{f"{k}_per_step": per_step(k) for k in (
               "ms", "unmasked_ms", "eval_ms", "eval_unmasked_ms", "plain_ms", "library_ms",
-              "bound_ms", "eval_bound_ms")}})
+              "eval_plain_ms", "eval_library_ms", "bound_ms", "eval_bound_ms")}})
     return checked, {
         "name": "fused_bottleneck_emit_masked", "route": "cuda",
         "source": "maxsquareloss_torch/csrc/fused_bottleneck.cu",
@@ -1382,15 +1405,20 @@ def _scalars(run_dir: str) -> dict[str, dict[int, dict]]:
 
 def _trainer_loaders(cfg):
     """In-memory synthetic source (1280x640), target (1024x512) and val
-    (1024x512) loaders: one epoch of TRAINER_ITERS batch pairs, val 2 x 2."""
+    (1024x512) loaders: one epoch of TRAINER_ITERS batch pairs, val 2
+    batches of VAL_BATCH a rank; with several processes, this rank's shard
+    (``cfg.batch_size`` is global)."""
+    from maxsquareloss_torch.parallel import ddp
+
     def loader(hw, n, seed, batch, train):
         return SegDataLoader(SyntheticSegDataset(length=n, hw=hw, seed=seed), batch_size=batch,
                              shuffle=train, num_workers=cfg.num_workers, seed=cfg.seed,
-                             drop_last=train, pad_last=not train)
+                             drop_last=train, pad_last=not train, shard_index=ddp.rank(),
+                             shard_count=ddp.world())
 
-    n = TRAINER_ITERS * cfg.batch_size
-    return (loader(SRC_HW, n, 3, cfg.batch_size, True), loader(TGT_HW, n, 4, cfg.batch_size, True),
-            loader(TGT_HW, 2 * VAL_BATCH, 5, VAL_BATCH, False))
+    n, batch = TRAINER_ITERS * cfg.batch_size, ddp.local_batch(cfg.batch_size)
+    return (loader(SRC_HW, n, 3, batch, True), loader(TGT_HW, n, 4, batch, True),
+            loader(TGT_HW, 2 * VAL_BATCH * ddp.world(), 5, VAL_BATCH, False))
 
 
 def phase_trainer(bare_steps_per_s: float) -> dict[str, int]:
@@ -1813,11 +1841,380 @@ def phase_efficacy() -> None:
     check(uda > src + 0.03, f"UDA {uda:.4f} does not beat source-only {src:.4f} by 0.03")
 
 
+# --- the ddp phase ---------------------------------------------------------
+# (a) two gloo ranks share the card (NCCL refuses two ranks on one device);
+# (b) torchrun with NCCL over every card for the CLIs and the trainer; (c)
+# the parity step and the step rate over the cards when there are several
+HARD_CFG = dataclasses.replace(TRAIN_CFG, target_mode="hard")
+DDP_SHARED_RANKS = 2
+DDP_TIMEOUT_S = 420
+DDP_TRAINER_GAP = 0.05  # the trainer's own limit (PERF.md section 2)
+
+
+def _ddp_pairs(device) -> list[tuple]:
+    """The parity steps' two global batches (4 + 4 images): the train
+    phase's pairs; in the second, the upper half of the last two images'
+    source labels is ignored, so the ranks' valid counts differ."""
+    pairs = [tuple(t.to(device) for t in p) for p in _train_pairs()]
+    xs, ys, xt = pairs[1]
+    ys = ys.clone()
+    ys[TRAIN_BATCH // 2:, : ys.shape[1] // 2] = -1
+    pairs[1] = (xs, ys, xt)
+    return pairs
+
+
+def _ddp_steps(model, pairs, rows) -> tuple[list, dict, object]:
+    """An IW_maxsquare step on the first global batch and a hard step on the
+    second, each from the starting weights with a fresh optimizer, each on
+    ``rows`` of its batch (DDP when a group of several exists): ([(metrics,
+    parameters after) a step], the valid pixel counts of this rank's source
+    labels and target labels, the train state)."""
+    from maxsquareloss_torch.optim import make_sgd
+    from maxsquareloss_torch.parallel import ddp
+
+    state = make_train_state(model, TRAIN_CFG)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    counts = {"source": [], "target_label": []}
+    guidance = train_steps.target_guidance
+
+    def counted_guidance(*args):
+        prob, label = guidance(*args)
+        counts["target_label"].append(int((label != -1).sum()))
+        return prob, label
+
+    train_steps.target_guidance = counted_guidance
+    out = []
+    try:
+        for cfg, (xs, ys, xt) in zip((TRAIN_CFG, HARD_CFG), pairs):
+            with torch.no_grad():
+                for n, p in model.named_parameters():
+                    p.copy_(start[n])
+            model.pack_weights()
+            state.optimizer, state.iteration = make_sgd(model, cfg), 0
+            counts["source"].append(int((ys[rows] != -1).sum()))
+            state, m = make_uda_train_step(cfg)(state, xs[rows], ys[rows], xt[rows])
+            out.append(({k: v.item() for k, v in m.items()},
+                        {n: p.detach().cpu().clone() for n, p in model.named_parameters()}))
+    finally:
+        train_steps.target_guidance = guidance
+    check(ddp.world() == 1 or state.ddp_loss is not None, "several ranks, but no DDP")
+    return out, counts, state
+
+
+def _ddp_worker(argv: list[str]) -> int:
+    """A rank started by ``torchrun`` (``chip_smoke.py --ddp-worker KIND OUT
+    ...``); rank 0 writes its results under OUT.
+    parity BACKEND DEVICE: the parity steps on this rank's share of the
+        global batch (DEVICE ``cuda:0`` puts every rank on one card, ``-``
+        gives each its ``LOCAL_RANK`` card), then 2 + REPS DDP steps of 4 +
+        4 images a rank, timed;
+    trainer: the bare step (2 + REPS) and a UDATrainer over in-memory
+        loaders (TRAINER_ITERS iterations, 4 + 4 images a rank, a
+        validation), with NCCL;
+    cli MODULE ARGS...: MODULE's ``main(ARGS)``, counted."""
+    import warnings
+
+    from maxsquareloss_torch.parallel import ddp
+
+    kind, out = argv[0], argv[1]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    result = {"kind": kind}
+    if kind == "cli":
+        module = importlib.import_module(argv[2])
+        zero_counts()
+        module.main(argv[3:])
+        torch.cuda.synchronize()
+        result.update(launch_counts=read_counts())
+    elif kind == "parity":
+        backend, device = argv[2], argv[3]
+        ddp.init_distributed(backend)
+        dev = ddp.rank_device(None if device == "-" else device)
+        model = init_deeplabv2(model_config(TRAIN_CFG), torch.Generator().manual_seed(0),
+                               device=dev)
+        per = ddp.local_batch(TRAIN_BATCH)
+        rows = slice(ddp.rank() * per, (ddp.rank() + 1) * per)
+        zero_counts()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            steps, valid, state = _ddp_steps(model, _ddp_pairs(dev), rows)
+            torch.cuda.synchronize()
+        counts = read_counts()
+        strides = [str(w.message) for w in caught if "stride" in str(w.message).lower()]
+        check(not strides, f"DDP: {strides[:1]}")
+        result.update(world=ddp.world(), backend=backend, device=str(dev),
+                      launch_counts_parity_steps=counts, valid_pixels=valid)
+        if backend == "nccl":
+            # the step rate over the cards, 4 + 4 images a rank (the same
+            # DDP wrapper: one per model)
+            step = make_uda_train_step(TRAIN_CFG)
+            pairs = [tuple(t.to(dev) for t in p) for p in _train_pairs()]
+            secs = []
+            for i in range(WARMUP_STEPS + REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, *pairs[i % len(pairs)])
+                float(m["loss"])  # the global metrics: every rank's step is done
+                if i >= WARMUP_STEPS:
+                    secs.append(time.perf_counter() - t0)
+            result.update(step_s=statistics.median(secs),
+                          images_per_s=2 * TRAIN_BATCH * ddp.world() / statistics.median(secs))
+        ranks = ddp.all_gather(torch.tensor([*valid["source"], *valid["target_label"],
+                                             counts["fused_bottleneck_emit"]], device=dev))
+        # per rank: source valid pixels of each step, target label pixels of
+        # each step, emit launches
+        result["per_rank_valid_and_emit"] = ranks.tolist()
+        if ddp.is_main():
+            torch.save(steps, os.path.join(out, "steps.pt"))
+    elif kind == "trainer":
+        from maxsquareloss_torch.parallel import multihost
+
+        multihost.initialize_distributed()
+        dev = ddp.rank_device(None)
+        model = init_deeplabv2(model_config(TRAIN_CFG), torch.Generator().manual_seed(0),
+                               device=dev)
+        state = make_train_state(model, TRAIN_CFG)
+        step = make_uda_train_step(TRAIN_CFG)
+        pairs = [tuple(t.to(dev) for t in p) for p in _train_pairs()]
+        secs = []
+        for i in range(WARMUP_STEPS + REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, *pairs[i % len(pairs)])
+            torch.cuda.synchronize()
+            if i >= WARMUP_STEPS:
+                secs.append(time.perf_counter() - t0)
+        bare = statistics.median(1.0 / s for s in secs)
+        del state, model, m
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(
+            TRAIN_CFG, iter_stop=TRAINER_ITERS, num_workers=8, tqdm=False, show_num_images=0,
+            batch_size=TRAIN_BATCH * ddp.world(), eval_batch_size=VAL_BATCH * ddp.world(),
+            checkpoint_dir=os.path.join(out, "trainer"))
+        model = init_deeplabv2(model_config(cfg), torch.Generator().manual_seed(0), device=dev)
+        trainer = UDATrainer(cfg, *_trainer_loaders(cfg), model=model)
+        zero_counts()
+        trainer.train()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        result.update(world=ddp.world(), bare_steps_per_s=bare, launch_counts=counts)
+        if ddp.is_main():
+            losses = _scalars(cfg.checkpoint_dir)["train/loss"]
+            check(sorted(losses) == list(range(1, TRAINER_ITERS + 1)), f"loss steps {sorted(losses)}")
+            check(all(math.isfinite(r["value"]) for r in losses.values()), "non-finite loss")
+            ts = [losses[i]["ts"] for i in range(TRAINER_SAVE_ITER - 1, TRAINER_ITERS + 1)]
+            rate = statistics.median(1.0 / (b - a) for a, b in zip(ts, ts[1:]))
+            result.update(trainer_steps_per_s=rate, gap_vs_bare_step=1.0 - rate / bare,
+                          val_MIoU=_scalars(cfg.checkpoint_dir)["val/MIoU"][TRAINER_ITERS]["value"])
+    else:
+        raise ValueError(f"unknown ddp worker {kind!r}")
+    if ddp.is_main():
+        with open(os.path.join(out, f"{kind}.json"), "w") as f:
+            json.dump(result, f)
+    ddp.shutdown()
+    return 0
+
+
+def _torchrun(nproc: int, target: list[str], what: str) -> str:
+    """``torchrun --standalone --nproc_per_node nproc`` of ``target`` in the
+    repo root, TF32 off; fails the run on a non-zero exit or a timeout (and
+    kills every process it started). Returns its output."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "NVIDIA_TF32_OVERRIDE": "0", "OMP_NUM_THREADS": "4",
+           "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), *target]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out = proc.communicate(timeout=DDP_TIMEOUT_S)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        raise RuntimeError(f"chip_smoke check failed: {what} ran past {DDP_TIMEOUT_S} s")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+    if proc.returncode != 0:
+        print(out[-8000:], file=sys.stderr, flush=True)
+    check(proc.returncode == 0, f"{what}: exit {proc.returncode}")
+    emit({"phase": "ddp_launch", "what": what, "nproc": nproc,
+          "seconds": time.perf_counter() - t0})
+    return out
+
+
+def _ddp_parity(p0: dict, ref: list, got: list) -> list:
+    """Each step's metric errors (relative) and each parameter's change
+    (relative L2) against the one-process steps on the global batch, both
+    from ``p0``."""
+    report = []
+    for (m_r, p_r), (m_g, p_g) in zip(ref, got):
+        err = {k: abs(m_g[k] - m_r[k]) / max(abs(m_r[k]), 1e-30) if k in m_g else math.inf
+               for k in m_r}
+        param_err = {n: _rel_l2(p_g[n] - p0[n], p_r[n] - p0[n]) for n in p_r}
+        worst = max(param_err, key=param_err.get)
+        report.append({"metric_rel_err": err, "param_change_rel_l2_max": param_err[worst],
+                       "param_change_rel_l2_worst": worst,
+                       "param_change_rel_l2_median": statistics.median(param_err.values()),
+                       "finite": all(math.isfinite(v) for v in m_g.values())})
+    return report
+
+
+def _check_ddp_parity(name: str, report: list) -> None:
+    """The train phase's limits: every metric rel STEP_RTOL, each
+    parameter's change relative L2 STEP_PARAM_RTOL_L2."""
+    for i, r in enumerate(report):
+        bad = {k: v for k, v in r["metric_rel_err"].items() if not v <= STEP_RTOL}
+        check(r["finite"] and not bad, f"{name} step {i}: metrics off {bad}")
+        check(r["param_change_rel_l2_max"] <= STEP_PARAM_RTOL_L2,
+              f"{name} step {i}: {r['param_change_rel_l2_worst']} change off by "
+              f"{r['param_change_rel_l2_max']:.3g} (relative L2)")
+
+
+def phase_ddp(bare_steps_per_s: float, checked: dict) -> None:
+    """Data parallelism on the card: (a) two gloo ranks on the one card
+    against the one-process step on the same global batch; (b) torchrun
+    with NCCL over every card: ``solve_gta5`` (2 iterations, validation,
+    checkpoint), its --continue_training resume, ``evaluate``, and the
+    UDATrainer against the bare step; (c) with several cards, the parity
+    steps and the step rate over them. First the kernels are held against
+    their plain versions at the ranks' shapes that no phase checked."""
+    from maxsquareloss_torch.data.synthetic import write_domain_shift_pair
+
+    cards = torch.cuda.device_count()
+    per_rank = {TRAIN_BATCH // DDP_SHARED_RANKS}
+    if cards > 1 and TRAIN_BATCH % cards == 0:
+        per_rank.add(TRAIN_BATCH // cards)
+    seen = {k: set() for k in checked}
+    for n in per_rank:
+        seen["fused_bottleneck_emit"] |= {s[1:7] for s in block_shapes(n, SRC_HW)
+                                          + block_shapes(n, TGT_HW)}
+        seen["fused_iw_max_square_loss"].add((n, *TGT_HW, NUM_CLASSES))
+    hold_path_shapes("ddp", seen, checked)
+    torch.cuda.synchronize()
+    model = init_deeplabv2(model_config(TRAIN_CFG), torch.Generator().manual_seed(0),
+                           device="cuda")
+    p0 = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+    zero_counts()
+    ref, ref_valid, _ = _ddp_steps(model, _ddp_pairs("cuda"), slice(None))
+    one_counts = read_counts()
+    del model
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_ddp_")
+    me = os.path.abspath(__file__)
+    try:
+        # (a) two ranks on the one card, gloo
+        _torchrun(DDP_SHARED_RANKS, [me, "--ddp-worker", "parity", work, "gloo", "cuda:0"],
+                  "parity, 2 gloo ranks on one card")
+        with open(os.path.join(work, "parity.json")) as f:
+            shared = json.load(f)
+        steps = torch.load(os.path.join(work, "steps.pt"))
+        per_rank = shared["per_rank_valid_and_emit"]
+        report = _ddp_parity(p0, ref, steps)
+        emit({"phase": "ddp_parity", "case": "a_shared_card", "world": shared["world"],
+              "backend": "gloo", "steps": ["IW_maxsquare", "hard"], "vs_one_process": report,
+              "metrics": [m for m, _ in steps], "metrics_one_process": [m for m, _ in ref],
+              "valid_pixels_one_process": ref_valid,
+              "per_rank_source_valid_target_label_valid_emit_launches": per_rank,
+              "launch_counts_per_rank": shared["launch_counts_parity_steps"],
+              "launch_counts_one_process": one_counts})
+        check(len({r[1] for r in per_rank}) > 1, f"the ranks' source counts are equal: {per_rank}")
+        check(all(r[4] == 2 * 58 for r in per_rank), f"emit launches per rank {per_rank}")
+        _check_ddp_parity("ddp shared card", report)
+        del steps
+
+        # (b) torchrun with NCCL over every card: the CLIs, then the trainer
+        data = os.path.join(work, "data")
+        write_domain_shift_pair(data, n_source=8 * cards, n_target_train=8 * cards,
+                                n_target_val=4 * cards, hw=(128, 256))
+        run = os.path.join(work, "run")
+        cli = ["--data_root_path", data, "--checkpoint_dir", run, *CLI_SIZE,
+               "--target_base_size", "256,128", "--target_crop_size", "256,128",
+               "--batch_size", str(2 * cards), "--num_workers", "4", "--tqdm", "false",
+               "--iw_hist", "argmax"]
+        _torchrun(cards, [me, "--ddp-worker", "cli", work, "maxsquareloss_torch.tools.solve_gta5",
+                          *cli, "--iter_stop", "2"], "torchrun solve_gta5")
+        with open(os.path.join(work, "cli.json")) as f:
+            cli_counts = json.load(f)["launch_counts"]
+        val_batches = 2  # 4 images a card, 2 a batch
+        check(cli_counts["fused_bottleneck_emit"] == 2 * 58
+              and cli_counts["fused_bottleneck"] == 29 * val_batches,
+              f"torchrun solve_gta5 launches on rank 0: {cli_counts}")
+        first = ckpt_lib.load_checkpoint(os.path.join(run, ckpt_lib.LATEST))
+        check(first["iteration"] == 2, f"checkpoint at iteration {first['iteration']}")
+        check(not any(k.startswith("module.") for k in first["state_dict"]), "module. prefix")
+        _torchrun(cards, ["-m", "maxsquareloss_torch.tools.solve_gta5", *cli, "--iter_stop", "4",
+                          "--continue_training"], "torchrun solve_gta5 --continue_training")
+        scal = _scalars(run)
+        check(sorted(scal["train/loss"]) == [1, 2, 3, 4]
+              and all(math.isfinite(r["value"]) for r in scal["train/loss"].values()),
+              f"resumed losses {scal['train/loss']}")
+        check(ckpt_lib.load_checkpoint(os.path.join(run, ckpt_lib.LATEST))["iteration"] == 4,
+              "the resume did not reach iteration 4")
+        served = ["--dataset", "cityscapes", "--data_root_path", data,
+                  "--pretrained_ckpt_file", os.path.join(run, ckpt_lib.LATEST), *CLI_SIZE,
+                  "--batch_size", str(2 * cards), "--num_workers", "4",
+                  "--checkpoint_dir", os.path.join(work, "ev")]
+        out = _torchrun(cards, ["-m", "maxsquareloss_torch.tools.evaluate", *served],
+                        "torchrun evaluate")
+        from maxsquareloss_torch.tools import evaluate as evaluate_cli
+
+        printed = [ln for ln in out.splitlines() if ln.startswith("{'PA'")]
+        check(len(printed) == 1, f"torchrun evaluate printed {len(printed)} metric lines")
+        got = {k: float(v) for k, v in re.findall(r"'(\w+)': (?:np\.float64\()?([-0-9.eE+]+)",
+                                                   printed[0])}
+        want = evaluate_cli.main([*served, "--checkpoint_dir", os.path.join(work, "ev1")])
+        check(abs(got["MIoU"] - want["MIoU"]) <= 1e-4,
+              f"torchrun evaluate mIoU {got['MIoU']} vs one process {want['MIoU']}")
+        emit({"phase": "ddp_cli", "nproc": cards, "backend": "nccl",
+              "solve_gta5_launch_counts_rank0": cli_counts,
+              "losses": {i: r["value"] for i, r in scal["train/loss"].items()},
+              "val_MIoU": {i: r["value"] for i, r in scal["val/MIoU"].items()},
+              "evaluate": got, "evaluate_one_process": want})
+        _torchrun(cards, [me, "--ddp-worker", "trainer", work], "torchrun UDATrainer")
+        with open(os.path.join(work, "trainer.json")) as f:
+            tr = json.load(f)
+        check(tr["gap_vs_bare_step"] <= DDP_TRAINER_GAP,
+              f"the DDP trainer is {tr['gap_vs_bare_step']:.3f} under the bare step")
+        check(tr["launch_counts"]["fused_bottleneck_emit"] == 58 * TRAINER_ITERS
+              and tr["launch_counts"]["fused_bottleneck"] == 29 * 2,
+              f"DDP trainer launches on rank 0 {tr['launch_counts']}")
+        emit({"phase": "ddp_trainer", "nproc": cards, "backend": "nccl", **tr})
+
+        # (c) several cards
+        if cards < 2:
+            emit({"phase": "ddp_parity", "case": "c_several_cards", "ran": False,
+                  "why": f"this machine has {cards} card: NCCL over cards needs 2 or more"})
+        elif TRAIN_BATCH % cards:
+            emit({"phase": "ddp_parity", "case": "c_several_cards", "ran": False,
+                  "why": f"{cards} cards do not share a global batch of {TRAIN_BATCH}"})
+        else:
+            _torchrun(cards, [me, "--ddp-worker", "parity", work, "nccl", "-"],
+                      f"parity, {cards} NCCL ranks")
+            with open(os.path.join(work, "parity.json")) as f:
+                multi = json.load(f)
+            steps = torch.load(os.path.join(work, "steps.pt"))
+            report = _ddp_parity(p0, ref, steps)
+            emit({"phase": "ddp_parity", "case": "c_several_cards", "ran": True,
+                  "world": multi["world"], "backend": "nccl", "vs_one_process": report,
+                  "launch_counts_per_rank": multi["launch_counts_parity_steps"],
+                  "images_per_s": multi["images_per_s"], "step_s": multi["step_s"],
+                  "images_per_s_one_card": bare_steps_per_s * 2 * TRAIN_BATCH,
+                  "per_rank_source_valid_target_label_valid_emit_launches":
+                      multi["per_rank_valid_and_emit"]})
+            _check_ddp_parity("ddp over cards", report)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; it needs a GPU",
               file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--ddp-worker"]:
+        return _ddp_worker(sys.argv[2:])
     t_start = time.perf_counter()
     phase_environment()
     phase_build()
@@ -1855,6 +2252,7 @@ def main() -> int:
         with recorded_shapes() as seen:
             phase()
         hold_path_shapes(path, seen, checked_all)
+    phase_ddp(bare_steps_per_s, checked_all)
     kernels = (kernel, *train_kernels, masked_kernel, probe)
     for k in kernels:
         check(k["launches"] > 0, f"the main path launched no {k['name']}")

@@ -23,9 +23,15 @@ weights seeded 0; inputs come from ``np.random.default_rng(0)``. Timing:
 ``--warmup`` steps, then 2 timed passes of ``--steps`` steps, each fenced by
 ``torch.cuda.synchronize()`` and a host read of the loss. ``value`` is the
 best pass, as in the JAX bench; ``extra.step_ms_passes`` holds both, so the
-spread is visible. One process drives one card, so a rate per chip is the
-rate. Runs on the card; ``--device cpu`` runs the plain PyTorch versions on
-the host.
+spread is visible. Runs on the card; ``--device cpu`` runs the plain
+PyTorch versions on the host.
+
+One process drives one card. Under ``torchrun --nproc_per_node N`` the
+global ``--batch`` splits over the N processes (rank r takes rows
+``[r*B/N, (r+1)*B/N)`` of the one-process inputs), the train steps run
+under DDP, ``value`` is the global rate over N (images/s per chip, as in
+the JAX bench), ``extra.chips`` is N and rank 0 alone prints the line. With
+one process the line is the one-card line.
 
 Only fp32 is ported: ``--dtype bfloat16``, ``--remat``, ``--quantize``,
 ``--fp32_parity true``, ``--xla_options`` and ``--comparator`` raise.
@@ -44,6 +50,7 @@ import numpy as np
 import torch
 
 from maxsquareloss_torch.config import TrainConfig, str2bool
+from maxsquareloss_torch.parallel import ddp, multihost
 from maxsquareloss_torch.utils.device import resolve_device
 
 
@@ -69,8 +76,9 @@ def _hw(s: str) -> tuple[int, int]:
 
 
 def measure_step_rate(args, device: torch.device) -> dict:
-    """Build, warm up and time one configuration. Returns images/s (the
-    best pass), ms per step of each pass, the last loss and peak memory."""
+    """Build, warm up and time one configuration. Returns images/s per
+    chip (the best pass), ms per step of each pass, the last loss and peak
+    memory (this rank's)."""
     from maxsquareloss_torch.models.deeplabv2 import init_deeplabv2
     from maxsquareloss_torch.train.steps import (
         make_supervised_train_step,
@@ -81,6 +89,8 @@ def measure_step_rate(args, device: torch.device) -> dict:
 
     h, w = _hw(args.hw)
     batch = args.batch
+    rows = slice(ddp.rank() * ddp.local_batch(batch, "--batch"),
+                 (ddp.rank() + 1) * ddp.local_batch(batch, "--batch"))
     cfg = TrainConfig(
         multi=True, num_classes=19, target_mode="IW_maxsquare", iw_hist=args.iw_hist,
         concat_batches=args.concat,
@@ -95,7 +105,7 @@ def measure_step_rate(args, device: torch.device) -> dict:
     xs = rng.normal(0, 1, size=(batch, h, w, 3)).astype(np.float32)
     ys = rng.integers(-1, 19, size=(batch, h, w)).astype(np.int32)
     xt = rng.normal(0, 1, size=(batch, h, w, 3)).astype(np.float32)
-    xs, ys, xt = (torch.from_numpy(a).to(device) for a in (xs, ys, xt))
+    xs, ys, xt = (torch.from_numpy(a[rows]).to(device) for a in (xs, ys, xt))
 
     if args.mode == "uda":
         step = make_uda_train_step(cfg)
@@ -110,7 +120,7 @@ def measure_step_rate(args, device: torch.device) -> dict:
 
         if args.label_hw:
             ys = torch.from_numpy(
-                rng.integers(-1, 19, size=(batch, *_hw(args.label_hw))).astype(np.int32)
+                rng.integers(-1, 19, size=(batch, *_hw(args.label_hw))).astype(np.int32)[rows]
             ).to(device)
         scales = tuple(float(s) for s in args.scales.split(","))
         estep = make_multiscale_eval_step(cfg, model, scales=scales, flip=args.flip)
@@ -132,7 +142,7 @@ def measure_step_rate(args, device: torch.device) -> dict:
         seconds.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
     return {
-        "images_per_sec": imgs_per_step * args.steps / min(seconds),
+        "images_per_sec": imgs_per_step * args.steps / min(seconds) / ddp.world(),
         "step_ms_passes": [1e3 * s / args.steps for s in seconds],
         "final_loss": loss,
         "peak_memory_bytes": peak,
@@ -210,18 +220,20 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
+    multihost.initialize_distributed(args.device)
     device = resolve_device(args.device)
     if args.mode == "e2e":
         from maxsquareloss_torch.experiments.bench_e2e import run_e2e
 
         result = run_e2e(args)
-        print(json.dumps(result))
+        if ddp.is_main():
+            print(json.dumps(result))
         return result
 
     h, w = _hw(args.hw)
     m = measure_step_rate(args, device)
     extra = {
-        "chips": 1, "global_batch": args.batch, "blocks": args.blocks, "iw_hist": args.iw_hist,
+        "chips": ddp.world(), "global_batch": args.batch, "blocks": args.blocks, "iw_hist": args.iw_hist,
         "concat_batches": args.concat,
         "step_ms": min(m["step_ms_passes"]), "step_ms_passes": m["step_ms_passes"],
         "final_loss": m["final_loss"], "peak_memory_bytes": m["peak_memory_bytes"],
@@ -249,9 +261,11 @@ def main(argv=None) -> dict:
         "unit": "images/sec/chip",
         "extra": extra,
     }
-    print(json.dumps(result))
+    if ddp.is_main():
+        print(json.dumps(result))
     return result
 
 
 if __name__ == "__main__":
     main()
+    ddp.shutdown()

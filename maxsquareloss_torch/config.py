@@ -4,11 +4,11 @@ port's own copy of ``maxsquareloss_tpu/config.py``).
 ``TrainConfig`` has every field of the JAX package's, under the same names
 and defaults, plus ``device`` (``None``: the card). ``add_train_args``,
 ``add_uda_train_args`` and ``config_from_args`` keep flag-for-flag parity
-with the JAX CLIs. The paths compute in float32 on one device in one
-process; a flag for something the port does not have yet raises in
-``check_supported`` with the ROADMAP item it waits on, instead of being
-ignored. ``--data_parallel`` on one card is a no-op, as in JAX with one
-device.
+with the JAX CLIs. The paths compute in float32, one process per card
+(``parallel/``: ``torchrun``, or the JAX CLIs' ``--coordinator_address
+--num_processes --process_id``); batch sizes are global. A flag for
+something the port does not have yet raises in ``check_supported`` with the
+ROADMAP item it waits on, instead of being ignored.
 """
 
 from __future__ import annotations
@@ -89,7 +89,9 @@ class TrainConfig:
     tqdm: bool = True                  # progress bars (when tqdm is installed)
     validation_epoch: int = 1
     show_num_images: int = 3
-    data_parallel: bool = True         # one card: nothing to shard
+    # shard the global batch over the processes; false with several
+    # processes raises (each would train a model of its own)
+    data_parallel: bool = True
     sp: int = 1                        # spatial partitioning (not ported)
     # stream the eval upsample→softmax→argmax→CM tail over N output rows at
     # a time (exact: row-local interpolation); -1 = auto (256-row chunks
@@ -103,10 +105,10 @@ class TrainConfig:
     # graceful preemption: on SIGTERM, finish the in-flight step, write a
     # mid-epoch checkpoint (carrying the exact batch offset) and return
     preempt_save: bool = True
-    preempt_sync_steps: int = 10       # multi-process only; one process here
+    preempt_sync_steps: int = 10       # several processes: decide together every N steps
     compilation_cache_dir: str = "auto"  # the JAX package's compile cache; none here
 
-    # multi-process (not ported: the port runs one process on one card)
+    # several processes without torchrun: tcp://<address>, world size, rank
     coordinator_address: str | None = None
     num_processes: int | None = None
     process_id: int | None = None
@@ -127,7 +129,8 @@ _UNPORTED = (
     ("quantize", "", "--quantize waits on int8 PTQ (ROADMAP Queue 1 item 3, beyond parity)"),
     ("loader", "threads", "--loader grain waits on the grain pipeline (ROADMAP Queue 1 "
      "item 1, hostops and grain)"),
-    ("sp", 1, "--sp > 1 waits on DDP and spatial partitioning (ROADMAP Queue 1 item 2, DDP)"),
+    ("sp", 1, "--sp > 1 waits on spatial partitioning (ROADMAP Queue 1 item 2, spatial "
+     "partitioning); data parallelism over processes is ported"),
     ("freeze_bn", True, "--freeze_bn false: BN is always frozen (folded into buffers), "
      "as in the JAX package"),
 )
@@ -138,10 +141,14 @@ def check_supported(cfg: TrainConfig) -> None:
     for name, ok, why in _UNPORTED:
         if getattr(cfg, name) != ok:
             raise NotImplementedError(f"{name}={getattr(cfg, name)!r} is not ported: {why}")
-    if (cfg.num_processes or 1) > 1 or cfg.coordinator_address or cfg.process_id:
-        raise NotImplementedError(
-            "more than one process is not ported: the port runs one process on one "
-            "card (DDP and torchrun: ROADMAP Queue 1 item 2, DDP)")
+    if not cfg.data_parallel:
+        from maxsquareloss_torch.parallel.ddp import world
+
+        if world() > 1:
+            # the JAX package's processes then each jit a step of their own
+            # on their shard and never sync: that trains world models, not one
+            raise ValueError(f"--data_parallel false with {world()} processes would train "
+                             f"{world()} unrelated models; run one process or drop the flag")
     for name in ("xla_options", "compilation_cache_dir"):
         if getattr(cfg, name) not in ("auto", ""):
             raise NotImplementedError(

@@ -19,7 +19,10 @@ Rates (images/s, source and target images counted):
 Each leg runs one priming epoch, then ``--epochs`` timed ones (median
 reported); an epoch is fenced by ``torch.cuda.synchronize()`` and a host
 read of the last loss. ``h2d_MB_per_sec`` times pinned host → card copies
-(``null`` on the CPU).
+(``null`` on the CPU). Under ``torchrun`` each process loads its shard of
+every global batch and the steps run under DDP; rank 0 writes the dataset
+and the prepared roots while the others wait, and the rates are rank 0's
+images a second, a rate per chip.
 
     python -m maxsquareloss_torch.bench --mode e2e [--data_root DIR --num_workers N]
 """
@@ -31,6 +34,8 @@ import time
 
 import numpy as np
 import torch
+
+from maxsquareloss_torch.parallel import ddp
 
 # Cityscapes raw ids that map to trainIds (the blocky synthetic labels use these)
 _MAPPED_IDS = (7, 8, 11, 12, 13, 17, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 31, 32, 33)
@@ -149,8 +154,10 @@ def _make_loaders(root: str, cfg, cache_root: str | None, num_workers: int):
         split="train", transform_cfg=transform_cfg(cfg, target=True),
         cache_dir=None if cache_root is None else f"{cache_root}/cs",
     )
-    return tuple(SegDataLoader(ds, batch_size=cfg.batch_size, num_workers=num_workers,
-                               seed=cfg.seed) for ds in (src, tgt))
+    return tuple(SegDataLoader(ds, batch_size=ddp.local_batch(cfg.batch_size, "--batch"),
+                               num_workers=num_workers, seed=cfg.seed,
+                               shard_index=ddp.rank(), shard_count=ddp.world())
+                 for ds in (src, tgt))
 
 
 def _timed_epoch(step, state, src_loader, tgt_loader, epoch: int, device: torch.device):
@@ -200,7 +207,10 @@ def run_e2e(args) -> dict:
     blocks = getattr(args, "blocks", (3, 4, 23, 3))
     if isinstance(blocks, str):
         blocks = tuple(int(v) for v in blocks.split(","))
-    root = ensure_dataset(args.data_root, n=n, src_wh=src_wh, tgt_wh=tgt_wh)
+    if ddp.is_main():
+        ensure_dataset(args.data_root, n=n, src_wh=src_wh, tgt_wh=tgt_wh)
+    ddp.barrier()
+    root = args.data_root
     cfg = TrainConfig(
         multi=True, num_classes=19, target_mode="IW_maxsquare",
         # see maxsquareloss_torch/bench.py --iw_hist: random weights
@@ -237,11 +247,13 @@ def run_e2e(args) -> dict:
     prepared = {}
     for leg, fmt, first_epoch in (("prepared", "png", 200), ("prepared_raw", "raw", 300)):
         prep_root = root.rstrip("/") + "_" + leg
-        prepare_split("gta5", f"{root}/GTA5", f"{root}/GTA5/train.txt", f"{prep_root}/GTA5",
-                      tuple(cfg.base_size), "train", num_workers=args.num_workers, fmt=fmt)
-        prepare_split("cityscapes", f"{root}/Cityscapes", f"{root}/Cityscapes/train.txt",
-                      f"{prep_root}/Cityscapes", tuple(cfg.target_base_size), "train",
-                      num_workers=args.num_workers, fmt=fmt)
+        if ddp.is_main():
+            prepare_split("gta5", f"{root}/GTA5", f"{root}/GTA5/train.txt", f"{prep_root}/GTA5",
+                          tuple(cfg.base_size), "train", num_workers=args.num_workers, fmt=fmt)
+            prepare_split("cityscapes", f"{root}/Cityscapes", f"{root}/Cityscapes/train.txt",
+                          f"{prep_root}/Cityscapes", tuple(cfg.target_base_size), "train",
+                          num_workers=args.num_workers, fmt=fmt)
+        ddp.barrier()
         prepared[leg] = timed_leg(prep_root, None, first_epoch)[0]
 
     xs, ys, xt = last
@@ -283,7 +295,7 @@ def run_e2e(args) -> dict:
             "iw_hist": cfg.iw_hist,
             "concat_batches": cfg.concat_batches,
             "final_loss": loss,
-            "chips": 1,
+            "chips": ddp.world(),
             **device_report(device),
         },
     }

@@ -21,16 +21,21 @@ IGNORE_INDEX = -1
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  ignore_index: int = IGNORE_INDEX) -> torch.Tensor:
+                  ignore_index: int = IGNORE_INDEX,
+                  divisor: torch.Tensor | None = None) -> torch.Tensor:
     """Pixel CE with ``ignore_index``, summed over the valid pixels and
     divided by ``max(count, 1)``: ``nn.CrossEntropyLoss(ignore_index=-1)``
-    where a pixel is valid, 0 (not NaN) on an all-ignored label."""
+    where a pixel is valid, 0 (not NaN) on an all-ignored label.
+    ``divisor`` replaces ``max(count, 1)``: a data-parallel step passes the
+    global batch's (``train/steps.py``)."""
     valid = labels != ignore_index
     logp = torch.log_softmax(logits, dim=-1)
     safe = torch.where(valid, labels, 0).long()
     nll = -logp.gather(-1, safe.unsqueeze(-1)).squeeze(-1)
     nll = torch.where(valid, nll, 0.0)
-    return nll.sum() / valid.sum().clamp_min(1).to(nll.dtype)
+    if divisor is None:
+        divisor = valid.sum().clamp_min(1).to(nll.dtype)
+    return nll.sum() / divisor
 
 
 def soft_cross_entropy(logits: torch.Tensor, target_prob: torch.Tensor) -> torch.Tensor:

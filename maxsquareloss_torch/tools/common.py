@@ -1,7 +1,9 @@
 """Shared loader and model assembly for the port's CLIs (counterpart of
 ``tools/common.py``): per-dataset roots and split list paths under one
-datasets root, the transform config of a run, and the loaders. One process
-loads the whole batch (no ``jax.process_count`` sharding).
+datasets root, the transform config of a run, the loaders and the
+process group. Batch sizes are global: with several processes each loads
+a disjoint shard of ``batch / world`` images of every batch, the shard the
+JAX package's processes load.
 """
 
 from __future__ import annotations
@@ -10,13 +12,14 @@ import os
 
 import torch
 
-from maxsquareloss_torch.config import TrainConfig
+from maxsquareloss_torch.config import TrainConfig, check_supported
 from maxsquareloss_torch.data.cityscapes import CityscapesDataset
 from maxsquareloss_torch.data.crosscity import CrossCityDataset
 from maxsquareloss_torch.data.gta5 import GTA5Dataset
 from maxsquareloss_torch.data.loader import SegDataLoader
 from maxsquareloss_torch.data.synthia import SynthiaDataset
 from maxsquareloss_torch.data.transforms import TransformConfig
+from maxsquareloss_torch.parallel import ddp, multihost
 
 DATASET_CLS = {
     "cityscapes": CityscapesDataset,
@@ -66,18 +69,31 @@ def make_loader(
         root, list_path, split=split, transform_cfg=transform_cfg(cfg, target=target), **dataset_kw
     )
     # validation takes --eval_batch_size when set (metrics are batch-invariant)
-    batch = cfg.batch_size
+    batch, flag = cfg.batch_size, "--batch_size"
     if split != "train" and cfg.eval_batch_size:
-        batch = cfg.eval_batch_size
+        batch, flag = cfg.eval_batch_size, "--eval_batch_size"
     return SegDataLoader(
         ds,
-        batch_size=batch,
+        batch_size=ddp.local_batch(batch, flag),
         shuffle=split == "train",
         num_workers=cfg.num_workers,
         seed=cfg.seed,
         drop_last=split == "train",
         pad_last=split != "train",
+        shard_index=ddp.rank(),
+        shard_count=ddp.world(),
     )
+
+
+def init_distributed(cfg: TrainConfig) -> int:
+    """Join the process group that ``torchrun`` or the flags
+    ``--coordinator_address/--num_processes/--process_id`` describe (none for
+    a process started alone) and check the run's options against it;
+    returns the world size."""
+    n = multihost.initialize_distributed(cfg.device, cfg.coordinator_address,
+                                         cfg.num_processes, cfg.process_id)
+    check_supported(cfg)
+    return n
 
 
 def load_inference_model(cfg: TrainConfig, device: torch.device):

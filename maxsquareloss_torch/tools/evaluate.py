@@ -8,7 +8,9 @@
 
 Prints the metric dict as the JAX CLI does (``{'PA': ..., 'MIoU': ...}``)
 and ``main`` returns it. It runs on the card; ``--device cpu`` runs the
-plain PyTorch versions on the host.
+plain PyTorch versions on the host. Under ``torchrun --nproc_per_node N``
+each process evaluates a shard of the split (``--batch_size`` is global)
+and rank 0 prints the metrics of the whole split.
 """
 
 from __future__ import annotations
@@ -16,7 +18,13 @@ from __future__ import annotations
 import argparse
 
 from maxsquareloss_torch.config import add_train_args, config_from_args, str2bool
-from maxsquareloss_torch.tools.common import default_paths, load_inference_model, make_loader
+from maxsquareloss_torch.parallel import ddp
+from maxsquareloss_torch.tools.common import (
+    default_paths,
+    init_distributed,
+    load_inference_model,
+    make_loader,
+)
 from maxsquareloss_torch.train.evaluator import evaluate
 from maxsquareloss_torch.utils.device import resolve_device
 from maxsquareloss_torch.utils.logging import setup_logger
@@ -34,8 +42,9 @@ def main(argv=None) -> dict:
     cfg = config_from_args(args)
     if not cfg.pretrained_ckpt_file:
         parser.error("--pretrained_ckpt_file is required")
+    init_distributed(cfg)
     device = resolve_device(cfg.device)
-    logger = setup_logger(cfg.checkpoint_dir, "evaluate")
+    logger = setup_logger(cfg.checkpoint_dir, "evaluate", main=ddp.is_main())
     model = load_inference_model(cfg, device)
 
     paths = default_paths(args.data_root_path)[cfg.dataset]
@@ -49,10 +58,12 @@ def main(argv=None) -> dict:
                    synthia_protocol=cfg.class_16)
     ev = out.pop("_eval")
     logger.info(" ".join(f"{k}={v:.4f}" for k, v in out.items()))
-    ev.Print_Every_class_Eval(logger)
-    print(out)
+    if ddp.is_main():
+        ev.Print_Every_class_Eval(logger)
+        print(out)
     return out
 
 
 if __name__ == "__main__":
     main()
+    ddp.shutdown()

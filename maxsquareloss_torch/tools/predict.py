@@ -12,7 +12,10 @@
         --scales 0.75,1.0,1.25 --flip true
 
 It runs on the card; ``--device cpu`` runs the plain PyTorch versions on
-the host. ``main`` returns the number of images written.
+the host. ``main`` returns the number of images written. It runs as one
+process: the JAX tool predicts one image at a time and scales out only by
+``--sp``, which is not ported; under ``torchrun`` with more than one
+process it raises.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 from maxsquareloss_torch.config import add_train_args, config_from_args, str2bool
 from maxsquareloss_torch.data.palette import decode_labels
 from maxsquareloss_torch.data.transforms import img_transform
+from maxsquareloss_torch.parallel.multihost import launched_world
 from maxsquareloss_torch.predict import make_predict_fn
 from maxsquareloss_torch.tools.common import default_paths, load_inference_model
 from maxsquareloss_torch.utils.device import resolve_device
@@ -43,6 +47,12 @@ def main(argv=None) -> int:
                              "(logits upsampled align-corners); false = base_size")
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
+    world = launched_world(cfg.num_processes)
+    if world > 1:
+        raise NotImplementedError(
+            f"predict runs as one process, not {world}: it predicts one image at a time, "
+            "and the JAX tool's only scale-out, --sp, is not ported (ROADMAP Queue 1 "
+            "item 2, spatial partitioning)")
     if not cfg.pretrained_ckpt_file:
         parser.error("--pretrained_ckpt_file is required")
     device = resolve_device(cfg.device)

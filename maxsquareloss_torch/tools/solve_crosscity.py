@@ -10,6 +10,10 @@ The 13-class protocol: the source is labeled Cityscapes train (its 13
 classes compacted to 0..12), the target the chosen city's unlabeled train
 split, validation the city's small labeled split. It runs on the card;
 ``--device cpu`` runs the plain PyTorch versions on the host.
+
+Under ``torchrun --nproc_per_node N`` (or with ``--coordinator_address
+--num_processes --process_id``) it trains data-parallel, one process per
+card (``--device cpu``: gloo on the host); batch sizes are global.
 """
 
 from __future__ import annotations
@@ -19,7 +23,8 @@ import os
 
 from maxsquareloss_torch.config import add_train_args, add_uda_train_args, config_from_args
 from maxsquareloss_torch.data.crosscity import CITIES
-from maxsquareloss_torch.tools.common import default_paths, make_loader
+from maxsquareloss_torch.parallel import ddp
+from maxsquareloss_torch.tools.common import default_paths, init_distributed, make_loader
 from maxsquareloss_torch.train.uda_trainer import UDATrainer
 
 
@@ -31,6 +36,7 @@ def main(argv=None) -> UDATrainer:
     parser.set_defaults(num_classes=13, class_13=True)
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
+    init_distributed(cfg)
 
     paths = default_paths(args.data_root_path)
     cs, nthu = paths["cityscapes"], paths["crosscity"]
@@ -54,3 +60,4 @@ def main(argv=None) -> UDATrainer:
 
 if __name__ == "__main__":
     main()
+    ddp.shutdown()

@@ -10,6 +10,10 @@ Starts from a source-pretrained model (any ``.pth`` the trainer reads),
 adapts on unlabeled Cityscapes train and validates on Cityscapes val
 (19-class, or the 16/13-class protocol when the source is SYNTHIA). It runs
 on the card; ``--device cpu`` runs the plain PyTorch versions on the host.
+
+Under ``torchrun --nproc_per_node N`` (or with ``--coordinator_address
+--num_processes --process_id``) it trains data-parallel, one process per
+card (``--device cpu``: gloo on the host); batch sizes are global.
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ import argparse
 import os
 
 from maxsquareloss_torch.config import add_train_args, add_uda_train_args, config_from_args
-from maxsquareloss_torch.tools.common import default_paths, make_loader
+from maxsquareloss_torch.parallel import ddp
+from maxsquareloss_torch.tools.common import default_paths, init_distributed, make_loader
 from maxsquareloss_torch.train.uda_trainer import UDATrainer
 
 
@@ -49,6 +54,7 @@ def main(argv=None) -> UDATrainer:
     add_uda_train_args(parser)
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
+    init_distributed(cfg)
     trainer = build_uda_trainer(args, cfg)
     trainer.main()
     return trainer
@@ -56,3 +62,4 @@ def main(argv=None) -> UDATrainer:
 
 if __name__ == "__main__":
     main()
+    ddp.shutdown()

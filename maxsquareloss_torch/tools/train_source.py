@@ -7,6 +7,10 @@
 
 It runs on the card; ``--device cpu`` runs the plain PyTorch versions of the
 kernels on the host (with e.g. ``--blocks 2,2,2,2`` and small sizes).
+
+Under ``torchrun --nproc_per_node N`` (or with ``--coordinator_address
+--num_processes --process_id``) it trains data-parallel, one process per
+card (``--device cpu``: gloo on the host); batch sizes are global.
 """
 
 from __future__ import annotations
@@ -15,7 +19,8 @@ import argparse
 import os
 
 from maxsquareloss_torch.config import add_train_args, config_from_args
-from maxsquareloss_torch.tools.common import default_paths, make_loader
+from maxsquareloss_torch.parallel import ddp
+from maxsquareloss_torch.tools.common import default_paths, init_distributed, make_loader
 from maxsquareloss_torch.train.trainer import Trainer
 
 
@@ -24,6 +29,7 @@ def main(argv=None) -> Trainer:
     add_train_args(parser)
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
+    init_distributed(cfg)
 
     paths = default_paths(args.data_root_path)[cfg.dataset]
     train_list = args.list_path or paths["train"]
@@ -41,3 +47,4 @@ def main(argv=None) -> Trainer:
 
 if __name__ == "__main__":
     main()
+    ddp.shutdown()

@@ -6,7 +6,10 @@ main-head logits to label resolution, softmax; average probabilities over
 scales (and the horizontal flip); argmax → confusion matrix on the device.
 The upsample→softmax→argmax→CM tail can stream over output-row blocks
 (exact: row-local interpolation) so full-resolution labels never
-materialize the (N, H, W, C) probability tensor.
+materialize the (N, H, W, C) probability tensor. With several processes
+each evaluates its shard (padded with all-ignore samples) and ``evaluate``
+sums the ranks' confusion matrices before any metric, so the metrics are
+the one-process metrics exactly.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 from maxsquareloss_torch.config import TrainConfig
 from maxsquareloss_torch.metrics import Eval, confusion_matrix_update
 from maxsquareloss_torch.ops.resize import resize_bilinear_align_corners
+from maxsquareloss_torch.parallel import ddp
 from maxsquareloss_torch.train.steps import _prepare_inputs
 
 
@@ -113,13 +117,16 @@ def evaluate(
     synthia_protocol: bool = False,
 ) -> dict[str, float]:
     """mIoU over ``loader``'s (images, labels, names) batches (numpy or
-    torch), on the model's device."""
+    torch), on the model's device; with several processes over every
+    rank's shard."""
     step = make_multiscale_eval_step(cfg, model, scales, flip)
     device = _model_device(model)
     ev = Eval(cfg.num_classes)
+    cm_sum = torch.zeros((cfg.num_classes,) * 2, dtype=torch.int64, device=device)
     for xs, ys, _ in loader:
         cm, _ = step(torch.as_tensor(xs).to(device), torch.as_tensor(ys).to(device))
-        ev.add_confusion_matrix(cm)
+        cm_sum += cm
+    ev.add_confusion_matrix(ddp.all_reduce_sum(cm_sum))
     out = {
         "PA": ev.Pixel_Accuracy(),
         "MPA": ev.Mean_Pixel_Accuracy(),

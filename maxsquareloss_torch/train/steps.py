@@ -12,6 +12,17 @@ code's ``stop_gradient``s imply. Metrics come back as 0-d tensors on the
 model's device: the step reads no value back to the host, unless
 ``--debug_nans`` asks it to check the loss.
 
+Data parallelism (``parallel/``, one process per card under ``torchrun``):
+each process takes its share of the global batch and the step is the
+global batch's step. DDP sees the whole loss, both forwards of a UDA step
+included, as one module forward (``_StepLoss``), and averages the ranks'
+gradients. So that the average is the global batch's gradient, each pixel
+CE is divided by its valid count over the global batch (one all-reduce of
+the ranks' counts a step) and scaled by the world size; the other losses
+are means over equal per-rank shares, which average right as they are.
+The returned metrics are the global batch's (one all-gather a step). In
+one process none of this runs: the step is the one-card step.
+
 ``--concat_batches``: the UDA step runs source and target as one forward
 over a canvas batch (zero-padded at the bottom and right to the larger
 crop, the pad region re-zeroed by the model's canvas masks), then slices
@@ -25,6 +36,7 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from maxsquareloss_torch.config import TrainConfig
 from maxsquareloss_torch.data.palette import IMAGENET_MEAN, IMAGENET_STD, IMG_MEAN
@@ -38,6 +50,7 @@ from maxsquareloss_torch.models.deeplabv2 import (
     valid_logits_hw,
 )
 from maxsquareloss_torch.ops.losses import (
+    IGNORE_INDEX,
     cross_entropy,
     entropy_loss,
     iw_entropy_loss,
@@ -46,6 +59,7 @@ from maxsquareloss_torch.ops.losses import (
 )
 from maxsquareloss_torch.ops.resize import upsample_logits
 from maxsquareloss_torch.optim import make_sgd, poly_lr, set_lr
+from maxsquareloss_torch.parallel import ddp
 from maxsquareloss_torch.utils.debug import anomaly_mode
 
 
@@ -79,18 +93,71 @@ def _prepare_inputs(x: torch.Tensor | None, y: torch.Tensor | None, cfg: TrainCo
     return x, y
 
 
+class _StepLoss(nn.Module):
+    """A step's whole loss as one forward: DDP expects one forward a
+    backward, and a UDA step runs the model twice."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, loss_fn, *args):
+        return loss_fn(self.model, *args)
+
+
 @dataclasses.dataclass
 class TrainState:
     """The model, its optimizer and the global iteration (drives the poly
-    LR). A step updates the model and optimizer in place."""
+    LR). A step updates the model and optimizer in place. ``ddp_loss``: the
+    DDP wrapper of ``_StepLoss(model)`` when there are several processes."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     iteration: int = 0
+    ddp_loss: torch.nn.Module | None = None
 
 
 def make_train_state(model: torch.nn.Module, cfg: TrainConfig) -> TrainState:
-    return TrainState(model=model, optimizer=make_sgd(model, cfg))
+    """A fresh optimizer over ``model``; with several processes, DDP over
+    the step's loss (which makes every rank start from rank 0's
+    parameters). Build it once per model and process."""
+    wrapped = None
+    if ddp.world() > 1:
+        wrapped = ddp.wrap(_StepLoss(model))
+        model.pack_weights()  # the parameters are rank 0's now
+    return TrainState(model=model, optimizer=make_sgd(model, cfg), ddp_loss=wrapped)
+
+
+def _step_loss(state: TrainState, loss_fn, *args):
+    """``loss_fn(model, *args)``; under DDP through its wrapper."""
+    if state.ddp_loss is None:
+        return loss_fn(state.model, *args)
+    return state.ddp_loss(loss_fn, *args)
+
+
+def _ce_divisors(*labels: torch.Tensor | None) -> tuple:
+    """The divisor of each pixel CE over ``labels`` (None: no such CE). In
+    one process None: the CE's own ``max(count, 1)``. With several,
+    ``max(global count, 1) / world`` from one all-reduce of the ranks'
+    counts, so that the mean over the ranks that DDP takes is the global
+    batch's CE."""
+    world = ddp.world()
+    if world == 1:
+        return (None,) * len(labels)
+    present = [y for y in labels if y is not None]
+    counts = ddp.all_reduce_sum(torch.stack([(y != IGNORE_INDEX).sum() for y in present]))
+    divisors = iter(counts.clamp_min(1).float() / world)
+    return tuple(None if y is None else next(divisors) for y in labels)
+
+
+def _global_metrics(metrics: dict) -> dict:
+    """The global batch's metrics from every rank's, in one all-gather: the
+    mean over the ranks (CEs are already scaled to the global count, the
+    other terms are means over equal shares), the max of
+    ``iw_pixel_w_max``."""
+    ranks = ddp.all_gather(torch.stack(list(metrics.values())))
+    return {k: ranks[:, i].max() if k == "iw_pixel_w_max" else ranks[:, i].mean()
+            for i, k in enumerate(metrics)}
 
 
 def _forward_upsampled(model, x, out_hw):
@@ -127,39 +194,46 @@ def _concat_forward_upsampled(model, xs, out_hw_s, xt):
     return heads(slice(0, n), src_hw, out_hw_s), heads(slice(n, None), tgt_hw, tgt_hw)
 
 
-def _source_metrics(aux, main, y, cfg: TrainConfig):
-    loss = cross_entropy(main, y)
+def _source_metrics(aux, main, y, cfg: TrainConfig, divisor=None):
+    loss = cross_entropy(main, y, divisor=divisor)
     metrics = {"loss_source": loss.detach()}
     if aux is not None:
-        loss_aux = cross_entropy(aux, y)
+        loss_aux = cross_entropy(aux, y, divisor=divisor)
         metrics["loss_source_aux"] = loss_aux.detach()
         loss = loss + cfg.lambda_seg * loss_aux
     return loss, metrics
 
 
-def _source_loss(model, x, y, cfg: TrainConfig):
-    return _source_metrics(*_forward_upsampled(model, x, y.shape[-2:]), y, cfg)
+@torch.no_grad()
+def target_guidance(logits_main: torch.Tensor, logits_aux: torch.Tensor | None,
+                    cfg: TrainConfig):
+    """(the main head's softmax, the target's hard label or None) from the
+    upsampled target logits: with the aux head the pseudo-label of the head
+    ensemble (it feeds the IW histogram under ``--iw_hist guidance`` and the
+    aux head's CE); without it, in ``hard`` mode, the main head's confident
+    argmax."""
+    prob_main = torch.softmax(logits_main, dim=-1)
+    label = None
+    if logits_aux is not None:
+        label = self_produced_guidance(
+            prob_main, torch.softmax(logits_aux, dim=-1), cfg.threshold,
+            mask_mode=cfg.guidance_mask,
+        )
+    elif cfg.target_mode == "hard":
+        maxp, arg = prob_main.max(dim=-1)
+        label = torch.where(maxp > cfg.threshold, arg, -1)
+    return prob_main, label
 
 
-def target_loss_fn(logits_main: torch.Tensor, logits_aux: torch.Tensor | None,
-                   cfg: TrainConfig):
-    """Mode-dispatched target loss from the upsampled target logits.
-
-    Returns (target_loss, guidance_label_or_None, metrics). With the aux
-    head the pseudo-label of the head ensemble feeds the IW histogram
-    (``--iw_hist guidance``) and the aux head's CE.
-    """
+def target_loss_fn(logits_main: torch.Tensor, prob_main: torch.Tensor,
+                   label: torch.Tensor | None, cfg: TrainConfig, divisor=None):
+    """Mode-dispatched target loss from the upsampled target logits, their
+    softmax and label (``target_guidance``). ``divisor``: the ``hard``
+    CE's, as ``cross_entropy``'s. Returns (target_loss, metrics)."""
     c = logits_main.shape[-1]
     mode = cfg.target_mode
     iw = mode in ("IW_maxsquare", "IW_entropy")
     with torch.no_grad():
-        prob_main = torch.softmax(logits_main, dim=-1)
-        label = None
-        if logits_aux is not None:
-            label = self_produced_guidance(
-                prob_main, torch.softmax(logits_aux, dim=-1), cfg.threshold,
-                mask_mode=cfg.guidance_mask,
-            )
         hist_label = label if cfg.iw_hist == "guidance" else None
         if iw:
             weights, pixel_w = iw_pixel_weights(prob_main, hist_label, c, cfg.ratio)
@@ -173,14 +247,13 @@ def target_loss_fn(logits_main: torch.Tensor, logits_aux: torch.Tensor | None,
         loss = iw_entropy_loss(torch.softmax(logits_main, dim=-1), hist_label,
                                num_classes=c, ratio=cfg.ratio)
     elif mode == "hard":
-        if label is None:
-            maxp, arg = prob_main.max(dim=-1)
-            label = torch.where(maxp > cfg.threshold, arg, -1)
         # hard pseudo-label CE on the main head's log-probabilities
         logp = torch.log(torch.softmax(logits_main, dim=-1).clamp(1e-30, 1.0))
         valid = label != -1
         nll = -logp.gather(-1, torch.where(valid, label, 0).unsqueeze(-1)).squeeze(-1)
-        loss = torch.where(valid, nll, 0.0).sum() / valid.sum().clamp_min(1).to(nll.dtype)
+        if divisor is None:
+            divisor = valid.sum().clamp_min(1).to(nll.dtype)
+        loss = torch.where(valid, nll, 0.0).sum() / divisor
     else:
         raise ValueError(f"unknown target_mode {mode!r}")
     metrics = {"loss_target_raw": loss.detach()}
@@ -190,20 +263,22 @@ def target_loss_fn(logits_main: torch.Tensor, logits_aux: torch.Tensor | None,
         # the degenerate-weight canary: 1.0 is the w_c = 1 branch firing
         metrics["iw_pixel_w_max"] = pixel_w.max()
         metrics["iw_pixel_w_mean"] = pixel_w.mean()
-    return loss, label, metrics
+    return loss, metrics
 
 
 def _apply_update(state: TrainState, loss: torch.Tensor, cfg: TrainConfig) -> float:
     """One backward and one SGD step at the LR of ``state.iteration``
     (before the increment); refresh the packed eval weights. The LR.
-    ``--debug_nans``: a loss that is not finite raises ``FloatingPointError``
-    before the update (the step's one read back under the flag)."""
-    if cfg.debug_nans and not bool(torch.isfinite(loss)):
+    ``--debug_nans``: a loss that is not finite on any rank raises
+    ``FloatingPointError`` on every rank before the update (the step's one
+    read back under the flag). Under DDP the gradients stay in DDP's
+    buckets (zeroed, not dropped)."""
+    if cfg.debug_nans and ddp.any_flag(not bool(torch.isfinite(loss))):
         raise FloatingPointError(f"iteration {state.iteration}: loss is not finite "
-                                 f"({loss.item()})")
+                                 f"({loss.item()} on rank {ddp.rank()})")
     lr = poly_lr(cfg.lr, state.iteration, cfg.iter_max, cfg.poly_power)
     set_lr(state.optimizer, lr)
-    state.optimizer.zero_grad(set_to_none=True)
+    state.optimizer.zero_grad(set_to_none=state.ddp_loss is None)
     loss.backward()
     state.optimizer.step()
     state.model.pack_weights()
@@ -213,6 +288,8 @@ def _apply_update(state: TrainState, loss: torch.Tensor, cfg: TrainConfig) -> fl
 
 def _finish_metrics(metrics: dict, loss: torch.Tensor, lr: float) -> dict:
     metrics["loss"] = loss.detach()
+    if ddp.world() > 1:
+        metrics = _global_metrics(metrics)
     metrics["lr"] = torch.full((), lr, dtype=torch.float32, device=loss.device)
     return metrics
 
@@ -222,10 +299,14 @@ def make_supervised_train_step(cfg: TrainConfig):
     for NHWC images and (N, H, W) labels on the model's device. With
     ``--debug_nans`` the step runs in autograd's anomaly mode."""
 
+    def loss_fn(model, x, y):
+        (divisor,) = _ce_divisors(y)
+        return _source_metrics(*_forward_upsampled(model, x, y.shape[-2:]), y, cfg, divisor)
+
     def step(state: TrainState, x: torch.Tensor, y: torch.Tensor):
         x, y = _prepare_inputs(x, y, cfg)
         with anomaly_mode(cfg.debug_nans):
-            loss, metrics = _source_loss(state.model, x, y, cfg)
+            loss, metrics = _step_loss(state, loss_fn, x, y)
             lr = _apply_update(state, loss, cfg)
         return state, _finish_metrics(metrics, loss, lr)
 
@@ -244,17 +325,19 @@ def make_uda_train_step(cfg: TrainConfig):
     def loss_fn(model, xs, ys, xt):
         if cfg.concat_batches:
             src, (aux_t, main_t) = _concat_forward_upsampled(model, xs, ys.shape[-2:], xt)
-            src_loss, metrics = _source_metrics(*src, ys, cfg)
         else:
-            src_loss, metrics = _source_loss(model, xs, ys, cfg)
+            src = _forward_upsampled(model, xs, ys.shape[-2:])
             aux_t, main_t = _forward_upsampled(model, xt, (xt.shape[1], xt.shape[2]))
-        tgt_loss, label, tmetrics = target_loss_fn(main_t, aux_t, cfg)
+        prob_main, label = target_guidance(main_t, aux_t, cfg)
+        src_divisor, label_divisor = _ce_divisors(ys, label)
+        src_loss, metrics = _source_metrics(*src, ys, cfg, src_divisor)
+        tgt_loss, tmetrics = target_loss_fn(main_t, prob_main, label, cfg, label_divisor)
         metrics.update(tmetrics)
         total = src_loss + cfg.lambda_target * tgt_loss
         if aux_t is not None and label is not None:
             # self-produced guidance: the aux head learns the hard
             # ensemble pseudo-label
-            loss_aux_t = cross_entropy(aux_t, label)
+            loss_aux_t = cross_entropy(aux_t, label, divisor=label_divisor)
             metrics["loss_target_aux"] = loss_aux_t.detach()
             total = total + cfg.lambda_target * cfg.lambda_seg * loss_aux_t
         metrics["loss_target"] = (cfg.lambda_target * tgt_loss).detach()
@@ -264,7 +347,7 @@ def make_uda_train_step(cfg: TrainConfig):
         xs, ys = _prepare_inputs(xs, ys, cfg)
         xt, _ = _prepare_inputs(xt, None, cfg)
         with anomaly_mode(cfg.debug_nans):
-            total, metrics = loss_fn(state.model, xs, ys, xt)
+            total, metrics = _step_loss(state, loss_fn, xs, ys, xt)
             lr = _apply_update(state, total, cfg)
         return state, _finish_metrics(metrics, total, lr)
 

@@ -18,10 +18,19 @@ iteration; here in ONE ``torch.stack(...).tolist()``, a single sync.
 ``<checkpoint_dir>/profile`` (``utils.debug.StepProfiler``);
 ``--debug_nans`` is the train steps' (anomaly mode, ``FloatingPointError``
 on a loss that is not finite).
+
+With several processes (``parallel/``) every rank runs this loop over its
+shard of the loaders in lockstep: the steps return the global batch's
+metrics, validation sums the ranks' confusion matrices before any metric,
+and a SIGTERM on any rank stops every rank at the same
+``--preempt_sync_steps`` boundary. Rank 0 alone writes checkpoints (the
+other ranks wait for it), scalars, images, the trace and the log file; the
+others log warnings only. Every rank resumes from the same file.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import signal
 import time
@@ -35,6 +44,8 @@ from maxsquareloss_torch.data.loader import device_prefetch
 from maxsquareloss_torch.data.palette import decode_labels, inv_preprocess
 from maxsquareloss_torch.metrics import Eval
 from maxsquareloss_torch.models.deeplabv2 import init_deeplabv2
+from maxsquareloss_torch.optim import make_sgd
+from maxsquareloss_torch.parallel import ddp
 from maxsquareloss_torch.train import checkpoint as ckpt_lib
 from maxsquareloss_torch.train.steps import (
     TrainState,
@@ -45,7 +56,7 @@ from maxsquareloss_torch.train.steps import (
 )
 from maxsquareloss_torch.utils.debug import StepProfiler
 from maxsquareloss_torch.utils.device import resolve_device
-from maxsquareloss_torch.utils.logging import SummaryWriter, setup_logger
+from maxsquareloss_torch.utils.logging import NullWriter, SummaryWriter, setup_logger
 
 
 def val_preview_image(x0: np.ndarray, numpy_transform: bool) -> np.ndarray:
@@ -72,9 +83,13 @@ class Trainer:
         self.cfg = cfg
         self.train_loader = train_loader
         self.val_loader = val_loader
+        self._check_sharded(train_loader, val_loader)
         self.device = resolve_device(cfg.device)
-        self.logger = logger or setup_logger(cfg.checkpoint_dir)
-        self.writer = writer if writer is not None else SummaryWriter(cfg.checkpoint_dir)
+        self.is_main = ddp.is_main()
+        self.logger = logger or setup_logger(cfg.checkpoint_dir, main=self.is_main)
+        if writer is None:
+            writer = SummaryWriter(cfg.checkpoint_dir) if self.is_main else NullWriter()
+        self.writer = writer
         self.synthia_protocol = synthia_protocol
         self.num_eval_classes = num_eval_classes or cfg.num_classes
 
@@ -94,7 +109,18 @@ class Trainer:
         self._resume_skip = 0       # batches to skip on the next epoch (resume)
         self._preempt_requested = False  # SIGTERM seen
         self.preempted = False           # stopped early
-        self.profiler = StepProfiler(cfg.checkpoint_dir, cfg.profile, self.device)
+        self.profiler = StepProfiler(cfg.checkpoint_dir, cfg.profile and self.is_main,
+                                     self.device)
+
+    @staticmethod
+    def _check_sharded(*loaders):
+        """With several processes every loader must read this rank's shard:
+        an unsharded one would give each rank the same images."""
+        for loader in loaders:
+            if loader is not None and getattr(loader, "shard_count", 1) != ddp.world():
+                raise ValueError(f"a loader reads {getattr(loader, 'shard_count', 1)} "
+                                 f"shard(s), but there are {ddp.world()} processes "
+                                 "(tools/common.make_loader shards by rank)")
 
     # hooks for UDATrainer -------------------------------------------------
 
@@ -158,7 +184,9 @@ class Trainer:
         init, as the reference resumes only under --continue_training)."""
         blob = ckpt_lib.load_checkpoint(path)
         ckpt_lib.load_weights(self.model, blob, self.cfg.num_classes)
-        self.state = make_train_state(self.model, self.cfg)
+        # a fresh optimizer; the DDP wrapper stays (one per model)
+        self.state = dataclasses.replace(self.state, optimizer=make_sgd(self.model, self.cfg),
+                                         iteration=0)
         if self.cfg.continue_training and ckpt_lib.is_training_checkpoint(blob):
             ckpt_lib.restore_optimizer_state(self.model, self.state.optimizer, blob["optimizer"])
             self.state.iteration = int(blob["iteration"])
@@ -173,12 +201,17 @@ class Trainer:
     def save_checkpoint(self, is_best: bool = False, mid_epoch: bool = False) -> str:
         # records COMPLETED epochs; a mid-epoch save carries the batch offset
         # within its epoch, so resume continues from the exact batch
+        # rank 0 writes; the others wait until the file is there
         completed = self.current_epoch if mid_epoch else self.current_epoch + 1
-        return ckpt_lib.save_checkpoint(
-            self.cfg.checkpoint_dir, self.model, self.state.optimizer, self.state.iteration,
-            completed, self.best_miou, is_best=is_best,
-            epoch_batch=self._epoch_batch if mid_epoch else 0,
-        )
+        path = os.path.join(self.cfg.checkpoint_dir, ckpt_lib.LATEST)
+        if self.is_main:
+            path = ckpt_lib.save_checkpoint(
+                self.cfg.checkpoint_dir, self.model, self.state.optimizer, self.state.iteration,
+                completed, self.best_miou, is_best=is_best,
+                epoch_batch=self._epoch_batch if mid_epoch else 0,
+            )
+        ddp.barrier()
+        return path
 
     # graceful preemption (SIGTERM → checkpoint + clean return) ------------
 
@@ -200,9 +233,19 @@ class Trainer:
             return None
 
     def _preempt_now(self) -> bool:
-        """One process: the flag itself (the JAX package's multi-process
-        allgather has no counterpart here)."""
-        return self.cfg.preempt_save and self._preempt_requested
+        """The preemption decision after a step. One process: the flag
+        itself. Several: a checkpoint needs every rank, and SIGTERMs land
+        at different times, so every ``--preempt_sync_steps`` iterations
+        (the global iteration, the same on every rank) the ranks take the
+        MAX of their flags and all stop together, as the JAX package's
+        processes do."""
+        if not self.cfg.preempt_save:
+            return False
+        if ddp.world() == 1:
+            return self._preempt_requested
+        if self.state.iteration % max(1, self.cfg.preempt_sync_steps):
+            return False
+        return ddp.any_flag(self._preempt_requested)
 
     # ----------------------------------------------------------------------
 
@@ -250,7 +293,7 @@ class Trainer:
         t0, imgs = time.time(), 0
         last_metrics = {}
         batches = self._epoch_batches()
-        if cfg.tqdm:
+        if cfg.tqdm and self.is_main:
             try:
                 from tqdm import tqdm as _tqdm
 
@@ -291,10 +334,11 @@ class Trainer:
         ev = Eval(self.num_eval_classes)
         shown = 0
         it = self.state.iteration
+        cm_sum = torch.zeros((self.num_eval_classes,) * 2, dtype=torch.int64, device=self.device)
         for xs, ys, _ in device_prefetch(iter(self.val_loader), self.device):
             cm, argpred = self.eval_step(xs, ys)
-            ev.add_confusion_matrix(cm)
-            if shown < self.cfg.show_num_images:
+            cm_sum += cm
+            if self.is_main and shown < self.cfg.show_num_images:
                 self.writer.add_image(f"val/pred_{shown}",
                                       decode_labels(argpred[0].cpu().numpy())[0] / 255.0, it)
                 self.writer.add_image(f"val/gt_{shown}",
@@ -303,6 +347,9 @@ class Trainer:
                                       val_preview_image(xs[0].cpu().numpy(),
                                                         self.cfg.numpy_transform), it)
                 shown += 1
+        # this rank's shard (pad slots are all-ignore) summed over the ranks:
+        # the one-process matrix exactly
+        ev.add_confusion_matrix(ddp.all_reduce_sum(cm_sum))
         pa = ev.Pixel_Accuracy()
         mpa = ev.Mean_Pixel_Accuracy()
         miou = ev.Mean_Intersection_over_Union()

@@ -6,7 +6,8 @@ Each iteration consumes one labeled source batch (GTA5 or SYNTHIA) and one
 unlabeled target batch (Cityscapes) and takes one optimizer step of
 ``train/steps.make_uda_train_step``. The epoch is ``zip(source, target)``,
 so it ends with the shorter loader; both loaders have their epoch pinned and
-both skip the saved batch offset on a mid-epoch resume.
+both skip the saved batch offset on a mid-epoch resume. With several
+processes both loaders read the rank's shard of every global batch.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ class UDATrainer(Trainer):
         **kw,
     ):
         self.target_loader = target_loader
+        self._check_sharded(target_loader)
         super().__init__(cfg, train_loader=source_loader, val_loader=val_loader, **kw)
 
     def _make_train_step(self):

@@ -2,7 +2,8 @@
 ``maxsquareloss_tpu/utils/runtime.py``'s process-level knobs).
 
 There is no silent CPU fallback: a caller that names no device gets the
-card, and an error when there is none.
+card, and an error when there is none. With several processes, the card
+is this process's own (``parallel.ddp.rank_device``).
 """
 
 from __future__ import annotations
@@ -11,12 +12,8 @@ import torch
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """``None`` → ``cuda`` (raises if CUDA is absent); anything else as given."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: pass device='cpu' explicitly to run the "
-                "plain PyTorch path on the host"
-            )
-        return torch.device("cuda")
-    return torch.device(device)
+    """``None`` → ``cuda:LOCAL_RANK`` (raises if CUDA is absent); anything
+    else as given."""
+    from maxsquareloss_torch.parallel.ddp import rank_device
+
+    return rank_device(device)

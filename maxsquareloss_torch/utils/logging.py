@@ -17,16 +17,18 @@ import time
 
 
 def setup_logger(
-    checkpoint_dir: str, name: str = "maxsquareloss_torch", file: bool = True
+    checkpoint_dir: str, name: str = "maxsquareloss_torch", file: bool = True,
+    main: bool = True,
 ) -> logging.Logger:
-    """``file=False`` gives a console-only logger."""
+    """``file=False`` gives a console-only logger. ``main=False`` (a rank
+    other than 0 of several processes): no file, and warnings only."""
     os.makedirs(checkpoint_dir, exist_ok=True)
     logger = logging.getLogger(name)
-    logger.setLevel(logging.INFO)
+    logger.setLevel(logging.INFO if main else logging.WARNING)
     logger.propagate = False  # avoid duplicate lines via the root logger
     logger.handlers.clear()
     fmt = logging.Formatter("%(asctime)s %(levelname)s %(message)s")
-    if file:
+    if file and main:
         fh = logging.FileHandler(os.path.join(checkpoint_dir, "train_log.txt"))
         fh.setFormatter(fmt)
         logger.addHandler(fh)

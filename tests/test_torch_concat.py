@@ -352,7 +352,7 @@ def test_debug_nans_leaves_a_finite_step_unchanged(weights):
 
 # keywords of the ROADMAP Queue 1 item that each unported option waits on
 UNPORTED_ITEM_WORDS = {"compute_dtype": "bf16", "remat": "remat", "quantize": "int8",
-                       "loader": "grain", "sp": "DDP"}
+                       "loader": "grain", "sp": "spatial"}
 
 
 def _roadmap_queue1_items() -> dict[int, str]:

@@ -236,7 +236,6 @@ def test_synthia_protocol_reports_16_and_13(tmp_path):
 UNPORTED = [
     ("--compute_dtype", "bfloat16"), ("--remat", "stages"),
     ("--quantize", "int8"), ("--loader", "grain"), ("--sp", "2"),
-    ("--num_processes", "2"), ("--coordinator_address", "h:1"),
     ("--freeze_bn", "false"), ("--xla_options", "a=b"),
 ]
 
