@@ -118,9 +118,13 @@ Phases, one JSON object per line on stdout:
      validation and a checkpoint, its ``--continue_training`` resume to
      iteration 4, ``tools.evaluate`` (the one-process mIoU within 1e-4),
      and the UDATrainer at full width within 5 % of the bare step in the
-     same process; (c) with two or more cards, (a) over them with NCCL and
+     same process (with one card this is world 1: no DDP wrapper and no
+     collective); (c) with two or more cards, (a) over them with NCCL and
      the step rate at 4 + 4 images a card beside one card's; with one
-     card a line says it did not run.
+     card a line says it did not run. ``python3 chip_smoke.py
+     --ddp-cards`` on a machine with several cards runs the build, the
+     kernels at the ranks' shapes, the one-process steps and one card's
+     rate, then (c) and (b) over every card, and nothing else.
 All full-width phases run R101 (blocks 3,4,23,3) in fp32 with TF32 off.
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 
@@ -188,6 +192,7 @@ from maxsquareloss_torch.train.steps import (
     model_config,
 )
 from maxsquareloss_torch.train.uda_trainer import UDATrainer
+from maxsquareloss_torch.utils.device import resolve_device
 
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, bf16 dense on the tensor cores
@@ -1901,6 +1906,22 @@ def _ddp_steps(model, pairs, rows) -> tuple[list, dict, object]:
     return out, counts, state
 
 
+def _median_step_s(step, state, pairs) -> float:
+    """The median seconds of REPS UDA steps after WARMUP_STEPS, each fenced
+    by ``torch.cuda.synchronize()`` (the global metrics of a DDP step also
+    wait for every rank)."""
+    secs = []
+    for i in range(WARMUP_STEPS + REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, *pairs[i % len(pairs)])
+        float(m["loss"])
+        torch.cuda.synchronize()
+        if i >= WARMUP_STEPS:
+            secs.append(time.perf_counter() - t0)
+    return statistics.median(secs)
+
+
 def _ddp_worker(argv: list[str]) -> int:
     """A rank started by ``torchrun`` (``chip_smoke.py --ddp-worker KIND OUT
     ...``); rank 0 writes its results under OUT.
@@ -1929,7 +1950,7 @@ def _ddp_worker(argv: list[str]) -> int:
     elif kind == "parity":
         backend, device = argv[2], argv[3]
         ddp.init_distributed(backend)
-        dev = ddp.rank_device(None if device == "-" else device)
+        dev = resolve_device(None if device == "-" else device)
         model = init_deeplabv2(model_config(TRAIN_CFG), torch.Generator().manual_seed(0),
                                device=dev)
         per = ddp.local_batch(TRAIN_BATCH)
@@ -1947,18 +1968,9 @@ def _ddp_worker(argv: list[str]) -> int:
         if backend == "nccl":
             # the step rate over the cards, 4 + 4 images a rank (the same
             # DDP wrapper: one per model)
-            step = make_uda_train_step(TRAIN_CFG)
             pairs = [tuple(t.to(dev) for t in p) for p in _train_pairs()]
-            secs = []
-            for i in range(WARMUP_STEPS + REPS):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                state, m = step(state, *pairs[i % len(pairs)])
-                float(m["loss"])  # the global metrics: every rank's step is done
-                if i >= WARMUP_STEPS:
-                    secs.append(time.perf_counter() - t0)
-            result.update(step_s=statistics.median(secs),
-                          images_per_s=2 * TRAIN_BATCH * ddp.world() / statistics.median(secs))
+            step_s = _median_step_s(make_uda_train_step(TRAIN_CFG), state, pairs)
+            result.update(step_s=step_s, images_per_s=2 * TRAIN_BATCH * ddp.world() / step_s)
         ranks = ddp.all_gather(torch.tensor([*valid["source"], *valid["target_label"],
                                              counts["fused_bottleneck_emit"]], device=dev))
         # per rank: source valid pixels of each step, target label pixels of
@@ -1970,22 +1982,13 @@ def _ddp_worker(argv: list[str]) -> int:
         from maxsquareloss_torch.parallel import multihost
 
         multihost.initialize_distributed()
-        dev = ddp.rank_device(None)
+        dev = resolve_device(None)
         model = init_deeplabv2(model_config(TRAIN_CFG), torch.Generator().manual_seed(0),
                                device=dev)
-        state = make_train_state(model, TRAIN_CFG)
-        step = make_uda_train_step(TRAIN_CFG)
         pairs = [tuple(t.to(dev) for t in p) for p in _train_pairs()]
-        secs = []
-        for i in range(WARMUP_STEPS + REPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, m = step(state, *pairs[i % len(pairs)])
-            torch.cuda.synchronize()
-            if i >= WARMUP_STEPS:
-                secs.append(time.perf_counter() - t0)
-        bare = statistics.median(1.0 / s for s in secs)
-        del state, model, m
+        bare = 1.0 / _median_step_s(make_uda_train_step(TRAIN_CFG),
+                                    make_train_state(model, TRAIN_CFG), pairs)
+        del model, pairs
         torch.cuda.empty_cache()
         cfg = dataclasses.replace(
             TRAIN_CFG, iter_stop=TRAINER_ITERS, num_workers=8, tqdm=False, show_num_images=0,
@@ -1997,7 +2000,8 @@ def _ddp_worker(argv: list[str]) -> int:
         trainer.train()
         torch.cuda.synchronize()
         counts = read_counts()
-        result.update(world=ddp.world(), bare_steps_per_s=bare, launch_counts=counts)
+        result.update(world=ddp.world(), ddp_wrapper=trainer.state.ddp_loss is not None,
+                      bare_steps_per_s=bare, launch_counts=counts)
         if ddp.is_main():
             losses = _scalars(cfg.checkpoint_dir)["train/loss"]
             check(sorted(losses) == list(range(1, TRAINER_ITERS + 1)), f"loss steps {sorted(losses)}")
@@ -2072,20 +2076,12 @@ def _check_ddp_parity(name: str, report: list) -> None:
               f"{r['param_change_rel_l2_max']:.3g} (relative L2)")
 
 
-def phase_ddp(bare_steps_per_s: float, checked: dict) -> None:
-    """Data parallelism on the card: (a) two gloo ranks on the one card
-    against the one-process step on the same global batch; (b) torchrun
-    with NCCL over every card: ``solve_gta5`` (2 iterations, validation,
-    checkpoint), its --continue_training resume, ``evaluate``, and the
-    UDATrainer against the bare step; (c) with several cards, the parity
-    steps and the step rate over them. First the kernels are held against
-    their plain versions at the ranks' shapes that no phase checked."""
-    from maxsquareloss_torch.data.synthetic import write_domain_shift_pair
-
-    cards = torch.cuda.device_count()
-    per_rank = {TRAIN_BATCH // DDP_SHARED_RANKS}
-    if cards > 1 and TRAIN_BATCH % cards == 0:
-        per_rank.add(TRAIN_BATCH // cards)
+def _ddp_reference(per_rank: set, checked: dict):
+    """The emit and IW loss kernels held against their plain versions at the
+    shapes of ranks with ``per_rank`` images that no phase checked; then the
+    one-process parity steps on the global batches. Returns (the starting
+    parameters, the steps, their valid pixel counts, the launch counts, the
+    train state)."""
     seen = {k: set() for k in checked}
     for n in per_rank:
         seen["fused_bottleneck_emit"] |= {s[1:7] for s in block_shapes(n, SRC_HW)
@@ -2097,9 +2093,122 @@ def phase_ddp(bare_steps_per_s: float, checked: dict) -> None:
                            device="cuda")
     p0 = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
     zero_counts()
-    ref, ref_valid, _ = _ddp_steps(model, _ddp_pairs("cuda"), slice(None))
-    one_counts = read_counts()
-    del model
+    ref, ref_valid, state = _ddp_steps(model, _ddp_pairs("cuda"), slice(None))
+    return p0, ref, ref_valid, read_counts(), state
+
+
+def _ddp_several_cards(cards: int, p0: dict, ref: list, one_card_images_per_s: float,
+                       work: str) -> None:
+    """Case (c): the parity steps over ``cards`` NCCL ranks, one card each,
+    against the one-process steps, and the step rate at 4 + 4 images a card
+    beside one card's."""
+    _torchrun(cards, [os.path.abspath(__file__), "--ddp-worker", "parity", work, "nccl", "-"],
+              f"parity, {cards} NCCL ranks")
+    with open(os.path.join(work, "parity.json")) as f:
+        multi = json.load(f)
+    steps = torch.load(os.path.join(work, "steps.pt"))
+    report = _ddp_parity(p0, ref, steps)
+    emit({"phase": "ddp_parity", "case": "c_several_cards", "ran": True,
+          "world": multi["world"], "backend": "nccl", "vs_one_process": report,
+          "metrics": [m for m, _ in steps], "metrics_one_process": [m for m, _ in ref],
+          "launch_counts_per_rank": multi["launch_counts_parity_steps"],
+          "images_per_s": multi["images_per_s"], "step_s": multi["step_s"],
+          "images_per_s_one_card": one_card_images_per_s,
+          "scaling_efficiency": multi["images_per_s"] / (cards * one_card_images_per_s),
+          "per_rank_source_valid_target_label_valid_emit_launches":
+              multi["per_rank_valid_and_emit"]})
+    check(multi["world"] == cards, f"world {multi['world']}, not {cards}")
+    check(all(r[4] == 2 * 58 for r in multi["per_rank_valid_and_emit"]),
+          f"emit launches per rank {multi['per_rank_valid_and_emit']}")
+    _check_ddp_parity("ddp over cards", report)
+
+
+def _ddp_torchrun_runs(cards: int, work: str) -> None:
+    """Case (b): ``torchrun --nproc_per_node cards`` with NCCL for
+    ``solve_gta5`` (2 iterations, validation, checkpoint), its
+    ``--continue_training`` resume to iteration 4, ``evaluate`` (the
+    one-process mIoU within 1e-4), and the UDATrainer within
+    DDP_TRAINER_GAP of the bare step of the same world."""
+    from maxsquareloss_torch.data.synthetic import write_domain_shift_pair
+
+    me = os.path.abspath(__file__)
+    data = os.path.join(work, "data")
+    write_domain_shift_pair(data, n_source=8 * cards, n_target_train=8 * cards,
+                            n_target_val=4 * cards, hw=(128, 256))
+    run = os.path.join(work, "run")
+    cli = ["--data_root_path", data, "--checkpoint_dir", run, *CLI_SIZE,
+           "--target_base_size", "256,128", "--target_crop_size", "256,128",
+           "--batch_size", str(2 * cards), "--num_workers", "4", "--tqdm", "false",
+           "--iw_hist", "argmax"]
+    _torchrun(cards, [me, "--ddp-worker", "cli", work, "maxsquareloss_torch.tools.solve_gta5",
+                      *cli, "--iter_stop", "2"], "torchrun solve_gta5")
+    with open(os.path.join(work, "cli.json")) as f:
+        cli_counts = json.load(f)["launch_counts"]
+    val_batches = 2  # 4 images a card, 2 a batch
+    check(cli_counts["fused_bottleneck_emit"] == 2 * 58
+          and cli_counts["fused_bottleneck"] == 29 * val_batches,
+          f"torchrun solve_gta5 launches on rank 0: {cli_counts}")
+    first = ckpt_lib.load_checkpoint(os.path.join(run, ckpt_lib.LATEST))
+    check(first["iteration"] == 2, f"checkpoint at iteration {first['iteration']}")
+    check(not any(k.startswith("module.") for k in first["state_dict"]), "module. prefix")
+    _torchrun(cards, ["-m", "maxsquareloss_torch.tools.solve_gta5", *cli, "--iter_stop", "4",
+                      "--continue_training"], "torchrun solve_gta5 --continue_training")
+    scal = _scalars(run)
+    check(sorted(scal["train/loss"]) == [1, 2, 3, 4]
+          and all(math.isfinite(r["value"]) for r in scal["train/loss"].values()),
+          f"resumed losses {scal['train/loss']}")
+    check(ckpt_lib.load_checkpoint(os.path.join(run, ckpt_lib.LATEST))["iteration"] == 4,
+          "the resume did not reach iteration 4")
+    served = ["--dataset", "cityscapes", "--data_root_path", data,
+              "--pretrained_ckpt_file", os.path.join(run, ckpt_lib.LATEST), *CLI_SIZE,
+              "--batch_size", str(2 * cards), "--num_workers", "4",
+              "--checkpoint_dir", os.path.join(work, "ev")]
+    out = _torchrun(cards, ["-m", "maxsquareloss_torch.tools.evaluate", *served],
+                    "torchrun evaluate")
+    from maxsquareloss_torch.tools import evaluate as evaluate_cli
+
+    printed = [ln for ln in out.splitlines() if ln.startswith("{'PA'")]
+    check(len(printed) == 1, f"torchrun evaluate printed {len(printed)} metric lines")
+    got = {k: float(v) for k, v in re.findall(r"'(\w+)': (?:np\.float64\()?([-0-9.eE+]+)",
+                                               printed[0])}
+    want = evaluate_cli.main([*served, "--checkpoint_dir", os.path.join(work, "ev1")])
+    check(abs(got["MIoU"] - want["MIoU"]) <= 1e-4,
+          f"torchrun evaluate mIoU {got['MIoU']} vs one process {want['MIoU']}")
+    emit({"phase": "ddp_cli", "nproc": cards, "backend": "nccl",
+          "solve_gta5_launch_counts_rank0": cli_counts,
+          "losses": {i: r["value"] for i, r in scal["train/loss"].items()},
+          "val_MIoU": {i: r["value"] for i, r in scal["val/MIoU"].items()},
+          "evaluate": got, "evaluate_one_process": want})
+    _torchrun(cards, [me, "--ddp-worker", "trainer", work], "torchrun UDATrainer")
+    with open(os.path.join(work, "trainer.json")) as f:
+        tr = json.load(f)
+    # at world 1 (one card) this is the one-process trainer under
+    # torchrun against the bare step: no DDP wrapper, no collective
+    check(tr["gap_vs_bare_step"] <= DDP_TRAINER_GAP,
+          f"the torchrun trainer at world {tr['world']} is {tr['gap_vs_bare_step']:.3f} "
+          "under the bare step")
+    check(tr["launch_counts"]["fused_bottleneck_emit"] == 58 * TRAINER_ITERS
+          and tr["launch_counts"]["fused_bottleneck"] == 29 * 2,
+          f"DDP trainer launches on rank 0 {tr['launch_counts']}")
+    emit({"phase": "ddp_trainer", "nproc": cards, "backend": "nccl",
+          "gate": f"the world-{tr['world']} trainer against the bare step", **tr})
+
+
+def phase_ddp(bare_steps_per_s: float, checked: dict) -> None:
+    """Data parallelism on the card: (a) two gloo ranks on the one card
+    against the one-process step on the same global batch; (b) torchrun
+    with NCCL over every card: ``solve_gta5`` (2 iterations, validation,
+    checkpoint), its --continue_training resume, ``evaluate``, and the
+    UDATrainer against the bare step (with one card: world 1, so no DDP
+    wrapper and no collective); (c) with several cards, the parity steps
+    and the step rate over them. First the kernels are held against their
+    plain versions at the ranks' shapes that no phase checked."""
+    cards = torch.cuda.device_count()
+    per_rank = {TRAIN_BATCH // DDP_SHARED_RANKS}
+    if cards > 1 and TRAIN_BATCH % cards == 0:
+        per_rank.add(TRAIN_BATCH // cards)
+    p0, ref, ref_valid, one_counts, state = _ddp_reference(per_rank, checked)
+    del state
     torch.cuda.empty_cache()
     work = tempfile.mkdtemp(prefix="chip_smoke_ddp_")
     me = os.path.abspath(__file__)
@@ -2125,62 +2234,7 @@ def phase_ddp(bare_steps_per_s: float, checked: dict) -> None:
         del steps
 
         # (b) torchrun with NCCL over every card: the CLIs, then the trainer
-        data = os.path.join(work, "data")
-        write_domain_shift_pair(data, n_source=8 * cards, n_target_train=8 * cards,
-                                n_target_val=4 * cards, hw=(128, 256))
-        run = os.path.join(work, "run")
-        cli = ["--data_root_path", data, "--checkpoint_dir", run, *CLI_SIZE,
-               "--target_base_size", "256,128", "--target_crop_size", "256,128",
-               "--batch_size", str(2 * cards), "--num_workers", "4", "--tqdm", "false",
-               "--iw_hist", "argmax"]
-        _torchrun(cards, [me, "--ddp-worker", "cli", work, "maxsquareloss_torch.tools.solve_gta5",
-                          *cli, "--iter_stop", "2"], "torchrun solve_gta5")
-        with open(os.path.join(work, "cli.json")) as f:
-            cli_counts = json.load(f)["launch_counts"]
-        val_batches = 2  # 4 images a card, 2 a batch
-        check(cli_counts["fused_bottleneck_emit"] == 2 * 58
-              and cli_counts["fused_bottleneck"] == 29 * val_batches,
-              f"torchrun solve_gta5 launches on rank 0: {cli_counts}")
-        first = ckpt_lib.load_checkpoint(os.path.join(run, ckpt_lib.LATEST))
-        check(first["iteration"] == 2, f"checkpoint at iteration {first['iteration']}")
-        check(not any(k.startswith("module.") for k in first["state_dict"]), "module. prefix")
-        _torchrun(cards, ["-m", "maxsquareloss_torch.tools.solve_gta5", *cli, "--iter_stop", "4",
-                          "--continue_training"], "torchrun solve_gta5 --continue_training")
-        scal = _scalars(run)
-        check(sorted(scal["train/loss"]) == [1, 2, 3, 4]
-              and all(math.isfinite(r["value"]) for r in scal["train/loss"].values()),
-              f"resumed losses {scal['train/loss']}")
-        check(ckpt_lib.load_checkpoint(os.path.join(run, ckpt_lib.LATEST))["iteration"] == 4,
-              "the resume did not reach iteration 4")
-        served = ["--dataset", "cityscapes", "--data_root_path", data,
-                  "--pretrained_ckpt_file", os.path.join(run, ckpt_lib.LATEST), *CLI_SIZE,
-                  "--batch_size", str(2 * cards), "--num_workers", "4",
-                  "--checkpoint_dir", os.path.join(work, "ev")]
-        out = _torchrun(cards, ["-m", "maxsquareloss_torch.tools.evaluate", *served],
-                        "torchrun evaluate")
-        from maxsquareloss_torch.tools import evaluate as evaluate_cli
-
-        printed = [ln for ln in out.splitlines() if ln.startswith("{'PA'")]
-        check(len(printed) == 1, f"torchrun evaluate printed {len(printed)} metric lines")
-        got = {k: float(v) for k, v in re.findall(r"'(\w+)': (?:np\.float64\()?([-0-9.eE+]+)",
-                                                   printed[0])}
-        want = evaluate_cli.main([*served, "--checkpoint_dir", os.path.join(work, "ev1")])
-        check(abs(got["MIoU"] - want["MIoU"]) <= 1e-4,
-              f"torchrun evaluate mIoU {got['MIoU']} vs one process {want['MIoU']}")
-        emit({"phase": "ddp_cli", "nproc": cards, "backend": "nccl",
-              "solve_gta5_launch_counts_rank0": cli_counts,
-              "losses": {i: r["value"] for i, r in scal["train/loss"].items()},
-              "val_MIoU": {i: r["value"] for i, r in scal["val/MIoU"].items()},
-              "evaluate": got, "evaluate_one_process": want})
-        _torchrun(cards, [me, "--ddp-worker", "trainer", work], "torchrun UDATrainer")
-        with open(os.path.join(work, "trainer.json")) as f:
-            tr = json.load(f)
-        check(tr["gap_vs_bare_step"] <= DDP_TRAINER_GAP,
-              f"the DDP trainer is {tr['gap_vs_bare_step']:.3f} under the bare step")
-        check(tr["launch_counts"]["fused_bottleneck_emit"] == 58 * TRAINER_ITERS
-              and tr["launch_counts"]["fused_bottleneck"] == 29 * 2,
-              f"DDP trainer launches on rank 0 {tr['launch_counts']}")
-        emit({"phase": "ddp_trainer", "nproc": cards, "backend": "nccl", **tr})
+        _ddp_torchrun_runs(cards, work)
 
         # (c) several cards
         if cards < 2:
@@ -2190,22 +2244,41 @@ def phase_ddp(bare_steps_per_s: float, checked: dict) -> None:
             emit({"phase": "ddp_parity", "case": "c_several_cards", "ran": False,
                   "why": f"{cards} cards do not share a global batch of {TRAIN_BATCH}"})
         else:
-            _torchrun(cards, [me, "--ddp-worker", "parity", work, "nccl", "-"],
-                      f"parity, {cards} NCCL ranks")
-            with open(os.path.join(work, "parity.json")) as f:
-                multi = json.load(f)
-            steps = torch.load(os.path.join(work, "steps.pt"))
-            report = _ddp_parity(p0, ref, steps)
-            emit({"phase": "ddp_parity", "case": "c_several_cards", "ran": True,
-                  "world": multi["world"], "backend": "nccl", "vs_one_process": report,
-                  "launch_counts_per_rank": multi["launch_counts_parity_steps"],
-                  "images_per_s": multi["images_per_s"], "step_s": multi["step_s"],
-                  "images_per_s_one_card": bare_steps_per_s * 2 * TRAIN_BATCH,
-                  "per_rank_source_valid_target_label_valid_emit_launches":
-                      multi["per_rank_valid_and_emit"]})
-            _check_ddp_parity("ddp over cards", report)
+            _ddp_several_cards(cards, p0, ref, bare_steps_per_s * 2 * TRAIN_BATCH, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def main_ddp_cards() -> int:
+    """``--ddp-cards``: the ddp phase over several cards alone, for a
+    machine with several: the build, the kernels at the ranks' shapes, the
+    one-process parity steps and one card's step rate, then (c) and (b)
+    over every card."""
+    cards = torch.cuda.device_count()
+    check(cards >= 2 and TRAIN_BATCH % cards == 0,
+          f"--ddp-cards needs 2 or more cards that share a global batch of {TRAIN_BATCH}; "
+          f"this machine has {cards}")
+    t_start = time.perf_counter()
+    phase_environment()
+    phase_build()
+    checked = {"fused_bottleneck_emit": set(), "fused_iw_max_square_loss": set()}
+    p0, ref, _, _, state = _ddp_reference({TRAIN_BATCH // cards}, checked)
+    pairs = [tuple(t.to("cuda") for t in p) for p in _train_pairs()]
+    step_s = _median_step_s(make_uda_train_step(TRAIN_CFG), state, pairs)
+    emit({"phase": "ddp_one_card", "step_s": step_s, "steps_per_s": 1.0 / step_s,
+          "images_per_s": 2 * TRAIN_BATCH / step_s})
+    del state, pairs
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_ddp_")
+    try:
+        _ddp_several_cards(cards, p0, ref, 2 * TRAIN_BATCH / step_s, work)
+        _ddp_torchrun_runs(cards, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "summary", "wall_seconds": time.perf_counter() - t_start})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": cards}})
+    return 0
 
 
 def main() -> int:
@@ -2215,6 +2288,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--ddp-worker"]:
         return _ddp_worker(sys.argv[2:])
+    if sys.argv[1:] == ["--ddp-cards"]:
+        return main_ddp_cards()
     t_start = time.perf_counter()
     phase_environment()
     phase_build()

@@ -18,14 +18,8 @@ tensors, through a host copy, which is how two ranks share one card).
 
 from __future__ import annotations
 
-import functools
-import logging
-import os
-
 import torch
 import torch.distributed as dist
-
-_log = logging.getLogger(__name__)
 
 
 def init_distributed(backend: str, init_method: str | None = None,
@@ -54,45 +48,6 @@ def world() -> int:
 
 def is_main() -> bool:
     return rank() == 0
-
-
-def local_rank() -> int:
-    """This process's index on its node: ``torchrun``'s ``LOCAL_RANK``, else
-    the rank modulo the node's card count."""
-    if "LOCAL_RANK" in os.environ:
-        return int(os.environ["LOCAL_RANK"])
-    return rank() % max(1, torch.cuda.device_count())
-
-
-def rank_device(device: str | torch.device | None = None) -> torch.device:
-    """The device of this process. ``None`` or ``"cuda"``: the card
-    ``cuda:LOCAL_RANK``, made the thread's current device (a kernel
-    launched through ``ctypes`` runs on the current device); it raises
-    without a card, there is no CPU fallback. ``"cuda:k"`` is taken as given
-    (and made current); anything else (``"cpu"``) as given."""
-    dev = torch.device(device) if device is not None else None
-    if dev is not None and dev.type != "cuda":
-        return dev
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' explicitly to run the "
-                           "plain PyTorch path on the host")
-    count = torch.cuda.device_count()
-    if dev is None or dev.index is None:
-        dev = torch.device("cuda", local_rank())
-    if dev.index >= count:
-        raise RuntimeError(f"rank {rank()} wants {dev}, but this node has {count} card(s)")
-    torch.cuda.set_device(dev)
-    if world() == 1 and count > 1:
-        _hint_torchrun(count)
-    return dev
-
-
-@functools.cache
-def _hint_torchrun(count: int) -> None:
-    """Say once how to use every card: a process never starts ranks of its
-    own."""
-    _log.warning(f"one process uses 1 of {count} cards; `torchrun --nproc_per_node {count} "
-                 "-m <entry point> ...` trains over all of them (batch sizes are global)")
 
 
 def local_batch(global_batch: int, flag: str = "--batch_size") -> int:

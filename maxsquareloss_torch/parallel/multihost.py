@@ -22,6 +22,7 @@ import os
 import torch
 
 from maxsquareloss_torch.parallel import ddp
+from maxsquareloss_torch.utils.device import resolve_device
 
 
 def backend_for(device: str | torch.device | None) -> str:
@@ -60,5 +61,5 @@ def initialize_distributed(
     else:
         return 1
     if backend == "nccl":
-        ddp.rank_device(device)  # NCCL's communicators form on the current card
+        resolve_device(device)  # NCCL's communicators form on the current card
     return ddp.world()

@@ -136,17 +136,13 @@ def _step_loss(state: TrainState, loss_fn, *args):
 
 
 def _ce_divisors(*labels: torch.Tensor | None) -> tuple:
-    """The divisor of each pixel CE over ``labels`` (None: no such CE). In
-    one process None: the CE's own ``max(count, 1)``. With several,
+    """The divisor of each pixel CE over ``labels`` (None: no such CE):
     ``max(global count, 1) / world`` from one all-reduce of the ranks'
     counts, so that the mean over the ranks that DDP takes is the global
-    batch's CE."""
-    world = ddp.world()
-    if world == 1:
-        return (None,) * len(labels)
+    batch's CE. In one process that is the CE's own ``max(count, 1)``."""
     present = [y for y in labels if y is not None]
     counts = ddp.all_reduce_sum(torch.stack([(y != IGNORE_INDEX).sum() for y in present]))
-    divisors = iter(counts.clamp_min(1).float() / world)
+    divisors = iter(counts.clamp_min(1).float() / ddp.world())
     return tuple(None if y is None else next(divisors) for y in labels)
 
 
@@ -194,7 +190,7 @@ def _concat_forward_upsampled(model, xs, out_hw_s, xt):
     return heads(slice(0, n), src_hw, out_hw_s), heads(slice(n, None), tgt_hw, tgt_hw)
 
 
-def _source_metrics(aux, main, y, cfg: TrainConfig, divisor=None):
+def _source_metrics(aux, main, y, cfg: TrainConfig, divisor):
     loss = cross_entropy(main, y, divisor=divisor)
     metrics = {"loss_source": loss.detach()}
     if aux is not None:
@@ -226,10 +222,10 @@ def target_guidance(logits_main: torch.Tensor, logits_aux: torch.Tensor | None,
 
 
 def target_loss_fn(logits_main: torch.Tensor, prob_main: torch.Tensor,
-                   label: torch.Tensor | None, cfg: TrainConfig, divisor=None):
+                   label: torch.Tensor | None, cfg: TrainConfig, divisor):
     """Mode-dispatched target loss from the upsampled target logits, their
     softmax and label (``target_guidance``). ``divisor``: the ``hard``
-    CE's, as ``cross_entropy``'s. Returns (target_loss, metrics)."""
+    CE's (``_ce_divisors``). Returns (target_loss, metrics)."""
     c = logits_main.shape[-1]
     mode = cfg.target_mode
     iw = mode in ("IW_maxsquare", "IW_entropy")
@@ -251,8 +247,6 @@ def target_loss_fn(logits_main: torch.Tensor, prob_main: torch.Tensor,
         logp = torch.log(torch.softmax(logits_main, dim=-1).clamp(1e-30, 1.0))
         valid = label != -1
         nll = -logp.gather(-1, torch.where(valid, label, 0).unsqueeze(-1)).squeeze(-1)
-        if divisor is None:
-            divisor = valid.sum().clamp_min(1).to(nll.dtype)
         loss = torch.where(valid, nll, 0.0).sum() / divisor
     else:
         raise ValueError(f"unknown target_mode {mode!r}")
@@ -271,14 +265,14 @@ def _apply_update(state: TrainState, loss: torch.Tensor, cfg: TrainConfig) -> fl
     (before the increment); refresh the packed eval weights. The LR.
     ``--debug_nans``: a loss that is not finite on any rank raises
     ``FloatingPointError`` on every rank before the update (the step's one
-    read back under the flag). Under DDP the gradients stay in DDP's
-    buckets (zeroed, not dropped)."""
+    read back under the flag). The gradients are zeroed, not dropped: under
+    DDP they stay in its buckets."""
     if cfg.debug_nans and ddp.any_flag(not bool(torch.isfinite(loss))):
         raise FloatingPointError(f"iteration {state.iteration}: loss is not finite "
                                  f"({loss.item()} on rank {ddp.rank()})")
     lr = poly_lr(cfg.lr, state.iteration, cfg.iter_max, cfg.poly_power)
     set_lr(state.optimizer, lr)
-    state.optimizer.zero_grad(set_to_none=state.ddp_loss is None)
+    state.optimizer.zero_grad(set_to_none=False)
     loss.backward()
     state.optimizer.step()
     state.model.pack_weights()
@@ -288,8 +282,7 @@ def _apply_update(state: TrainState, loss: torch.Tensor, cfg: TrainConfig) -> fl
 
 def _finish_metrics(metrics: dict, loss: torch.Tensor, lr: float) -> dict:
     metrics["loss"] = loss.detach()
-    if ddp.world() > 1:
-        metrics = _global_metrics(metrics)
+    metrics = _global_metrics(metrics)
     metrics["lr"] = torch.full((), lr, dtype=torch.float32, device=loss.device)
     return metrics
 

@@ -2,8 +2,9 @@
 ``experiments/bench_e2e.py``) on the CPU at a tiny size: the JSON keys, the
 JAX bench's metric names for the same flags, a finite loss, every
 unported flag raising, the e2e legs at the scale of
-``tests/test_bench_e2e.py``, and ``ensure_dataset`` writing the JAX
-harness's pixels.
+``tests/test_bench_e2e.py``, ``ensure_dataset`` writing the JAX
+harness's pixels, and both under ``torchrun --nproc_per_node 2`` (gloo)
+against one process on the same global batch.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import subprocess
 import sys
 import types
 
@@ -24,6 +26,7 @@ sys.path.insert(0, ".")
 from maxsquareloss_torch import bench
 from maxsquareloss_torch.experiments import bench_e2e
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = ["--device", "cpu", "--blocks", "2,2,2,2", "--hw", "33,65", "--batch", "2",
         "--steps", "1", "--warmup", "1"]
 
@@ -140,3 +143,79 @@ def test_ensure_dataset_matches_jax_and_is_reused(tmp_path):
     assert os.path.getmtime(probe) == mtime  # the stamp matched: nothing rewritten
     bench_e2e.ensure_dataset(port, n=3, src_wh=kw["src_wh"], tgt_wh=kw["tgt_wh"])
     assert os.path.exists(os.path.join(port, "GTA5", "images", "00002.png"))
+
+
+def _torchrun_two_ranks(target: list[str], tmp_path) -> subprocess.Popen:
+    """``torchrun --standalone --nproc_per_node 2`` of ``target`` in the
+    background, one torch thread a rank."""
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": REPO,
+           "TMPDIR": str(tmp_path)}
+    return subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
+         *target], cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _json_lines(proc: subprocess.Popen) -> list[dict]:
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        proc.kill()
+    assert proc.returncode == 0, err[-6000:]
+    return [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+
+
+def test_two_rank_bench_matches_the_one_process_bench(tmp_path, capsys):
+    """``torchrun --nproc_per_node 2 -m maxsquareloss_torch.bench --mode
+    uda``: one JSON line, from rank 0, with ``chips`` 2 and the one-process
+    run's final loss (the global batch's, after the same 3 steps)."""
+    argv = ["--mode", "uda", *TINY]
+    proc = _torchrun_two_ranks(["-m", "maxsquareloss_torch.bench", *argv], tmp_path)
+    one = bench.main(argv)  # meanwhile, the one-process run
+    lines = _json_lines(proc)
+    assert len(lines) == 1, lines
+    (two,) = lines
+    assert two["metric"] == one["metric"] and two["unit"] == "images/sec/chip"
+    assert two["value"] > 0 and two["extra"]["value_infer_fp32"] > 0
+    assert (two["extra"]["chips"], two["extra"]["global_batch"]) == (2, 2)
+    assert one["extra"]["chips"] == 1
+    np.testing.assert_allclose(two["extra"]["final_loss"], one["extra"]["final_loss"],
+                               rtol=1e-5)
+
+
+_E2E_RANK = """
+import json, sys, types
+from maxsquareloss_torch.experiments import bench_e2e
+from maxsquareloss_torch.parallel import ddp, multihost
+
+multihost.initialize_distributed("cpu")
+result = bench_e2e.run_e2e(types.SimpleNamespace(**json.loads(sys.argv[1])))
+if ddp.is_main():
+    print(json.dumps(result))
+ddp.shutdown()
+"""
+
+
+def test_two_rank_e2e_matches_the_one_process_e2e(tmp_path):
+    """``run_e2e`` under ``torchrun --nproc_per_node 2`` at the CPU scale:
+    rank 0 writes the dataset and the prepared roots behind barriers, each
+    rank loads its shard of every global batch, ``chips`` is 2, rank 0
+    counts its own images, and the cold leg's final loss is the one-process
+    run's."""
+    script = tmp_path / "e2e_rank.py"
+    script.write_text(_E2E_RANK)
+    two_args = vars(_e2e_args(tmp_path, data_root=str(tmp_path / "two" / "data")))
+    proc = _torchrun_two_ranks([str(script), json.dumps(two_args)], tmp_path)
+    one = bench_e2e.run_e2e(_e2e_args(tmp_path, data_root=str(tmp_path / "one" / "data")))
+    lines = _json_lines(proc)
+    assert len(lines) == 1, lines
+    (two,) = lines
+    assert two["metric"] == one["metric"]
+    assert (two["extra"]["chips"], one["extra"]["chips"]) == (2, 1)
+    assert two["extra"]["global_batch"] == one["extra"]["global_batch"] == 4
+    assert two["extra"]["epoch_images"] * 2 == one["extra"]["epoch_images"] == 16
+    for leg in ("cold", "warm", "prepared", "prepared_raw"):
+        assert two["extra"][f"e2e_{leg}_imgs_per_sec"] > 0
+    for leg in ("prepared", "prepared_raw"):  # rank 0 wrote them
+        assert os.path.isdir(tmp_path / "two" / f"data_{leg}")
+    np.testing.assert_allclose(two["extra"]["final_loss"], one["extra"]["final_loss"],
+                               rtol=1e-5)

@@ -42,6 +42,8 @@ import torch.multiprocessing as mp
 
 from maxsquareloss_torch.config import TrainConfig, add_train_args, add_uda_train_args
 from maxsquareloss_torch.parallel import ddp, multihost
+from maxsquareloss_torch.utils import device as device_util
+from maxsquareloss_torch.utils.device import resolve_device
 
 BLOCKS = (2, 2, 2, 2)
 SRC_HW, TGT_HW = (25, 49), (17, 33)  # unequal crops, as the GTA5 protocol
@@ -484,7 +486,7 @@ def test_local_batch_and_loaders_shard_the_global_batch(tmp_path, monkeypatch):
     from maxsquareloss_torch.tools.common import default_paths, make_loader
 
     assert ddp.local_batch(8) == 8 and ddp.world() == 1 and ddp.rank() == 0
-    assert ddp.rank_device("cpu") == torch.device("cpu")
+    assert resolve_device("cpu") == torch.device("cpu")
     monkeypatch.setattr(ddp, "world", lambda: 4)
     monkeypatch.setattr(ddp, "rank", lambda: 3)
     assert ddp.local_batch(8) == 2
@@ -508,11 +510,11 @@ def test_one_process_on_several_cards_uses_one_and_says_how_to_use_all(monkeypat
     monkeypatch.setattr(torch.cuda, "set_device", lambda dev: None)
     monkeypatch.delenv("LOCAL_RANK", raising=False)
     logged = []
-    monkeypatch.setattr(ddp._log, "warning", logged.append)
-    ddp._hint_torchrun.cache_clear()
-    assert ddp.rank_device(None) == torch.device("cuda", 0)
-    assert ddp.rank_device("cuda") == torch.device("cuda", 0)
+    monkeypatch.setattr(device_util._log, "warning", logged.append)
+    device_util._hint_torchrun.cache_clear()
+    assert resolve_device(None) == torch.device("cuda", 0)
+    assert resolve_device("cuda") == torch.device("cuda", 0)
     assert len(logged) == 1 and "torchrun --nproc_per_node 4" in logged[0]
     monkeypatch.setenv("LOCAL_RANK", "5")
     with pytest.raises(RuntimeError, match="4 card"):
-        ddp.rank_device(None)
+        resolve_device(None)
