@@ -8,7 +8,8 @@ Phases, one JSON object per line on stdout:
      torch and CUDA versions; TF32 is switched off for cuDNN and matmul so
      every plain fp32 reference runs in full fp32;
   2. build: compiles every kernel source of the port from
-     ``maxsquareloss_torch/csrc``, one ``nvcc`` per source, all at once;
+     ``maxsquareloss_torch/csrc``, one ``nvcc`` per library, all at once
+     (the fused bottleneck twice: fp32, and bf16 with ``-DMSL_BF16``);
   3. kernels: the eval bottleneck against its plain PyTorch version at every shape
      the main path gives it (rtol = atol = 1e-4: fp32 sums over up to 4608
      terms in another order); the eval shapes are also timed with CUDA
@@ -82,6 +83,30 @@ Phases, one JSON object per line on stdout:
      a profile of one concat step; a UDATrainer with --concat_batches true
      --profile for 6 iterations, whose trace under checkpoint_dir/profile
      must name the bottleneck kernel;
+ 11b. bf16 kernels: both bf16 instances of the fused bottleneck (eval and
+     emit) against their bf16 plain versions at every shape of the bf16
+     paths (predict's TTA and the batch-2 eval forward, the UDA step's, the
+     concat canvas masked): out, h1, h2 within 2 bf16 ulps of the plain
+     version's largest magnitude, the share of bitwise-equal elements, the
+     eval out equal to the emit out, a second call the same bits; eval timed
+     at the eval shapes, emit at the step's, beside the bf16 plain version
+     (the cuDNN bf16 chain), the bound at 989 TFLOP/s bf16 or 3.35 TB/s and
+     the FMA route's ceiling at 67 TFLOP/s;
+ 11c. bf16: the train phase's step with --compute_dtype bfloat16 from the
+     same seeded weights: one kernel-path step against one plain-path step
+     (every metric within 1e-2 relative beyond what bf16 moves it from the
+     fp32 step, each parameter's change within 3e-2 relative L2), then
+     steps 2-10 counted (58 bf16 emit launches a step at checked shapes; 2
+     warm-up, 5 timed: steps/s, images/s, peak memory), the 10 steps'
+     trajectory against 10 fp32 steps with the JAX package's bounds (loss
+     2 % a step and 1 % on average, parameters 5e-3 relative L2), a profile
+     of one step; ``evaluate`` and predict in bf16 (argmax agreement with
+     the fp32 path, 5 timed drives, 29 bf16 eval launches a forward); 5
+     concat steps in bf16 (29 masked bf16 emit launches a step);
+ 11d. remat: the fp32 and the bf16 step with --remat stages against the
+     step without from the same weights (each dtype's limits above), each
+     step's peak memory, 2 + 5 remat steps (steps/s, 116 emit launches a
+     step);
  12. cli: ``tools.solve_gta5`` for 2 iterations on a small on-disk
      domain-shift pair at 128x256 (PIL is required: the run fails without it);
  13. serving_cli: ``tools.evaluate`` on that run's ``checkpoint_latest.pth``
@@ -92,11 +117,13 @@ Phases, one JSON object per line on stdout:
      99.9 % of the pixels), each with its exact eval-kernel launch count;
  14. crosscity: ``tools.solve_crosscity`` for 2 iterations, Cityscapes → a
      synthetic NTHU Rio at 128x256, 13 classes;
- 15. bench: ``maxsquareloss_torch.bench`` in this process in modes uda,
-     uda with --concat (equal crops: one unmasked forward over 16 images)
-     and source (5 timed steps after 2), infer at 1024x512 with 1024x512 and
-     1024x2048 labels, and e2e at the protocol's disk sizes over 16 images
-     a domain for one epoch a leg; each prints its JSON line;
+ 15. bench: ``maxsquareloss_torch.bench`` in this process at its defaults
+     (bf16) in modes uda (the JAX bench's default line: the bf16 step, bf16
+     inference, the fp32 parity leg with stage remat at batch 8), uda with
+     --concat (equal crops: one unmasked forward over 16 images) and source
+     (5 timed steps after 2), infer at 1024x512 with 1024x512 and 1024x2048
+     labels, and e2e at the protocol's disk sizes over 16 images a domain
+     for one epoch a leg; each prints its JSON line;
  16. efficacy: the adaptation-efficacy gate at ``tests/test_adaptation.py``'s
      protocol (seed 0, --blocks 1,1,2,1, 128x64, batch 8, 300 source and
      200 UDA iterations, lambda 64): IW_maxsquare must beat the
@@ -125,7 +152,8 @@ Phases, one JSON object per line on stdout:
      --ddp-cards`` on a machine with several cards runs the build, the
      kernels at the ranks' shapes, the one-process steps and one card's
      rate, then (c) and (b) over every card, and nothing else.
-All full-width phases run R101 (blocks 3,4,23,3) in fp32 with TF32 off.
+All full-width phases run R101 (blocks 3,4,23,3), in fp32 with TF32 off
+unless they say bf16.
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 
 Exits non-zero, printing no result, when CUDA is absent or a check fails.
@@ -261,6 +289,23 @@ LOSS_RTOL, GRAD_ATOL, GRAD_RTOL_MAX = 1e-4, 1e-5, 1e-4
 # kernel's forward than in cuDNN's and passes a whole gradient element
 BACKWARD_RTOL_L2, BACKWARD_E2E_RTOL_L2 = 1e-4, 1e-3
 STEP_RTOL, STEP_PARAM_RTOL_L2 = 1e-4, 1e-3
+# bf16 (--compute_dtype bfloat16, PERF.md section 2): each bf16 instance's
+# out, h1, h2 within BF16_ULPS bf16 ulps of its bf16 plain version's largest
+# magnitude (the same roundings, fp32 sums in another order); the bf16 step,
+# kernel path against plain path from the same weights, every metric within
+# BF16_STEP_RTOL relative beyond what bf16 moves the step (its distance from
+# the fp32 kernel-path step from those weights: the guidance and IW metrics
+# count thresholded and argmax pixels, which a 1-ulp logit decides), each
+# parameter's change within BF16_PARAM_RTOL_L2 relative L2; TRAJ_STEPS bf16
+# steps against fp32 steps with the JAX package's bf16 trajectory bounds
+# (tests/test_steps.py: per-step loss 2 %, mean 1 %, parameters 5e-3
+# relative L2)
+BF16_ULPS = 2
+BF16_STEP_RTOL, BF16_PARAM_RTOL_L2 = 1e-2, 3e-2
+BF16_LIMITS = (BF16_STEP_RTOL, BF16_PARAM_RTOL_L2)
+TRAJ_STEPS = 10
+TRAJ_LOSS_MAX, TRAJ_LOSS_MEAN, TRAJ_PARAM_RTOL_L2 = 0.02, 0.01, 5e-3
+BF16_CFG = dataclasses.replace(TRAIN_CFG, compute_dtype="bfloat16")
 # the trainer: 6 iterations, a checkpoint at 3, a resume that runs 4-6 again
 # and matches the first run's losses to relative 1e-4 (cuDNN's backward is
 # left nondeterministic, as in training); validation over 2 batches of 2
@@ -277,6 +322,9 @@ COUNTERS = {
     # the masked-canvas launches among those two counts
     "fused_bottleneck_masked": (fused_bottleneck, "masked_launches"),
     "fused_bottleneck_emit_masked": (fused_bottleneck_emit, "masked_launches"),
+    # the bf16 instances' launches among them
+    "fused_bottleneck_bf16": (fused_bottleneck, "bf16_launches"),
+    "fused_bottleneck_emit_bf16": (fused_bottleneck_emit, "bf16_launches"),
     "fused_iw_max_square_loss": (fused_iw_max_square_loss, "launches"),
     "fused_iw_max_square_loss_backward": (fused_iw_max_square_loss, "backward_launches"),
     "fused_max_square_loss": (fused_max_square_loss, "launches"),
@@ -362,31 +410,40 @@ def phase_environment() -> dict:
 
 
 def phase_build() -> None:
-    """One nvcc per kernel source, all started together."""
+    """One nvcc per library, all started together: each source once, the
+    fused bottleneck twice (its fp32 and, with -DMSL_BF16, its bf16
+    instances, each a library of its own)."""
     t0 = time.perf_counter()
-    sources = (fused_block.SOURCE, fused_loss.SOURCE, matmul_probe.SOURCE)
+    bf16_defines = fused_block.INSTANCES[BF16][0]
+    builds = {"fused_bottleneck.cu (fp32)": (fused_block.SOURCE, ()),
+              "fused_bottleneck.cu (bf16)": (fused_block.SOURCE, bf16_defines),
+              "fused_loss.cu": (fused_loss.SOURCE, ()),
+              "matmul_probe.cu": (matmul_probe.SOURCE, ())}
 
-    def timed_build(source):
-        lib = kernel_build.build(source)
+    def timed_build(job):
+        lib = kernel_build.build(*job)
         return lib, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(sources)) as pool:
-        built = list(pool.map(timed_build, sources))
-    for module in (fused_block, fused_loss, matmul_probe):
+    with ThreadPoolExecutor(len(builds)) as pool:
+        built = list(pool.map(timed_build, builds.values()))
+    for module in (fused_loss, matmul_probe):
         module._library()
+    for dtype in fused_block.INSTANCES:
+        fused_block._library(dtype)
     emit({"phase": "build", "libraries": [lib.name for lib, _ in built],
-          "seconds_by_source": {src.name: sec for src, (_, sec) in zip(sources, built)},
+          "seconds_by_library": {name: sec for name, (_, sec) in zip(builds, built)},
           "seconds": time.perf_counter() - t0})
 
 
-def _block_inputs(gen, n, h, w, cin, cmid):
+def _block_inputs(gen, n, h, w, cin, cmid, dtype=torch.float32):
+    """x and the HWIO kernels in ``dtype``, the BN vectors fp32."""
     def randn(*shape, std=1.0):
         return (torch.randn(*shape, generator=gen) * std).cuda()
 
-    x = randn(n, h, w, cin).relu().permute(0, 3, 1, 2)  # post-ReLU, channels_last
-    w1 = randn(1, 1, cin, cmid, std=math.sqrt(2.0 / cmid))
-    w2 = randn(3, 3, cmid, cmid, std=math.sqrt(2.0 / (9 * cmid)))
-    w3 = randn(1, 1, cmid, cin, std=math.sqrt(2.0 / cin))
+    x = randn(n, h, w, cin).relu().permute(0, 3, 1, 2).to(dtype)  # post-ReLU, channels_last
+    w1 = randn(1, 1, cin, cmid, std=math.sqrt(2.0 / cmid)).to(dtype)
+    w2 = randn(3, 3, cmid, cmid, std=math.sqrt(2.0 / (9 * cmid))).to(dtype)
+    w3 = randn(1, 1, cmid, cin, std=math.sqrt(2.0 / cin)).to(dtype)
     bn = []
     for c, scale in ((cmid, None), (cmid, None), (cin, 0.1)):
         s = (torch.full((c,), scale) if scale is not None
@@ -395,15 +452,15 @@ def _block_inputs(gen, n, h, w, cin, cmid):
     return (x, w1, w2, w3, *bn)
 
 
-def _tile_report(n, h, w, cin, cmid, d) -> dict:
-    """The planner's tile for one shape: its fields, the shared memory with
-    the weight and x stages, the FLOP per byte of L2 weight traffic (a block
-    reads every weight once per output row of its strip) and the threads
-    that own pixels in each conv."""
+def _tile_report(n, h, w, cin, cmid, d, dtype=torch.float32) -> dict:
+    """The planner's tile for one shape in ``dtype``: its fields, the shared
+    memory with the weight and x stages, the FLOP per byte of L2 weight
+    traffic (a block reads every weight once per output row of its strip)
+    and the threads that own pixels in each conv."""
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
-    plan = fused_block.plan_tiles(n, h, w, cin, cmid, d, sm_count)
+    plan = fused_block.plan_tiles(n, h, w, cin, cmid, d, sm_count, dtype)
     return {"tile": plan._asdict(), "smem_bytes_with_stages": plan.smem,
-            "flop_per_l2_weight_byte": plan.flop_per_l2_weight_byte,
+            "flop_per_l2_weight_byte": plan.flop_per_l2_weight_byte(dtype.itemsize),
             "busy_threads": plan.busy_threads(cmid, d)}
 
 
@@ -904,6 +961,35 @@ def _train_pairs():
     return [(xs, ys, xt) for (xs, ys), (xt, _) in zip(batches(SRC_HW, 3), batches(TGT_HW, 4))]
 
 
+def _counted_steps(name, step, state, pairs, indices, per_step, timed=()):
+    """Steps ``indices`` of a run (step i on pair ``i % len(pairs)``), each
+    with exact launch counts ``per_step``; the steps in ``timed`` timed.
+    Returns (state, metrics a step, seconds)."""
+    metrics, secs = [], []
+    for i in indices:
+        before = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, *pairs[i % len(pairs)])
+        torch.cuda.synchronize()
+        if i in timed:
+            secs.append(time.perf_counter() - t0)
+        delta = {k: v - before[k] for k, v in read_counts().items()}
+        want = {k: per_step.get(k, 0) for k in delta}
+        check(delta == want, f"{name} step {i}: launches {delta}, expected {want}")
+        metrics.append({k: v.item() for k, v in m.items()})
+    return state, metrics, secs
+
+
+def _rates(secs, images) -> dict:
+    """Steps/s and images/s (``images`` a step) of timed steps: median, min, max."""
+    rates = sorted(1.0 / s for s in secs)
+    return {"seconds": secs, "steps_per_s_median": statistics.median(rates),
+            "steps_per_s_min": rates[0], "steps_per_s_max": rates[-1],
+            "images_per_s_median": images * statistics.median(rates),
+            "images_per_s_min": images * rates[0], "images_per_s_max": images * rates[-1]}
+
+
 def phase_train(emit_checked: set) -> tuple[dict[str, int], float]:
     """The UDA step: parity of one kernel-path and one plain-path step, then
     the counted, timed main path. Returns the main path's launch counts and
@@ -921,24 +1007,9 @@ def phase_train(emit_checked: set) -> tuple[dict[str, int], float]:
     state, m_k = step(make_train_state(model, cfg), *pairs[0])
     with plain_losses():
         _, m_p = step(make_train_state(plain, cfg), *pairs[0])
-    check(set(m_k) == set(m_p), f"metrics {sorted(m_k)} vs {sorted(m_p)}")
-    metric_err = {}
-    for k in m_k:
-        a, b = m_k[k].item(), m_p[k].item()
-        metric_err[k] = abs(a - b) / max(abs(b), 1e-30)
-        check(math.isfinite(a) and abs(a - b) <= STEP_RTOL * abs(b),
-              f"train parity {k}: kernel {a} vs plain {b}")
-    plain_params = dict(plain.named_parameters())
-    param_err = {name: _rel_l2(p.detach() - p0[name], plain_params[name].detach() - p0[name])
-                 for name, p in model.named_parameters()}
-    worst = max(param_err, key=param_err.get)
-    check(param_err[worst] <= STEP_PARAM_RTOL_L2,
-          f"train parity: {worst} change off by {param_err[worst]:.3g} (relative L2)")
     emit({"phase": "train_parity", "metrics": {k: v.item() for k, v in m_k.items()},
-          "metric_rel_err": metric_err, "param_change_rel_l2_max": param_err[worst],
-          "param_change_rel_l2_worst": worst,
-          "param_change_rel_l2_median": statistics.median(param_err.values())})
-    del plain, plain_params, m_p
+          **_parity("train parity, kernel vs plain", m_k, model, m_p, plain, p0)})
+    del plain, m_p
     torch.cuda.empty_cache()
 
     # record the shape of every emit launch on the main path
@@ -961,20 +1032,12 @@ def phase_train(emit_checked: set) -> tuple[dict[str, int], float]:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    secs, metrics = [], []
-    runs = [("IW_maxsquare", step)] * (WARMUP_STEPS + REPS) + [("maxsquare", ms_step)]
-    for i, (mode, fn) in enumerate(runs):
-        before = read_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = fn(state, *pairs[i % len(pairs)])
-        torch.cuda.synchronize()
-        if WARMUP_STEPS <= i < WARMUP_STEPS + REPS:
-            secs.append(time.perf_counter() - t0)
-        delta = {k: v - before[k] for k, v in read_counts().items()}
-        want = {k: per_step[mode].get(k, 0) for k in delta}
-        check(delta == want, f"{mode} step {i}: launches {delta}, expected {want}")
-        metrics.append({k: v.item() for k, v in m.items()})
+    n_iw = WARMUP_STEPS + REPS
+    state, metrics, secs = _counted_steps("IW_maxsquare", step, state, pairs, range(n_iw),
+                                          per_step["IW_maxsquare"], range(WARMUP_STEPS, n_iw))
+    state, last, _ = _counted_steps("maxsquare", ms_step, state, pairs, range(n_iw, n_iw + 1),
+                                    per_step["maxsquare"])
+    metrics += last
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     model.train_block_fn = FusedBottleneckFn.apply
@@ -984,34 +1047,17 @@ def phase_train(emit_checked: set) -> tuple[dict[str, int], float]:
         check(all(math.isfinite(v) for v in m.values()), f"train step {i}: non-finite metrics {m}")
     unmoved = [name for name, p in model.named_parameters() if torch.equal(p.detach(), p_start[name])]
     check(not unmoved, f"parameters that did not move: {unmoved[:5]}")
-    steps_per_s = sorted(1.0 / s for s in secs)
+    rates = _rates(secs, 2 * TRAIN_BATCH)
     emit({"phase": "train", "run": "uda_IW_maxsquare_r101", "iw_hist": cfg.iw_hist,
           "batch": TRAIN_BATCH,
           "source_hw": list(SRC_HW), "target_hw": list(TGT_HW), "warmup": WARMUP_STEPS,
-          "reps": REPS, "seconds": secs,
-          "steps_per_s_median": statistics.median(steps_per_s),
-          "steps_per_s_min": steps_per_s[0], "steps_per_s_max": steps_per_s[-1],
-          "images_per_s_median": 2 * TRAIN_BATCH * statistics.median(steps_per_s),
-          "images_per_s_min": 2 * TRAIN_BATCH * steps_per_s[0],
-          "images_per_s_max": 2 * TRAIN_BATCH * steps_per_s[-1],
+          "reps": REPS, **rates,
           "peak_memory_bytes": peak, "peak_memory_gib": peak / 2**30,
           "launch_counts": counts, "launch_shapes": sorted(seen),
           "first_metrics": metrics[0], "last_iw_metrics": metrics[-2],
           "maxsquare_metrics": metrics[-1]})
     phase_profile("train_step", lambda: step(state, *pairs[0]), top_n=16)
-    return counts, statistics.median(steps_per_s)
-
-
-def _block_work(n, h, w, cin, cmid, emit, conv1_pixels) -> tuple[int, int]:
-    """(FLOP, bytes) one masked launch needs: conv1 over ``conv1_pixels``
-    (the valid ones: h1 is 0 elsewhere), conv2 and conv3 over every pixel;
-    x read and out written once, h1 and h2 written with ``emit``, the
-    weights and BN read once."""
-    px = n * h * w
-    flops = 2 * (conv1_pixels * cin * cmid + px * (9 * cmid * cmid + cmid * cin))
-    nbytes = 4 * (2 * px * (cin + (cmid if emit else 0)) + 2 * cin * cmid + 9 * cmid * cmid
-                  + 4 * cmid + 2 * cin)
-    return flops, nbytes
+    return counts, rates["steps_per_s_median"]
 
 
 def phase_concat_kernels() -> tuple[set, dict]:
@@ -1111,25 +1157,35 @@ def phase_concat_kernels() -> tuple[set, dict]:
     }
 
 
-def _parity(name, m_k, model, m_ref, ref_model, p0) -> dict:
-    """One step's metrics (rel STEP_RTOL) and every parameter's change
-    (relative L2 STEP_PARAM_RTOL_L2) against a reference step's."""
+def _parity(name, m_k, model, m_ref, ref_model, p0, limits=(STEP_RTOL, STEP_PARAM_RTOL_L2),
+            m_fp32=None) -> dict:
+    """One step's metrics (relative ``limits[0]``; with ``m_fp32``, the
+    metrics of the fp32 step from the same weights, plus each metric's
+    distance from it: the bf16 limit) and every parameter's change
+    (relative L2 ``limits[1]``) against a reference step's; the parameters
+    fp32."""
+    rtol, param_rtol = limits
     check(set(m_k) == set(m_ref), f"{name}: metrics {sorted(m_k)} vs {sorted(m_ref)}")
-    metric_err = {}
+    check({p.dtype for p in model.parameters()} == {torch.float32}, f"{name}: parameters not fp32")
+    metric_err, allowed = {}, {}
     for k in m_k:
         a, b = m_k[k].item(), m_ref[k].item()
         metric_err[k] = abs(a - b) / max(abs(b), 1e-30)
-        check(math.isfinite(a) and abs(a - b) <= STEP_RTOL * abs(b),
-              f"{name} {k}: {a} vs {b}")
+        allowed[k] = rtol + (0.0 if m_fp32 is None else abs(b - m_fp32[k]) / max(abs(b), 1e-30))
+        check(math.isfinite(a) and metric_err[k] <= allowed[k],
+              f"{name} {k}: {a} vs {b}: rel {metric_err[k]:.3g} > {allowed[k]:.3g}")
     ref_params = dict(ref_model.named_parameters())
     param_err = {n: _rel_l2(p.detach() - p0[n], ref_params[n].detach() - p0[n])
                  for n, p in model.named_parameters()}
     worst = max(param_err, key=param_err.get)
-    check(param_err[worst] <= STEP_PARAM_RTOL_L2,
+    check(param_err[worst] <= param_rtol,
           f"{name}: {worst} change off by {param_err[worst]:.3g} (relative L2)")
-    return {"metric_rel_err": metric_err, "param_change_rel_l2_max": param_err[worst],
-            "param_change_rel_l2_worst": worst,
-            "param_change_rel_l2_median": statistics.median(param_err.values())}
+    out = {"metric_rel_err": metric_err, "param_change_rel_l2_max": param_err[worst],
+           "param_change_rel_l2_worst": worst,
+           "param_change_rel_l2_median": statistics.median(param_err.values())}
+    if m_fp32 is not None:
+        out["metric_rel_allowed"] = allowed
+    return out
 
 
 def phase_concat(emit_checked: set, masked_checked: set) -> dict[str, int]:
@@ -1186,27 +1242,13 @@ def phase_concat(emit_checked: set, masked_checked: set) -> dict[str, int]:
         start_alloc = torch.cuda.memory_allocated()
         # the main path, counted: every launch from here to the read is the path's
         zero_counts()
-        secs, metrics = [], []
-        for i in range(WARMUP_STEPS + REPS):
-            before = read_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            st, m = fn(st, *pairs[i % len(pairs)])
-            torch.cuda.synchronize()
-            if i >= WARMUP_STEPS:
-                secs.append(time.perf_counter() - t0)
-            delta = {k: v - before[k] for k, v in read_counts().items()}
-            want = {k: per_step.get(k, 0) for k in delta}
-            check(delta == want, f"{key} step {i}: launches {delta}, expected {want}")
-            metrics.append({k: v.item() for k, v in m.items()})
+        st, metrics, secs = _counted_steps(key, fn, st, pairs, range(WARMUP_STEPS + REPS),
+                                           per_step, range(WARMUP_STEPS, WARMUP_STEPS + REPS))
         counts[key] = read_counts()
         peak = torch.cuda.max_memory_allocated()
         for i, m in enumerate(metrics):
             check(all(math.isfinite(v) for v in m.values()), f"{key} step {i}: non-finite {m}")
-        rates = sorted(1.0 / t for t in secs)
-        results[key] = {"seconds": secs, "steps_per_s_median": statistics.median(rates),
-                        "steps_per_s_min": rates[0], "steps_per_s_max": rates[-1],
-                        "images_per_s_median": 2 * TRAIN_BATCH * statistics.median(rates),
+        results[key] = {**_rates(secs, 2 * TRAIN_BATCH),
                         "peak_memory_bytes": peak, "peak_memory_gib": peak / 2**30,
                         "allocated_at_start_gib": start_alloc / 2**30,
                         "launch_counts": counts[key], "launch_shapes": sorted(seen[key]),
@@ -1277,6 +1319,388 @@ def phase_concat_trainer() -> None:
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def _bf16_ulps(got, want) -> tuple[float, float]:
+    """(max abs error, that error in bf16 ulps of ``want``'s largest
+    magnitude: 8 significant bits)."""
+    err = (got.float() - want.float()).abs().max().item()
+    m = want.float().abs().max().item()
+    return err, (err / 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else
+                 (0.0 if err == 0 else math.inf))
+
+
+def _block_work(n, h, w, cin, cmid, emit, conv1_pixels, itemsize=4) -> tuple[int, int]:
+    """(FLOP, bytes) one masked launch needs: conv1 over ``conv1_pixels``
+    (the valid ones: h1 is 0 elsewhere), conv2 and conv3 over every pixel;
+    x read and out written once, h1 and h2 written with ``emit``, the
+    weights read once, in elements of ``itemsize`` bytes; the BN vectors
+    (fp32) read once."""
+    px = n * h * w
+    flops = 2 * (conv1_pixels * cin * cmid + px * (9 * cmid * cmid + cmid * cin))
+    nbytes = (itemsize * (2 * px * (cin + (cmid if emit else 0)) + 2 * cin * cmid
+                          + 9 * cmid * cmid) + 4 * (4 * cmid + 2 * cin))
+    return flops, nbytes
+
+
+def _hold_bf16(gen, name, n, h, w, cin, cmid, d, valid=None, timed=None) -> dict:
+    """Both bf16 instances at one shape (masked by ``valid``) against their
+    bf16 plain versions: the emit kernel's out, h1, h2 and the eval
+    kernel's out within BF16_ULPS ulps of the plain version's largest
+    magnitude, with the share of bitwise-equal elements; the eval out equal
+    to the emit out; a second call of each the same bits; with ``valid``,
+    h1 exactly 0 in the pad region. ``timed`` ("eval" or "emit"): that
+    kernel timed beside its plain version (plain, kernel, kernel, plain),
+    its bound at 989 TFLOP/s bf16 or 3.35 TB/s, and the FMA route's ceiling
+    at 67 TFLOP/s. Returns the row."""
+    args = _block_inputs(gen, n, h, w, cin, cmid, BF16)
+    got = fused_bottleneck_emit(*args, d, valid)
+    want = fused_bottleneck_emit_reference(*args, d, valid)
+    out_e = fused_bottleneck(*args, d, valid)
+    torch.cuda.synchronize()
+    row = {"layer": name, "shape": [n, h, w, cin], "cmid": cmid, "dilation": d,
+           "masked": valid is not None, **_tile_report(n, h, w, cin, cmid, d, BF16)}
+    for label, a, b in zip(("out", "h1", "h2"), got, want):
+        check(a.dtype == BF16 and bool(torch.isfinite(a).all()), f"bf16 {name} {label}: {a.dtype}")
+        err, ulps = _bf16_ulps(a, b)
+        check(ulps <= BF16_ULPS, f"bf16 {name} {label}: {err:.3g} abs, {ulps:.3g} ulps")
+        row.update({f"{label}_max_abs_err": err, f"{label}_ulps": ulps,
+                    f"{label}_bitwise_share": (a == b).float().mean().item()})
+    check(torch.equal(out_e, got[0]), f"bf16 {name}: the eval out differs from the emit out")
+    check(all(torch.equal(a, b) for a, b in zip(got, fused_bottleneck_emit(*args, d, valid)))
+          and torch.equal(out_e, fused_bottleneck(*args, d, valid)),
+          f"bf16 {name}: two calls differ (not bitwise deterministic)")
+    row["bitwise_repeatable"] = True
+    if valid is not None:
+        pad = (valid_mask(valid, h, w) == 0).expand_as(got[1])
+        check(got[1][pad].abs().max().item() == 0.0, f"bf16 masked {name}: h1 is not 0 in the pad")
+        row["h1_pad_max_abs"] = 0.0
+    del got, want, out_e
+    if timed:
+        emit_k = timed == "emit"
+        kernel_fn = fused_bottleneck_emit if emit_k else fused_bottleneck
+        plain_fn = fused_bottleneck_emit_reference if emit_k else fused_bottleneck_reference
+
+        def kernel():
+            return kernel_fn(*args, d, valid)
+
+        @torch.no_grad()
+        def plain():
+            return plain_fn(*args, d, valid)
+
+        p1, k1, k2, p2 = (time_ms(f, 5) for f in (plain, kernel, kernel, plain))
+        lib_ms = time_ms(plain, 5)
+        flops, nbytes = _block_work(n, h, w, cin, cmid, emit_k, n * h * w, itemsize=2)
+        ms = (k1 + k2) / 2
+        row.update({
+            "timed": timed, "ms": ms, "plain_ms": (p1 + p2) / 2, "library_ms": lib_ms,
+            "bound_ms": max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3,
+            "bound_by": "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes",
+            "fma_ceiling_ms": flops / PEAK_FP32_FLOPS * 1e3, "tflops": flops / ms / 1e9,
+        })
+    del args
+    return row
+
+
+def phase_bf16_kernels() -> tuple[dict, list[dict]]:
+    """The bf16 instances of the fused bottleneck (eval and emit) against
+    their bf16 plain versions at every shape the bf16 paths launch them at:
+    predict's TTA forwards and the batch-2 eval forward (eval timed), the
+    bf16 UDA step's (emit timed), and the concat step's canvas, masked.
+    Returns {kernel: checked (N, H, W, Cin, Cmid, d)} for both instances and
+    their kernels-line entries (eval times per batch-2 forward, emit times
+    per train step)."""
+    gen = torch.Generator().manual_seed(7)
+    masks = make_canvas_masks(CANVAS_HW, CANVAS_GROUPS, "cuda")
+    runs = ([(s, None, None) for s in TTA_SHAPES] + [(s, None, "eval") for s in BLOCK_SHAPES]
+            + [(s, None, "emit") for s in TRAIN_SHAPES]
+            + [(s, masks["os4" if s[0] == "layer1" else "os8"].valid, None)
+               for s in CONCAT_SHAPES])
+    checked, rows, every = set(), {"eval": [], "emit": []}, []
+    for (name, n, h, w, cin, cmid, d, per_fwd), valid, timed in runs:
+        row = _hold_bf16(gen, name, n, h, w, cin, cmid, d, valid, timed)
+        row["per_forward"] = per_fwd
+        emit({"phase": "bf16_kernel", "kernel": "fused_bottleneck_bf16 (eval and emit)", **row})
+        every.append(row)
+        if valid is None:
+            checked.add((n, h, w, cin, cmid, d))
+        if timed:
+            rows[timed].append(row)
+    torch.cuda.empty_cache()
+    worst = {key: max(r[f"{k}_{key}"] for r in every for k in ("out", "h1", "h2"))
+             for key in ("max_abs_err", "ulps")}
+    emit({"phase": "bf16_kernel_summary", "shapes": len(every), "max_abs_err": worst["max_abs_err"],
+          "max_ulps": worst["ulps"],
+          "min_bitwise_share": min(r[f"{k}_bitwise_share"] for r in every for k in ("out", "h1", "h2"))})
+
+    def entry(name, kind, per):
+        rs = rows[kind]
+
+        def total(key):  # the identity blocks of one eval forward or one train step
+            return sum(r[key] * r["per_forward"] for r in rs)
+
+        return {"name": name, "route": "cuda", "source": "maxsquareloss_torch/csrc/fused_bottleneck.cu",
+                "replaces": "experiments/retired_pallas/fused_block.py:153",
+                "launches": None,  # filled from the main path's run
+                "max_abs_err": worst["max_abs_err"], "max_ulps": worst["ulps"],
+                "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+                "bound_by": "operations" if all(r["bound_by"] == "operations" for r in rs) else "bytes",
+                "library_ms": total("library_ms"), "fma_ceiling_ms": total("fma_ceiling_ms"),
+                "library": "the plain F.conv2d bf16 chain (cuDNN, channels_last), which is the "
+                           "plain version", "per": per, "shapes": rs}
+
+    return ({"fused_bottleneck_bf16": set(checked), "fused_bottleneck_emit_bf16": set(checked)},
+            [entry("fused_bottleneck_bf16", "eval", "the 29 blocks of a batch-2 1024x512 forward"),
+             entry("fused_bottleneck_emit_bf16", "emit", "the 58 blocks of a train step")])
+
+
+def phase_bf16(checked: dict) -> tuple[dict[str, int], dict[str, int]]:
+    """The full-R101 bf16 UDA step (``--compute_dtype bfloat16``, the train
+    phase's configuration): TRAJ_STEPS fp32 kernel-path steps from the
+    seeded weights; then from the same weights one bf16 kernel-path step
+    against one bf16 plain-path step (BF16_STEP_RTOL beyond the fp32 step's
+    distance, BF16_PARAM_RTOL_L2); the counted main path, the bf16 steps 2
+    to TRAJ_STEPS (WARMUP_STEPS, REPS timed, the rest): 58 bf16 emit
+    launches a step at checked shapes; the TRAJ_STEPS bf16 trajectory
+    against the fp32 one; a profile of one step. Then ``evaluate`` and
+    ``make_predict_fn`` in bf16 with the trained weights (argmax agreement
+    with the fp32 path on the same weights; REPS timed drives, 29 bf16 eval
+    launches a forward), and REPS concat steps in bf16 (29 masked bf16 emit
+    launches a step). Returns the step's and the eval path's launch counts."""
+    cfg = BF16_CFG
+    pairs = _train_pairs()
+
+    def seeded():
+        return torch.Generator().manual_seed(0)
+
+    model32 = init_deeplabv2(model_config(TRAIN_CFG), seeded(), device="cuda")
+    state32, step32, traj32 = make_train_state(model32, TRAIN_CFG), make_uda_train_step(TRAIN_CFG), []
+    for i in range(TRAJ_STEPS):
+        state32, m = step32(state32, *pairs[i % len(pairs)])
+        traj32.append({k: v.item() for k, v in m.items()})
+    params32 = {n: p.detach().clone() for n, p in model32.named_parameters()}
+    del state32, model32
+    torch.cuda.empty_cache()
+
+    model = init_deeplabv2(model_config(cfg), seeded(), device="cuda")
+    plain = DeepLabV2(model.cfg, plain_blocks=True).to(device="cuda", memory_format=torch.channels_last)
+    plain.load_state_dict(model.state_dict())
+    p0 = {name: p.detach().clone() for name, p in model.named_parameters()}
+    step = make_uda_train_step(cfg)
+    state, m_k = step(make_train_state(model, cfg), *pairs[0])
+    with plain_losses():
+        _, m_p = step(make_train_state(plain, cfg), *pairs[0])
+    emit({"phase": "bf16_parity", "metrics": {k: v.item() for k, v in m_k.items()},
+          "metrics_fp32_step": traj32[0],
+          "vs_plain_path": _parity("bf16 kernel vs plain path", m_k, model, m_p, plain, p0,
+                                   BF16_LIMITS, traj32[0])})
+    del plain, m_p
+    torch.cuda.empty_cache()
+
+    seen = set()
+
+    def recording(x, *args):  # args: w1..b3, dilation, valid
+        check(x.dtype == BF16, f"the bf16 step ran a block in {x.dtype}")
+        n, cin, h, w = x.shape
+        seen.add((n, h, w, cin, args[0].shape[-1], args[9]))
+        return FusedBottleneckFn.apply(x, *args)
+
+    model.train_block_fn = recording
+    per_step = {"fused_bottleneck_emit": 58, "fused_bottleneck_emit_bf16": 58,
+                "fused_iw_max_square_loss": 1, "fused_iw_max_square_loss_backward": 1}
+    timed = range(1 + WARMUP_STEPS, 1 + WARMUP_STEPS + REPS)
+    # the main path, counted: every launch from here to the read is the path's
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    state, metrics, secs = _counted_steps("bf16", step, state, pairs, range(1, TRAJ_STEPS),
+                                          per_step, timed)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    model.train_block_fn = FusedBottleneckFn.apply
+    check(seen <= checked["fused_bottleneck_emit_bf16"],
+          f"bf16 emit launched at unchecked shapes {sorted(seen - checked['fused_bottleneck_emit_bf16'])}")
+    traj16 = [{k: v.item() for k, v in m_k.items()}, *metrics]
+    check(all(math.isfinite(v) for m in traj16 for v in m.values()), "non-finite bf16 metrics")
+    loss16 = np.array([m["loss"] for m in traj16])
+    loss32 = np.array([m["loss"] for m in traj32])
+    rel = np.abs(loss16 - loss32) / np.maximum(np.abs(loss32), 1e-3)
+    flat16 = torch.cat([p.detach().flatten() for p in model.parameters()]).double()
+    flat32 = torch.cat([params32[n].flatten() for n, _ in model.named_parameters()]).double()
+    param_rel = ((flat16 - flat32).norm() / flat32.norm()).item()
+    check(rel.max() < TRAJ_LOSS_MAX and rel.mean() < TRAJ_LOSS_MEAN,
+          f"bf16 trajectory: loss off fp32 by {rel.max():.4g} max, {rel.mean():.4g} mean")
+    check(param_rel < TRAJ_PARAM_RTOL_L2, f"bf16 trajectory: parameters off fp32 by {param_rel:.3g}")
+    emit({"phase": "bf16", "run": "uda_IW_maxsquare_r101_bf16", "batch": TRAIN_BATCH,
+          "source_hw": list(SRC_HW), "target_hw": list(TGT_HW), "warmup": WARMUP_STEPS,
+          "reps": REPS, **_rates(secs, 2 * TRAIN_BATCH),
+          "peak_memory_bytes": peak, "peak_memory_gib": peak / 2**30,
+          "launch_counts": counts, "launch_shapes": sorted(seen),
+          "trajectory_steps": TRAJ_STEPS, "trajectory_loss_rel_max": float(rel.max()),
+          "trajectory_loss_rel_mean": float(rel.mean()), "trajectory_param_rel_l2": param_rel,
+          "losses_bf16": loss16.tolist(), "losses_fp32": loss32.tolist()})
+    phase_profile("bf16_train_step", lambda: step(state, *pairs[0]), top_n=16)
+    del state, params32
+    torch.cuda.empty_cache()
+
+    eval_counts = _bf16_eval(model, checked["fused_bottleneck_bf16"])
+    _bf16_concat(model)
+    del model
+    torch.cuda.empty_cache()
+    return counts, eval_counts
+
+
+def _bf16_eval(model, checked: set) -> dict[str, int]:
+    """``evaluate`` (1024x512, 3 batches of 2) and ``make_predict_fn``
+    (0.75,1.0 + flip) in bf16 on ``model``'s weights: argmax agreement of
+    the bf16 logits and trainIds with an fp32 model on the same weights;
+    then REPS timed drives of each, 29 bf16 eval launches a forward at
+    checked shapes. Returns the drives' launch counts."""
+    cfg = dataclasses.replace(TrainConfig(eval_h_chunk=-1), compute_dtype="bfloat16")
+    fp32 = DeepLabV2(model_config(TrainConfig())).to(device="cuda", memory_format=torch.channels_last)
+    fp32.load_state_dict(model.state_dict())
+    ds = SyntheticSegDataset(length=3 * BATCH, hw=IMG_HW, seed=1)
+    batches = list(uint8_batches(ds, BATCH))
+    x0 = torch.from_numpy(batches[0][0]).cuda()
+    with torch.inference_mode():
+        xn, _ = _prepare_inputs(x0, None, cfg)
+        logits16, logits32 = model(xn, aux=False)[1], fp32(xn, aux=False)[1]
+    check(logits16.dtype == torch.float32 and bool(torch.isfinite(logits16).all()),
+          f"bf16 logits {logits16.dtype}")
+    pred16, pred32 = (make_predict_fn(c, m, PREDICT_SCALES, flip=True, out_hw=IMG_HW)(x0)
+                      for c, m in ((cfg, model), (TrainConfig(), fp32)))
+    agreement = {"logits_argmax": (logits16.argmax(-1) == logits32.argmax(-1)).float().mean().item(),
+                 "predict_trainids": (pred16 == pred32).float().mean().item(),
+                 "logits_max_abs_diff": (logits16 - logits32).abs().max().item(),
+                 "logits_max_abs_fp32": logits32.abs().max().item()}
+    del fp32, logits16, logits32, pred16, pred32
+    torch.cuda.empty_cache()
+
+    seen = set()
+    block_fn = model.block_fn
+
+    def recording(x, *args):
+        n, cin, h, w = x.shape
+        seen.add((n, h, w, cin, args[0].shape[-1], args[9]))
+        return block_fn(x, *args)
+
+    model.block_fn = recording
+    predict = make_predict_fn(cfg, model, scales=PREDICT_SCALES, flip=True, out_hw=IMG_HW)
+    valid = sum(int((y >= 0).sum()) for _, y, _ in batches)
+    runs = (("evaluate_1024x512_bf16", lambda: evaluate(model, cfg, batches), len(ds), len(batches)),
+            ("predict_ms_flip_bf16", lambda: predict(x0), BATCH, len(PREDICT_SCALES)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    lines = []
+    for name, fn, images, forwards in runs:
+        secs = []
+        for _ in range(REPS):
+            before = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            delta = {k: v - before[k] for k, v in read_counts().items()}
+            want = {k: 29 * forwards if k in ("fused_bottleneck", "fused_bottleneck_bf16") else 0
+                    for k in delta}
+            check(delta == want, f"{name}: launches {delta}, expected {want}")
+        if name.startswith("evaluate"):
+            total = int(out["_eval"].confusion_matrix.sum())
+            check(total == valid and math.isfinite(out["MIoU"]),
+                  f"{name}: CM counts {total} of {valid}, mIoU {out['MIoU']}")
+        else:
+            check(out.shape == (BATCH, *IMG_HW) and bool(((out >= 0) & (out < 19)).all()),
+                  f"{name}: trainIds {tuple(out.shape)}")
+        rates = sorted(images / s for s in secs)
+        lines.append({"run": name, "images": images, "forwards": forwards, "seconds": secs,
+                      "images_per_s_median": statistics.median(rates),
+                      "images_per_s_min": rates[0], "images_per_s_max": rates[-1]})
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    model.block_fn = block_fn
+    check(seen <= checked, f"bf16 eval launched at unchecked shapes {sorted(seen - checked)}")
+    emit({"phase": "bf16_eval", "runs": lines, "agreement_with_fp32": agreement,
+          "launch_counts": counts, "launch_shapes": sorted(seen),
+          "peak_memory_gib": peak / 2**30})
+    return counts
+
+
+def _bf16_concat(model) -> None:
+    """REPS bf16 steps with --concat_batches on ``model``'s weights: one
+    canvas forward of 8 images a step, 29 masked bf16 emit launches."""
+    cfg = dataclasses.replace(CONCAT_CFG, compute_dtype="bfloat16")
+    pairs = _train_pairs()
+    state, step = make_train_state(model, cfg), make_uda_train_step(cfg)
+    per_step = {"fused_bottleneck_emit": 29, "fused_bottleneck_emit_bf16": 29,
+                "fused_bottleneck_emit_masked": 29, "fused_iw_max_square_loss": 1,
+                "fused_iw_max_square_loss_backward": 1}
+    zero_counts()
+    # one warm-up, REPS timed
+    state, metrics, secs = _counted_steps("bf16 concat", step, state, pairs, range(1 + REPS),
+                                          per_step, range(1, 1 + REPS))
+    check(all(math.isfinite(v) for m in metrics for v in m.values()), "non-finite bf16 concat metrics")
+    emit({"phase": "bf16_concat", "run": "uda_IW_maxsquare_r101_bf16_concat",
+          "canvas_hw": list(CANVAS_HW), **_rates(secs, 2 * TRAIN_BATCH),
+          "launch_counts": read_counts(), "last_metrics": metrics[-1]})
+
+
+def phase_remat() -> None:
+    """``--remat stages`` at full width, fp32 and bf16: one step without
+    remat and one with from the same weights (parity at the kernel path's
+    own limits: the train phase's in fp32, the bf16 phase's in bf16), each
+    step's peak memory with only its own model resident; then WARMUP_STEPS
+    and REPS timed remat steps, 116 emit launches a step (each identity
+    block's forward runs again in the backward)."""
+    pairs = _train_pairs()
+    for dtype in ("float32", "bfloat16"):
+        base = dataclasses.replace(TRAIN_CFG, compute_dtype=dtype)
+        cfg = dataclasses.replace(base, remat="stages")
+        ref = init_deeplabv2(model_config(base), torch.Generator().manual_seed(0), device="cuda")
+        start = {k: v.clone() for k, v in ref.state_dict().items()}
+        p0 = {n: p.detach().clone() for n, p in ref.named_parameters()}
+        peaks, metrics = {}, {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, metrics["plain"] = make_uda_train_step(base)(make_train_state(ref, base), *pairs[0])
+        torch.cuda.synchronize()
+        peaks["plain"] = torch.cuda.max_memory_allocated()
+        for p in ref.parameters():  # only its parameters stay resident
+            p.grad = None
+        model = DeepLabV2(model_config(cfg)).to(device="cuda", memory_format=torch.channels_last)
+        model.load_state_dict(start)
+        del start
+        torch.cuda.empty_cache()
+        step = make_uda_train_step(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, metrics["remat"] = step(make_train_state(model, cfg), *pairs[0])
+        torch.cuda.synchronize()
+        peaks["remat"] = torch.cuda.max_memory_allocated()
+        # both steps are kernel-path steps of one dtype: its limits, no fp32 allowance
+        parity = _parity(f"remat vs no remat ({dtype})", metrics["remat"], model,
+                         metrics["plain"], ref, p0,
+                         (STEP_RTOL, STEP_PARAM_RTOL_L2) if dtype == "float32" else BF16_LIMITS)
+        del ref
+        torch.cuda.empty_cache()
+        per_step = {"fused_bottleneck_emit": 116, "fused_iw_max_square_loss": 1,
+                    "fused_iw_max_square_loss_backward": 1}
+        if dtype == "bfloat16":
+            per_step["fused_bottleneck_emit_bf16"] = 116
+        zero_counts()
+        state, ms, secs = _counted_steps(f"remat {dtype}", step, state, pairs,
+                                         range(1, 1 + WARMUP_STEPS + REPS), per_step,
+                                         range(1 + WARMUP_STEPS, 1 + WARMUP_STEPS + REPS))
+        check(all(math.isfinite(v) for m in ms for v in m.values()), f"remat {dtype}: non-finite metrics")
+        emit({"phase": "remat", "run": f"uda_IW_maxsquare_r101_{dtype}_remat_stages",
+              "compute_dtype": dtype, "parity_vs_no_remat": parity,
+              "peak_memory_gib_no_remat_step": peaks["plain"] / 2**30,
+              "peak_memory_gib_remat_step": peaks["remat"] / 2**30,
+              "peak_ratio": peaks["remat"] / peaks["plain"], **_rates(secs, 2 * TRAIN_BATCH),
+              "launch_counts": read_counts()})
+        del state, model
+        torch.cuda.empty_cache()
 
 
 def _probe_inputs(gen, m, k, n, cells, dtype):
@@ -1576,8 +2000,9 @@ def recorded_shapes():
     bottleneck's (N, H, W, Cin, Cmid, d), eval and emit, from every fused
     block's forward, and the losses' logits (N, H, W, C) from the train
     step's calls."""
-    seen = {"fused_bottleneck": set(), "fused_bottleneck_emit": set(),
-            **{name: set() for name in LOSSES}}
+    seen = {f"{kernel}{suffix}": set() for kernel in ("fused_bottleneck", "fused_bottleneck_emit")
+            for suffix in ("", "_bf16")}
+    seen.update({name: set() for name in LOSSES})
     forward = Bottleneck.forward
 
     def recording_forward(self, x, kernel, train_kernel, mask=None):
@@ -1585,6 +2010,7 @@ def recorded_shapes():
             check(mask is None, "a masked launch on a path whose shapes are held unmasked")
             n, cin, h, w = x.shape
             key = "fused_bottleneck_emit" if torch.is_grad_enabled() else "fused_bottleneck"
+            key += "_bf16" if x.dtype == BF16 else ""
             seen[key].add((n, h, w, cin, self.conv1.out_channels, self.dilation))
         return forward(self, x, kernel, train_kernel, mask)
 
@@ -1612,7 +2038,12 @@ def hold_path_shapes(path: str, seen: dict, checked: dict) -> None:
     gen = torch.Generator().manual_seed(5)
     for kernel, shapes in seen.items():
         for shape in sorted(shapes - checked[kernel]):
-            if kernel == "fused_bottleneck":
+            if kernel.endswith("_bf16"):  # both bf16 instances at once
+                row = _hold_bf16(gen, path, *shape)
+                args = None
+                for name in ("fused_bottleneck_bf16", "fused_bottleneck_emit_bf16"):
+                    checked[name].add(shape)
+            elif kernel == "fused_bottleneck":
                 args, row = _hold_block(gen, path, *shape)
             elif kernel == "fused_bottleneck_emit":
                 args, _, row = _hold_emit(gen, path, *shape)
@@ -1769,8 +2200,11 @@ def phase_crosscity() -> None:
 
 
 def phase_bench() -> None:
-    """The port's bench, in this process, in each mode: its JSON on a line of
-    its own, then the run's launch counts, each exact."""
+    """The port's bench, in this process, in each mode at its defaults
+    (bf16): its JSON on a line of its own, then the run's launch counts,
+    each exact. ``uda`` is the JAX bench's default line: the bf16 step, bf16
+    inference and the fp32 parity leg (fp32, stage remat, batch 8: 116 fp32
+    emit launches a step)."""
     from maxsquareloss_torch import bench
 
     root = tempfile.mkdtemp(prefix="chip_smoke_bench_")
@@ -1780,22 +2214,27 @@ def phase_bench() -> None:
     # e2e: 16 images a domain at batch 8 are 2 steps an epoch; 4 legs of a
     # priming and a timed epoch, then 2 + 6 device-only steps
     e2e_steps = 4 * 2 * 2 + 8
-    uda = {"fused_bottleneck_emit": 58, "fused_iw_max_square_loss": 1,
-           "fused_iw_max_square_loss_backward": 1}
+    losses = {"fused_iw_max_square_loss": 1, "fused_iw_max_square_loss_backward": 1}
+
+    def bf16(kernel, n):  # n bf16 launches of a bottleneck kernel
+        return {kernel: n, f"{kernel}_bf16": n}
+
     runs = (
         ("uda", ["--mode", "uda", *short],
-         {**{k: v * calls for k, v in uda.items()}, "fused_bottleneck": 29 * calls}),
+         {**{k: 2 * v * calls for k, v in losses.items()}, "fused_bottleneck_emit_bf16": 58 * calls,
+          "fused_bottleneck_emit": (58 + 116) * calls, **bf16("fused_bottleneck", 29 * calls)}),
         # equal crops: one unmasked forward over 16 images a step
-        ("uda_concat", ["--mode", "uda", "--concat", *short],
-         {"fused_bottleneck_emit": 29 * calls, "fused_iw_max_square_loss": calls,
-          "fused_iw_max_square_loss_backward": calls, "fused_bottleneck": 29 * calls}),
-        ("source", ["--mode", "source", *short], {"fused_bottleneck_emit": 29 * calls}),
-        ("infer", ["--mode", "infer", *short], {"fused_bottleneck": 29 * calls}),
+        ("uda_concat", ["--mode", "uda", "--concat", "--fp32_parity", "false",
+                        "--with_infer", "false", *short],
+         {**bf16("fused_bottleneck_emit", 29 * calls), **{k: v * calls for k, v in losses.items()}}),
+        ("source", ["--mode", "source", *short], bf16("fused_bottleneck_emit", 29 * calls)),
+        ("infer", ["--mode", "infer", *short], bf16("fused_bottleneck", 29 * calls)),
         ("infer_fullres_labels", ["--mode", "infer", "--label_hw", "1024,2048", *short],
-         {"fused_bottleneck": 29 * calls}),
+         bf16("fused_bottleneck", 29 * calls)),
         ("e2e", ["--mode", "e2e", "--n_per_domain", "16", "--epochs", "1",
                  "--data_root", os.path.join(root, "data")],
-         {k: v * e2e_steps for k, v in uda.items()}),
+         {**bf16("fused_bottleneck_emit", 58 * e2e_steps),
+          **{k: v * e2e_steps for k, v in losses.items()}}),
     )
     try:
         for name, argv, expect in runs:
@@ -1804,8 +2243,13 @@ def phase_bench() -> None:
             check(result["value"] > 0, f"bench {name}: value {result['value']}")
             check(math.isfinite(result["extra"]["final_loss"]),
                   f"bench {name}: final_loss {result['extra']['final_loss']}")
+            extra = result["extra"]
             emit({"phase": "bench", "run": name, "argv": argv, "seconds": line["seconds"],
                   "metric": result["metric"], "value": result["value"],
+                  "extra": {k: extra[k] for k in (
+                      "value_bf16", "value_fp32", "value_fp32_parity", "fp32_global_batch",
+                      "fp32_step_ms", "value_infer_bf16", "infer_int8", "step_ms",
+                      "peak_memory_bytes", "fp32_peak_memory_bytes") if k in extra},
                   "launch_counts": line["launch_counts"]})
             torch.cuda.empty_cache()
     finally:
@@ -2291,27 +2735,45 @@ def main() -> int:
     if sys.argv[1:] == ["--ddp-cards"]:
         return main_ddp_cards()
     t_start = time.perf_counter()
+    seconds = {}
+
+    def lap(name):  # the seconds since the last lap, by phase
+        seconds[name] = time.perf_counter() - t_start - sum(seconds.values())
+
     phase_environment()
     phase_build()
+    lap("build")
     checked, kernel = phase_kernels()
     kernel["launches"] = phase_slice(checked)["launches"]
+    lap("kernels_slice")
     train_kernels = phase_train_loss_kernels()
     emit_checked, emit_kernel = phase_train_block()
     train_kernels.insert(0, emit_kernel)
     counts, bare_steps_per_s = phase_train(emit_checked)
     for k in train_kernels:
         k["launches"] = counts[k["name"]]
+    lap("train")
     probe = phase_probe()
     probe["launches"] = phase_probe_main()
+    lap("probe")
     phase_trainer(bare_steps_per_s)
+    lap("trainer")
     masked_checked, masked_kernel = phase_concat_kernels()
     masked_kernel["launches"] = phase_concat(emit_checked, masked_checked)[
         "fused_bottleneck_emit_masked"]
+    lap("concat")
+    bf16_checked, bf16_kernels = phase_bf16_kernels()
+    bf16_step_counts, bf16_eval_counts = phase_bf16(bf16_checked)
+    bf16_kernels[0]["launches"] = bf16_eval_counts["fused_bottleneck_bf16"]
+    bf16_kernels[1]["launches"] = bf16_step_counts["fused_bottleneck_emit_bf16"]
+    lap("bf16")
+    phase_remat()
+    lap("remat")
     # the later paths: every launch shape no phase above checked is held
     # against the plain version after the path's run
     loss_checked = {(*shape, NUM_CLASSES) for shape in LOSS_SHAPES}
     checked_all = {"fused_bottleneck": checked, "fused_bottleneck_emit": emit_checked,
-                   **{name: set(loss_checked) for name in LOSSES}}
+                   **bf16_checked, **{name: set(loss_checked) for name in LOSSES}}
     root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     try:
         with recorded_shapes() as seen:
@@ -2322,16 +2784,20 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     hold_path_shapes("cli", seen, checked_all)
+    lap("cli")
     for path, phase in (("crosscity", phase_crosscity), ("bench", phase_bench),
                         ("efficacy", phase_efficacy)):
         with recorded_shapes() as seen:
             phase()
         hold_path_shapes(path, seen, checked_all)
+        lap(path)
     phase_ddp(bare_steps_per_s, checked_all)
-    kernels = (kernel, *train_kernels, masked_kernel, probe)
+    lap("ddp")
+    kernels = (kernel, *train_kernels, masked_kernel, *bf16_kernels, probe)
     for k in kernels:
         check(k["launches"] > 0, f"the main path launched no {k['name']}")
-    emit({"phase": "summary", "wall_seconds": time.perf_counter() - t_start})
+    emit({"phase": "summary", "wall_seconds": time.perf_counter() - t_start,
+          "seconds_by_phase": seconds})
     emit({"kernels": [{key: v for key, v in k.items() if key not in ("shapes", "checks")}
                       for k in kernels]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

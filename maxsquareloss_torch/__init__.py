@@ -23,11 +23,15 @@ What is ported so far:
   weights for its ``--seed`` (``utils/jax_random.py``);
 - serving and data tools: ``tools/evaluate.py``, ``tools/predict.py``,
   ``tools/prepare_dataset.py``;
+- mixed precision and remat: ``--compute_dtype bfloat16`` (activations in
+  bf16, parameters, optimizer and checkpoints fp32, logits fp32) and
+  ``--remat stages`` (each ResNet stage recomputed in the backward) through
+  the steps, the trainers, evaluation, prediction and the bench;
 - the benchmark entry point ``bench.py`` (with ``experiments/bench_e2e.py``),
   the adaptation-efficacy harness (``experiments/adaptation_efficacy.py``)
   and the matmul calibration probe (``experiments/bench_matmul.py``).
 The 29 stride-1 identity bottlenecks of ResNet-101 run in one fused CUDA
-kernel each (``kernels/fused_block.py``, ``csrc/fused_bottleneck.cu``;
+kernel each, in fp32 or bf16 (``kernels/fused_block.py``, ``csrc/fused_bottleneck.cu``;
 with grad enabled the kernel also writes h1/h2 for the block's backward),
 the max-square target losses in a fused softmax + loss kernel
 (``kernels/fused_loss.py``, ``csrc/fused_loss.cu``), and the probe's chain

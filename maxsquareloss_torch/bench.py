@@ -11,12 +11,20 @@ Modes:
           target images (``--concat``: as one forward over both batches,
           the step's ``--concat_batches``); ``--with_infer`` (default on)
           also times single-scale val inference and records it as
-          ``value_infer_fp32``
+          ``value_infer_bf16`` or ``value_infer_fp32``; in bf16,
+          ``--fp32_parity`` (default on) also times the JAX bench's fp32
+          parity leg: fp32, stage remat, global batch ``lcm(8, chips)``, as
+          ``value_fp32_parity``
   source  the supervised step on ``--batch`` source images
   infer   val inference: forward (+``--scales``/``--flip``) + upsample +
           argmax + confusion matrix; ``--label_hw`` larger than ``--hw`` is
           the full-resolution label protocol
   e2e     disk → loader → device UDA training (``experiments/bench_e2e.py``)
+
+``--dtype`` (default bfloat16, as the JAX bench) is the compute dtype,
+``--remat stages`` checkpoints each ResNet stage. The JAX bench's int8
+serving leg (``value_infer_int8``) is not ported: the line says so in
+``extra.infer_int8`` with its ROADMAP item, and carries no such value.
 
 The model is DeepLabV2-ResNet101 (``--blocks`` cuts depth) from random
 weights seeded 0; inputs come from ``np.random.default_rng(0)``. Timing:
@@ -33,8 +41,7 @@ under DDP, ``value`` is the global rate over N (images/s per chip, as in
 the JAX bench), ``extra.chips`` is N and rank 0 alone prints the line. With
 one process the line is the one-card line.
 
-Only fp32 is ported: ``--dtype bfloat16``, ``--remat``, ``--quantize``,
-``--fp32_parity true``, ``--xla_options`` and ``--comparator`` raise.
+``--quantize``, ``--xla_options`` and ``--comparator`` raise.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import math
 import os
 import tempfile
 import time
@@ -75,10 +83,17 @@ def _hw(s: str) -> tuple[int, int]:
     return h, w
 
 
-def measure_step_rate(args, device: torch.device) -> dict:
-    """Build, warm up and time one configuration. Returns images/s per
-    chip (the best pass), ms per step of each pass, the last loss and peak
-    memory (this rank's)."""
+# the JAX bench's int8 serving leg, which waits on int8 PTQ
+INT8_UNPORTED = ("not ported: int8 PTQ waits on ROADMAP Queue 1 item 3 (int8 PTQ and the "
+                 "serving export)")
+
+
+def measure_step_rate(args, device: torch.device, dtype: str | None = None,
+                      remat: str | None = None, batch: int | None = None) -> dict:
+    """Build, warm up and time one configuration: ``args``'s, or another
+    ``dtype``, ``remat`` and global ``batch`` (the fp32 parity leg). Returns
+    images/s per chip (the best pass), ms per step of each pass, the last
+    loss and peak memory (this rank's)."""
     from maxsquareloss_torch.models.deeplabv2 import init_deeplabv2
     from maxsquareloss_torch.train.steps import (
         make_supervised_train_step,
@@ -88,12 +103,14 @@ def measure_step_rate(args, device: torch.device) -> dict:
     )
 
     h, w = _hw(args.hw)
-    batch = args.batch
+    batch = args.batch if batch is None else batch
     rows = slice(ddp.rank() * ddp.local_batch(batch, "--batch"),
                  (ddp.rank() + 1) * ddp.local_batch(batch, "--batch"))
     cfg = TrainConfig(
         multi=True, num_classes=19, target_mode="IW_maxsquare", iw_hist=args.iw_hist,
         concat_batches=args.concat,
+        compute_dtype=args.dtype if dtype is None else dtype,
+        remat=args.remat if remat is None else remat,
         blocks=tuple(int(v) for v in args.blocks.split(",")), batch_size=batch,
         eval_h_chunk=args.eval_h_chunk, device=str(device),
     )
@@ -152,12 +169,7 @@ def measure_step_rate(args, device: torch.device) -> dict:
 def _check_supported(args) -> None:
     """Raise on every flag whose feature the port does not have."""
     unported = (
-        (args.dtype != "float32", "--dtype bfloat16 waits on bf16 training "
-         "(ROADMAP Queue 1 item 3, beyond parity)"),
-        (args.remat, "--remat waits on bf16 training and remat (ROADMAP Queue 1 item 3)"),
         (args.quantize, "--quantize waits on int8 PTQ (ROADMAP Queue 1 item 3)"),
-        (args.fp32_parity, "--fp32_parity is the JAX bench's batch-8 + stage-remat leg; "
-         "here fp32 is the headline and remat is not ported (ROADMAP Queue 1 item 3)"),
         (args.xla_options is not None, "--xla_options configures XLA, which the port does not use"),
         (args.comparator is not None, "--comparator: the port's JSON carries no comparator "
          "and no vs_baseline"),
@@ -169,7 +181,7 @@ def _check_supported(args) -> None:
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser("bench")
-    p.add_argument("--dtype", default="float32", choices=("bfloat16", "float32"))
+    p.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--warmup", type=int, default=3)
@@ -197,7 +209,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "blocks of this height (-1 = auto: 256 when label H > 512; 0 = off)")
     p.add_argument("--xla_options", default=None)
     p.add_argument("--comparator", type=float, default=None)
-    p.add_argument("--fp32_parity", type=str2bool, default=None)
+    p.add_argument("--fp32_parity", type=str2bool, default=None,
+                   help="also time the fp32 parity leg (fp32, stage remat, global batch "
+                        "lcm(8, chips)); default: true for --mode uda in bf16")
     p.add_argument("--with_infer", type=str2bool, default=None,
                    help="also time single-scale inference (default: true for --mode uda)")
     p.add_argument("--data_root", default=os.path.join(tempfile.gettempdir(), "bench_e2e_data"),
@@ -231,14 +245,15 @@ def main(argv=None) -> dict:
         return result
 
     h, w = _hw(args.hw)
+    tag = "bf16" if args.dtype == "bfloat16" else "fp32"
     m = measure_step_rate(args, device)
     extra = {
         "chips": ddp.world(), "global_batch": args.batch, "blocks": args.blocks, "iw_hist": args.iw_hist,
-        "concat_batches": args.concat,
+        "concat_batches": args.concat, "compute_dtype": args.dtype, "remat": args.remat,
         "step_ms": min(m["step_ms_passes"]), "step_ms_passes": m["step_ms_passes"],
         "final_loss": m["final_loss"], "peak_memory_bytes": m["peak_memory_bytes"],
         **device_report(device),
-        "value_fp32": m["images_per_sec"],
+        f"value_{tag}": m["images_per_sec"],
     }
     if args.mode == "infer":
         extra.update(scales=args.scales, flip=args.flip, label_hw=args.label_hw or args.hw,
@@ -247,13 +262,26 @@ def main(argv=None) -> dict:
     if with_infer and args.mode != "infer":
         iargs = copy.copy(args)
         iargs.mode = "infer"
-        inf = measure_step_rate(iargs, device)
-        extra.update(value_infer_fp32=inf["images_per_sec"],
+        inf = measure_step_rate(iargs, device, remat="")
+        extra.update({f"value_infer_{tag}": inf["images_per_sec"]}, infer_int8=INT8_UNPORTED,
                      infer_step_ms=min(inf["step_ms_passes"]),
                      infer_step_ms_passes=inf["step_ms_passes"],
                      infer_scales=args.scales, infer_flip=args.flip,
                      infer_label_hw=args.label_hw or args.hw,
                      infer_eval_h_chunk=args.eval_h_chunk)
+    do_fp32 = args.fp32_parity
+    if do_fp32 is None:
+        do_fp32 = args.mode == "uda" and args.dtype == "bfloat16"
+    if do_fp32 and args.mode != "infer":
+        # fp32 is the parity dtype; the JAX bench takes it at batch 8 with
+        # stage remat, scaled to lcm(8, chips) so that it shards evenly
+        fp32_batch = math.lcm(8, ddp.world())
+        par = measure_step_rate(args, device, dtype="float32", remat="stages", batch=fp32_batch)
+        extra.update(fp32_global_batch=fp32_batch, value_fp32_parity=par["images_per_sec"],
+                     fp32_step_ms=min(par["step_ms_passes"]),
+                     fp32_step_ms_passes=par["step_ms_passes"],
+                     fp32_final_loss=par["final_loss"],
+                     fp32_peak_memory_bytes=par["peak_memory_bytes"])
     result = {
         "metric": (f"{args.mode}{'_train' if args.mode != 'infer' else ''}"
                    f"_images_per_sec_per_chip_{w}x{h}_{args.dtype}"),

@@ -4,7 +4,8 @@ port's own copy of ``maxsquareloss_tpu/config.py``).
 ``TrainConfig`` has every field of the JAX package's, under the same names
 and defaults, plus ``device`` (``None``: the card). ``add_train_args``,
 ``add_uda_train_args`` and ``config_from_args`` keep flag-for-flag parity
-with the JAX CLIs. The paths compute in float32, one process per card
+with the JAX CLIs. The paths compute in ``--compute_dtype`` (float32 or
+bfloat16; parameters, optimizer and checkpoints float32), one process per card
 (``parallel/``: ``torchrun``, or the JAX CLIs' ``--coordinator_address
 --num_processes --process_id``); batch sizes are global. A flag for
 something the port does not have yet raises in ``check_supported`` with the
@@ -18,6 +19,8 @@ import dataclasses
 import os
 from typing import Any
 
+import torch
+
 TARGET_MODES = ("maxsquare", "IW_maxsquare", "entropy", "IW_entropy", "hard")
 DATASETS = ("cityscapes", "gta5", "synthia", "crosscity")
 
@@ -30,8 +33,8 @@ class TrainConfig:
     blocks: tuple[int, ...] = (3, 4, 23, 3)  # ResNet-101; tests shrink this
     multi: bool = True                 # multi-level (aux head layer5)
     freeze_bn: bool = True             # BN is always frozen (folded buffers)
-    compute_dtype: str = "float32"     # the fused kernels take float32 only
-    remat: str = ""
+    compute_dtype: str = "float32"     # 'float32' | 'bfloat16' (activations only)
+    remat: str = ""                    # '' | 'stages': recompute each ResNet stage
     xla_options: str = "auto"          # the JAX package's compiler knob; none here
     concat_batches: bool = False       # UDA: one masked-canvas forward for both batches
 
@@ -119,14 +122,16 @@ class TrainConfig:
     def effective_iter_stop(self) -> int:
         return self.iter_stop if self.iter_stop is not None else self.iter_max
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The torch dtype of ``compute_dtype``."""
+        return torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
+
 
 # (field, value that is fine, why not) for every option the port lacks
 _UNPORTED = (
-    ("compute_dtype", "float32", "--compute_dtype bfloat16 waits on bf16 training "
-     "(ROADMAP Queue 1 item 3, beyond parity)"),
-    ("remat", "", "--remat waits on bf16 training and remat (ROADMAP Queue 1 item 3, "
-     "beyond parity)"),
-    ("quantize", "", "--quantize waits on int8 PTQ (ROADMAP Queue 1 item 3, beyond parity)"),
+    ("quantize", "", "--quantize waits on int8 PTQ (ROADMAP Queue 1 item 3, int8 PTQ and "
+     "the serving export)"),
     ("loader", "threads", "--loader grain waits on the grain pipeline (ROADMAP Queue 1 "
      "item 1, hostops and grain)"),
     ("sp", 1, "--sp > 1 waits on spatial partitioning (ROADMAP Queue 1 item 2, spatial "

@@ -1,9 +1,10 @@
-// Fused stride-1 identity bottleneck, forward, fp32, for Hopper (sm_90a).
+// Fused stride-1 identity bottleneck, forward, fp32 or bf16, for Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernel experiments/retired_pallas/fused_block.py
 // (_kernel_body, launched by _call_kernel from fused_bottleneck_padded with
 // emit=False, and from the training forward _fwd with emit=True). It
-// computes, for x and out in NHWC (channels-last) fp32,
+// computes, for x and out in NHWC (channels-last) in the compute dtype,
 //
 //   out = relu(bn3(conv3(relu(bn2(conv2_d(relu(bn1(conv1 x))))))) + x)
 //
@@ -63,7 +64,7 @@
 //   activations (a broadcast float4) and consecutive weight columns (a
 //   quarter warp on 128 contiguous bytes: no bank conflict, so the stage rows
 //   need no padding). Where a warp spans several pixel tiles (Cmid < 256) the
-//   h1/h2 pixel stride is padded by 4 floats.
+//   h1/h2 pixel stride is padded by 16 bytes (4 floats, 8 bf16).
 // - Every thread has a tile in every conv: threads = T pixel tiles x BN/8
 //   channel groups exactly, with PX = ceil(pixels / T) chosen per conv by
 //   kernels/fused_block.py plan_tiles (which owns the shared-memory budget:
@@ -93,12 +94,27 @@
 //   place h1 is made, so the ring, conv2's input and the emitted h1 are all
 //   the masked h1; conv2, conv3, h2 and out run over the whole canvas as
 //   before. A runtime argument: no template instance of its own.
+// - bf16 (the library built with -DMSL_BF16, kernels/fused_block.py): the
+//   same body with every tensor but the BN vectors in bf16 (the weights the
+//   caller's HWIO copies cast from fp32, as the TPU kernel's _prep casts
+//   them). Operands are staged as bf16 (a 16-byte cp.async moves 8 of
+//   them; an x stage and an h1/h2 pixel are padded by 16 bytes, 8
+//   elements), widened to fp32 in registers where mac_stage reads them, and
+//   the fp32 FMA loop accumulates. Results are rounded to bf16 where the
+//   Pallas body casts to the compute dtype: each conv's fp32 sum; the BN's
+//   product and its sum (the BN vectors rounded to bf16 as they are read);
+//   the residual add; the ReLU is exact. h1 and h2 are stored as bf16, the
+//   ring and the emitted copies alike. No tensor cores yet: against
+//   device memory and L2 the work is the fp32 kernel's at half the bytes,
+//   and it stays bound by the FMA issue rate (plus one widening per operand
+//   element read), far from the card's 989 TFLOP/s bf16 rate.
 // - Left for later: more pixels per weight pass at layer4 (thread block
 //   clusters with multicast weight stages) and the tensor cores. Split-TF32
 //   mma.sync (three products) was measured at this structure: 1.17x the FMA
 //   loop at layer3's widths, 0.94x at layer4's, with 9-12x the error
 //   (PERF.md), so it needs wgmma and the wider tiles first.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -107,38 +123,99 @@ namespace {
 
 // KB, a template parameter below: k rows per weight stage and channels per x
 // stage, 16 where the shared memory has room for it, else 8 (plan_tiles).
-// An x stage keeps KB + 4 floats between two pixels.
+// An x stage keeps KB + kVec elements (16 bytes more) between two pixels.
 constexpr int kMaxThreads = 256;
 constexpr int kCh = 8;         // channels per thread tile
 
+#ifdef MSL_BF16
+using Elem = __nv_bfloat16;    // the type of every tensor but the BN vectors
+#else
+using Elem = float;
+#endif
+constexpr int kVec = 16 / sizeof(Elem);  // elements per 16-byte copy
+
 struct Args {
-  const float* x;
-  const float* w1;  // (Cin, Cmid)
-  const float* w2;  // (3, 3, Cmid, Cmid), HWIO: a (9*Cmid, Cmid) matrix
-  const float* w3;  // (Cmid, Cin)
-  const float* s1;
+  const Elem* x;
+  const Elem* w1;  // (Cin, Cmid)
+  const Elem* w2;  // (3, 3, Cmid, Cmid), HWIO: a (9*Cmid, Cmid) matrix
+  const Elem* w3;  // (Cmid, Cin)
+  const float* s1;  // the folded frozen-BN vectors, fp32
   const float* b1;
   const float* s2;
   const float* b2;
   const float* s3;
   const float* b3;
-  float* out;
-  float* h1;  // (N, H, W, Cmid) with emit, else null
-  float* h2;  // (N, H, W, Cmid) with emit, else null
+  Elem* out;
+  Elem* h1;  // (N, H, W, Cmid) with emit, else null
+  Elem* h2;  // (N, H, W, Cmid) with emit, else null
   const int* valid;  // (N, 2) valid rows and columns of each image, or null
   int N, H, W, Cin, Cmid, d, TW, RS, S;
   // from plan_tiles: conv3's columns per pass, the pixels per thread tile of
-  // each conv, the pixel stride of h1/h2, the floats of one weight stage
+  // each conv, the pixel stride of h1/h2, the elements of one weight stage
   // buffer, the pixels of one x stage buffer and the k rows of a stage
   int bn3, px1, px2, px3, ldh, wstage, xs_px, kb;
 };
 
+// Four bf16 (8 bytes, the lower address in the low half of each word) as
+// fp32: a bf16 is the high half of the fp32 of the same value.
+__device__ __forceinline__ float4 widen_bf16x4(uint2 u) {
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+// four consecutive elements in shared memory, as fp32
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 lds4(const __nv_bfloat16* p) {
+  return widen_bf16x4(*reinterpret_cast<const uint2*>(p));
+}
+
+// four consecutive elements in device memory, through the read-only cache
 __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
+__device__ __forceinline__ float4 ldg4(const __nv_bfloat16* p) {
+  return widen_bf16x4(__ldg(reinterpret_cast<const uint2*>(p)));
+}
 
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// four values that are exact in Elem (rounded by the epilogue), stored
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  // exact in bf16: each value's low 16 bits are 0, its high half is its bits
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2((__float_as_uint(v.x) >> 16) | (__float_as_uint(v.y) & 0xffff0000u),
+                 (__float_as_uint(v.z) >> 16) | (__float_as_uint(v.w) & 0xffff0000u));
+}
+
+// v rounded to Elem (to nearest, ties to even), as fp32
+__device__ __forceinline__ float rnd(float v) {
+#ifdef MSL_BF16
+  return __bfloat162float(__float2bfloat16_rn(v));
+#else
+  return v;
+#endif
+}
+
+// The frozen BN y * s + b of a conv's fp32 sum z, in the compute dtype's
+// arithmetic: in fp32 one fused multiply-add; in bf16 the Pallas body's
+// casts: z rounded (the conv's output), then the product and the sum each
+// rounded (s and b are bf16 values already, bn_vec).
+__device__ __forceinline__ float frozen_bn(float z, float s, float b) {
+#ifdef MSL_BF16
+  return rnd(rnd(rnd(z) * s) + b);
+#else
+  return fmaf(z, s, b);
+#endif
+}
+
+// Four BN scale or bias values from the fp32 vector, rounded to Elem as the
+// TPU kernel's _prep casts them.
+__device__ __forceinline__ float4 bn_vec(const float* p) {
+  const float4 v = ldg4(p);
+  return make_float4(rnd(v.x), rnd(v.y), rnd(v.z), rnd(v.w));
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -163,12 +240,12 @@ __device__ __forceinline__ void cp_async_wait_all() {
 __device__ __forceinline__ int ring_slot(int j) { return (j + 3) % 3; }
 
 // Start the copy of the weight stage W[k0 : k0+KB, n0 : n0+bn) (row-major,
-// ld = ldw) into ws (dense, ld = bn). blockDim.x is a multiple of bn / 4.
+// ld = ldw) into ws (dense, ld = bn). blockDim.x is a multiple of bn / kVec.
 template <int KB>
-__device__ __forceinline__ void stage_weights(float* ws, const float* __restrict__ w,
+__device__ __forceinline__ void stage_weights(Elem* ws, const Elem* __restrict__ w,
                                               int ldw, int n0, int k0, int bn) {
-  const int per_row = bn >> 2;
-  const int col = (threadIdx.x % per_row) << 2;
+  const int per_row = bn / kVec;
+  const int col = (threadIdx.x % per_row) * kVec;
   const int step = blockDim.x / per_row;
   for (int r = threadIdx.x / per_row; r < KB; r += step)
     cp_async16(ws + r * bn + col, w + (size_t)(k0 + r) * ldw + n0 + col);
@@ -176,10 +253,11 @@ __device__ __forceinline__ void stage_weights(float* ws, const float* __restrict
 
 // acc[p][c] += sum over the stage's KB k of A(p, k) * W(k, c): A(p, k) at
 // ap[p * lda + k] (the same address for every thread of a pixel tile), W at
-// wp[k * bn + c] for c < 4 and wp[k * bn + bn/2 + c - 4] for c >= 4.
+// wp[k * bn + c] for c < 4 and wp[k * bn + bn/2 + c - 4] for c >= 4; both
+// widened to fp32 as they are read.
 template <int PX, int KB>
-__device__ __forceinline__ void mac_stage(float (&acc)[PX][kCh], const float* ap, int lda,
-                                          const float* wp, int bn) {
+__device__ __forceinline__ void mac_stage(float (&acc)[PX][kCh], const Elem* ap, int lda,
+                                          const Elem* wp, int bn) {
   const int half = bn >> 1;
 #pragma unroll
   for (int kk = 0; kk < KB; kk += 4) {
@@ -215,16 +293,16 @@ __device__ __forceinline__ void clear(float (&acc)[PX][kCh]) {
 }
 
 __device__ __forceinline__ float4 bn_relu(const float* v, float4 s, float4 b) {
-  return make_float4(fmaxf(v[0] * s.x + b.x, 0.f), fmaxf(v[1] * s.y + b.y, 0.f),
-                     fmaxf(v[2] * s.z + b.z, 0.f), fmaxf(v[3] * s.w + b.w, 0.f));
+  return make_float4(fmaxf(frozen_bn(v[0], s.x, b.x), 0.f), fmaxf(frozen_bn(v[1], s.y, b.y), 0.f),
+                     fmaxf(frozen_bn(v[2], s.z, b.z), 0.f), fmaxf(frozen_bn(v[3], s.w, b.w), 0.f));
 }
 
 // h1 for image row r at columns [col0 - d, col0 + TW + d) into one ring slot;
 // exact zeros at pixels outside the image, and outside its valid rows and
 // columns on a masked canvas. One pass over w1: BN = Cmid.
 template <int PX, int KB>
-__device__ __forceinline__ void conv1_row(const Args& a, float* slot, float* wst,
-                                          float* xst, int n, int r, int col0) {
+__device__ __forceinline__ void conv1_row(const Args& a, Elem* slot, Elem* wst,
+                                          Elem* xst, int n, int r, int col0) {
   const int P1 = a.TW + 2 * a.d;
   const int tid = threadIdx.x, nt = blockDim.x;
   // image n's valid extent (the wrapper keeps it within [1, H] x [1, W])
@@ -234,10 +312,10 @@ __device__ __forceinline__ void conv1_row(const Args& a, float* slot, float* wst
   // readers (conv3) are done
   __syncthreads();
   if (r < 0 || r >= vh) {  // the same for the whole block: a block has one image
-    const int nq = a.Cmid >> 2;
+    const int nq = a.Cmid / kVec;
     for (int i = tid; i < P1 * nq; i += nt)
-      *reinterpret_cast<float4*>(slot + (i / nq) * a.ldh + (i % nq) * 4) =
-          make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<uint4*>(slot + (i / nq) * a.ldh + (i % nq) * kVec) =
+          make_uint4(0u, 0u, 0u, 0u);
     return;
   }
   const int bn = a.Cmid;
@@ -245,16 +323,17 @@ __device__ __forceinline__ void conv1_row(const Args& a, float* slot, float* wst
   const int q = tid % groups, c0 = (tid / groups) * PX;  // first pixel of the tile
   const int colf = col0 - a.d + c0;                        // its image column
   const bool active = c0 < P1 && colf < vw && colf + PX > 0;
-  const float* xrow = a.x + (size_t)(n * a.H + r) * a.W * a.Cin;
-  constexpr int kXLd = KB + 4;
+  const Elem* xrow = a.x + (size_t)(n * a.H + r) * a.W * a.Cin;
+  constexpr int kXLd = KB + kVec;
+  constexpr int kParts = KB / kVec;  // 16-byte copies per pixel and stage
   const int xlen = a.xs_px * kXLd;
 
   auto start_stage = [&](int i) {
     const int k0 = i * KB;
     stage_weights<KB>(wst + (i & 1) * a.wstage, a.w1, a.Cmid, 0, k0, bn);
-    float* xs = xst + (i & 1) * xlen;
-    for (int j = tid; j < P1 * (KB / 4); j += nt) {
-      const int pix = j / (KB / 4), part = (j % (KB / 4)) * 4;
+    Elem* xs = xst + (i & 1) * xlen;
+    for (int j = tid; j < P1 * kParts; j += nt) {
+      const int pix = j / kParts, part = (j % kParts) * kVec;
       const int col = col0 - a.d + pix;
       const bool ok = col >= 0 && col < a.W;
       cp_async16(xs + pix * kXLd + part,
@@ -278,16 +357,16 @@ __device__ __forceinline__ void conv1_row(const Args& a, float* slot, float* wst
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int ch = hf * (bn >> 1) + q * 4;
-    const float4 s = ldg4(a.s1 + ch);
-    const float4 b = ldg4(a.b1 + ch);
+    const float4 s = bn_vec(a.s1 + ch);
+    const float4 b = bn_vec(a.b1 + ch);
 #pragma unroll
     for (int p = 0; p < PX; ++p) {
       const int c = c0 + p;
       const int col = col0 - a.d + c;
       if (c < P1)
-        *reinterpret_cast<float4*>(slot + c * a.ldh + ch) =
-            (col >= 0 && col < vw) ? bn_relu(&acc[p][hf * 4], s, b)
-                                    : make_float4(0.f, 0.f, 0.f, 0.f);
+        store4(slot + c * a.ldh + ch, (col >= 0 && col < vw)
+                                          ? bn_relu(&acc[p][hf * 4], s, b)
+                                          : make_float4(0.f, 0.f, 0.f, 0.f));
     }
   }
 }
@@ -296,8 +375,8 @@ __device__ __forceinline__ void conv1_row(const Args& a, float* slot, float* wst
 // Emit also into device memory at image row r. One pass over w2: BN = Cmid,
 // K = 9 * Cmid tap by tap; TW = pixel tiles x PX exactly.
 template <int PX, int KB, bool Emit>
-__device__ __forceinline__ void conv2_row(const Args& a, const float* h1, float* h2,
-                                          float* wst, int j, int n, int r, int col0) {
+__device__ __forceinline__ void conv2_row(const Args& a, const Elem* h1, Elem* h2,
+                                          Elem* wst, int j, int n, int r, int col0) {
   const int P1 = a.TW + 2 * a.d;
   const int tid = threadIdx.x;
   const int bn = a.Cmid;
@@ -322,7 +401,7 @@ __device__ __forceinline__ void conv2_row(const Args& a, const float* h1, float*
     }
     if (active) {
       const int ra = tap / 3, cb = tap - 3 * ra;
-      const float* ap = h1 + ring_slot(j - 1 + ra) * slot_len + (c0 + cb * a.d) * a.ldh + kc;
+      const Elem* ap = h1 + ring_slot(j - 1 + ra) * slot_len + (c0 + cb * a.d) * a.ldh + kc;
       mac_stage<PX, KB>(acc, ap, a.ldh, wst + (i & 1) * a.wstage + q * 4, bn);
     }
     kc += KB;
@@ -335,39 +414,37 @@ __device__ __forceinline__ void conv2_row(const Args& a, const float* h1, float*
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int ch = hf * (bn >> 1) + q * 4;
-    const float4 s = ldg4(a.s2 + ch);
-    const float4 b = ldg4(a.b2 + ch);
+    const float4 s = bn_vec(a.s2 + ch);
+    const float4 b = bn_vec(a.b2 + ch);
 #pragma unroll
     for (int p = 0; p < PX; ++p) {
       const float4 y = bn_relu(&acc[p][hf * 4], s, b);
-      *reinterpret_cast<float4*>(h2 + (c0 + p) * a.ldh + ch) = y;
+      store4(h2 + (c0 + p) * a.ldh + ch, y);
       const int col = col0 + c0 + p;
       if (Emit && col < a.W)
-        *reinterpret_cast<float4*>(
-            a.h2 + ((size_t)(n * a.H + r) * a.W + col) * a.Cmid + ch) = y;
+        store4(a.h2 + ((size_t)(n * a.H + r) * a.W + col) * a.Cmid + ch, y);
     }
   }
 }
 
 // With Emit: h1 of image row r, the strip's own columns of its ring slot.
-__device__ void store_h1_row(const Args& a, const float* slot, int n, int r, int col0) {
-  const int nq = a.Cmid / 4;
+__device__ void store_h1_row(const Args& a, const Elem* slot, int n, int r, int col0) {
+  const int nq = a.Cmid / kVec;
   const int items = nq * a.TW;
   for (int item = threadIdx.x; item < items; item += blockDim.x) {
     const int q = item % nq;
     const int c = item / nq;
     const int col = col0 + c;
     if (col < a.W)
-      *reinterpret_cast<float4*>(
-          a.h1 + ((size_t)(n * a.H + r) * a.W + col) * a.Cmid + q * 4) =
-          lds4(slot + (c + a.d) * a.ldh + q * 4);
+      *reinterpret_cast<uint4*>(a.h1 + ((size_t)(n * a.H + r) * a.W + col) * a.Cmid + q * kVec) =
+          *reinterpret_cast<const uint4*>(slot + (c + a.d) * a.ldh + q * kVec);
   }
 }
 
 // out row r = relu(bn3(conv3 h2) + x), in Cin / bn3 passes over the columns
 // of w3; the stages of all passes form one pipeline.
 template <int PX, int KB>
-__device__ __forceinline__ void conv3_row(const Args& a, const float* h2, float* wst,
+__device__ __forceinline__ void conv3_row(const Args& a, const Elem* h2, Elem* wst,
                                           int n, int r, int col0) {
   const int tid = threadIdx.x;
   const int bn = a.bn3;
@@ -400,8 +477,8 @@ __device__ __forceinline__ void conv3_row(const Args& a, const float* h2, float*
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
           const int ch = n0 + hf * (bn >> 1) + q * 4;
-          const float4 s = ldg4(a.s3 + ch);
-          const float4 b = ldg4(a.b3 + ch);
+          const float4 s = bn_vec(a.s3 + ch);
+          const float4 b = bn_vec(a.b3 + ch);
 #pragma unroll
           for (int p = 0; p < PX; ++p) {
             const int col = col0 + c0 + p;
@@ -409,12 +486,13 @@ __device__ __forceinline__ void conv3_row(const Args& a, const float* h2, float*
               const size_t o = ((size_t)(n * a.H + r) * a.W + col) * a.Cin + ch;
               const float4 xr = ldg4(a.x + o);
               const float* v = &acc[p][hf * 4];
+              // the residual add rounds once more in bf16
               float4 y;
-              y.x = fmaxf(v[0] * s.x + b.x + xr.x, 0.f);
-              y.y = fmaxf(v[1] * s.y + b.y + xr.y, 0.f);
-              y.z = fmaxf(v[2] * s.z + b.z + xr.z, 0.f);
-              y.w = fmaxf(v[3] * s.w + b.w + xr.w, 0.f);
-              *reinterpret_cast<float4*>(a.out + o) = y;
+              y.x = fmaxf(rnd(frozen_bn(v[0], s.x, b.x) + xr.x), 0.f);
+              y.y = fmaxf(rnd(frozen_bn(v[1], s.y, b.y) + xr.y), 0.f);
+              y.z = fmaxf(rnd(frozen_bn(v[2], s.z, b.z) + xr.z), 0.f);
+              y.w = fmaxf(rnd(frozen_bn(v[3], s.w, b.w) + xr.w), 0.f);
+              store4(a.out + o, y);
             }
           }
         }
@@ -445,11 +523,11 @@ __device__ __forceinline__ void conv3_row(const Args& a, const float* h2, float*
 template <bool Emit>
 __global__ void __launch_bounds__(kMaxThreads) fused_bottleneck_kernel(const Args a) {
   extern __shared__ float4 smem4[];
-  float* h1 = reinterpret_cast<float*>(smem4);
+  Elem* h1 = reinterpret_cast<Elem*>(smem4);
   const int P1 = a.TW + 2 * a.d;
   const int slot_len = P1 * a.ldh;
-  float* wst = h1 + 3 * slot_len;
-  float* xst = wst + 2 * a.wstage;  // (a.kb + 4) floats a pixel
+  Elem* wst = h1 + 3 * slot_len;
+  Elem* xst = wst + 2 * a.wstage;  // a.kb + kVec elements a pixel
 
   const int col0 = blockIdx.x * a.TW;
   int chain = blockIdx.y;
@@ -465,7 +543,7 @@ __global__ void __launch_bounds__(kMaxThreads) fused_bottleneck_kernel(const Arg
   for (int j = j0 - 2; j < j0 + a.RS; ++j) {
     const int r = res + a.d * j;
     if (j >= j0 && r >= a.H) break;
-    float* fill = h1 + ring_slot(j + 1) * slot_len;
+    Elem* fill = h1 + ring_slot(j + 1) * slot_len;
     if (a.kb == 16) {
       DISPATCH_PX(a.px1, (conv1_row<PX, 16>(a, fill, wst, xst, n, r + a.d, col0)))
     } else {
@@ -476,7 +554,7 @@ __global__ void __launch_bounds__(kMaxThreads) fused_bottleneck_kernel(const Arg
     if (Emit) store_h1_row(a, h1 + ring_slot(j) * slot_len, n, r, col0);
     // conv2 of row j is the last reader of h1 row j-1, so h2 goes into that
     // slot, where it stays until the next trip's conv1 refills it
-    float* h2 = h1 + ring_slot(j - 1) * slot_len;
+    Elem* h2 = h1 + ring_slot(j - 1) * slot_len;
     if (a.kb == 16) {
       DISPATCH_PX(a.px2, (conv2_row<PX, 16, Emit>(a, h1, h2, wst, j, n, r, col0)))
     } else {
@@ -506,16 +584,25 @@ bool px_ok(int px) { return px >= 1 && px <= 8; }
 
 }  // namespace
 
+// The launch function of this library's element type: fp32, or bf16 when
+// built with -DMSL_BF16 (kernels/fused_block.py loads each by its name).
+#ifdef MSL_BF16
+#define MSL_FUSED_BOTTLENECK msl_fused_bottleneck_bf16
+#else
+#define MSL_FUSED_BOTTLENECK msl_fused_bottleneck_f32
+#endif
+
 // The tile arguments come from kernels/fused_block.py plan_tiles, which owns
 // their arithmetic: threads (128 or 256) = pixel tiles x Cmid/8 = pixel
 // tiles x bn3/8; TW = px2 x Cmid-tiles = px3 x bn3-tiles; px1 x tiles >=
-// TW + 2d; ldh >= Cmid; kb 8 or 16; wstage >= kb * max(Cmid, bn3) floats;
-// xs_px >= TW + 2d.
+// TW + 2d; ldh >= Cmid, a multiple of 16 bytes; kb 8 or 16; wstage >= kb *
+// max(Cmid, bn3) elements; xs_px >= TW + 2d.
+// x, the weights, out, h1 and h2 are Elem; the six BN vectors fp32.
 // h1, h2: both null (eval) or both (N, H, W, Cmid) outputs (training).
 // valid: null, or N x 2 ints on the device, each image's valid rows in
 // [1, H] and columns in [1, W] (kernels/fused_block.py _check); it must be
 // 4-byte aligned.
-extern "C" int msl_fused_bottleneck_f32(
+extern "C" int MSL_FUSED_BOTTLENECK(
     const void* x, const void* w1, const void* w2, const void* w3,
     const void* s1, const void* b1, const void* s2, const void* b2,
     const void* s3, const void* b3, void* out, void* h1, void* h2,
@@ -524,19 +611,19 @@ extern "C" int msl_fused_bottleneck_f32(
     int smem_bytes, int bn3, int px1, int px2, int px3, int ldh, int wstage,
     int xs_px, int kb, void* stream) {
   Args a;
-  a.x = static_cast<const float*>(x);
-  a.w1 = static_cast<const float*>(w1);
-  a.w2 = static_cast<const float*>(w2);
-  a.w3 = static_cast<const float*>(w3);
+  a.x = static_cast<const Elem*>(x);
+  a.w1 = static_cast<const Elem*>(w1);
+  a.w2 = static_cast<const Elem*>(w2);
+  a.w3 = static_cast<const Elem*>(w3);
   a.s1 = static_cast<const float*>(s1);
   a.b1 = static_cast<const float*>(b1);
   a.s2 = static_cast<const float*>(s2);
   a.b2 = static_cast<const float*>(b2);
   a.s3 = static_cast<const float*>(s3);
   a.b3 = static_cast<const float*>(b3);
-  a.out = static_cast<float*>(out);
-  a.h1 = static_cast<float*>(h1);
-  a.h2 = static_cast<float*>(h2);
+  a.out = static_cast<Elem*>(out);
+  a.h1 = static_cast<Elem*>(h1);
+  a.h2 = static_cast<Elem*>(h2);
   if ((h1 == nullptr) != (h2 == nullptr)) return (int)cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(valid) % alignof(int)) return (int)cudaErrorInvalidValue;
   a.valid = static_cast<const int*>(valid);
@@ -566,7 +653,7 @@ extern "C" int msl_fused_bottleneck_f32(
   if (TW != px2 * (threads / (Cmid / 8)) || TW != px3 * (threads / (bn3 / 8)) ||
       px1 * (threads / (Cmid / 8)) < TW + 2 * d)
     return (int)cudaErrorInvalidValue;
-  if (ldh < Cmid || ldh % 4 || wstage < kb * (Cmid > bn3 ? Cmid : bn3) ||
+  if (ldh < Cmid || ldh % kVec || wstage < kb * (Cmid > bn3 ? Cmid : bn3) ||
       xs_px < TW + 2 * d)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -217,6 +217,7 @@ def run_e2e(args) -> dict:
         iw_hist=getattr(args, "iw_hist", "argmax"),
         concat_batches=getattr(args, "concat", False),
         blocks=tuple(blocks), batch_size=args.batch, gaussian_blur=True,
+        compute_dtype=args.dtype, remat=getattr(args, "remat", ""),
         # torchvision normalization: from a random init the caffe transform
         # (inputs +-128, no std division) diverges to NaN within an epoch
         numpy_transform=False,
@@ -294,6 +295,8 @@ def run_e2e(args) -> dict:
             "blocks": ",".join(str(b) for b in cfg.blocks),
             "iw_hist": cfg.iw_hist,
             "concat_batches": cfg.concat_batches,
+            "compute_dtype": cfg.compute_dtype,
+            "remat": cfg.remat,
             "final_loss": loss,
             "chips": ddp.world(),
             **device_report(device),

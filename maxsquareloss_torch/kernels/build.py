@@ -3,7 +3,9 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface under ``build/``, named by a hash of its content
 and the flags, so it compiles once per content; the library is loaded with
-``ctypes``. Nothing here runs at import: the CPU tests import every module,
+``ctypes``. A source may be built more than once with other ``-D``
+defines (the fused bottleneck's bf16 instance), each into a library of
+its own, so one build never waits on the other's instances. Nothing here runs at import: the CPU tests import every module,
 and a machine without a card has no ``nvcc``. Every source exports
 ``msl_cuda_error_string`` beside its launch functions.
 """
@@ -27,10 +29,12 @@ NVCC_FLAGS = (
 
 
 @functools.lru_cache(maxsize=None)
-def build(source: Path) -> Path:
-    """Compile ``source`` into ``build/`` (once per content); the library path."""
+def build(source: Path, defines: tuple[str, ...] = ()) -> Path:
+    """Compile ``source`` with the ``-D`` flags ``defines`` into ``build/``
+    (once per content and flags); the library path."""
     src = source.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    flags = (*NVCC_FLAGS, *defines)
+    tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:12]
     lib = BUILD_DIR / f"{source.stem}-{tag}.so"
     if lib.exists():
         return lib
@@ -38,7 +42,7 @@ def build(source: Path) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)],
+        [nvcc, *flags, "-o", str(tmp), str(source)],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:
@@ -50,10 +54,10 @@ def build(source: Path) -> Path:
 
 
 @functools.lru_cache(maxsize=None)
-def load(source: Path) -> ctypes.CDLL:
-    """The built library of ``source``; the caller declares the argtypes of
-    its launch functions."""
-    lib = ctypes.CDLL(str(build(source)))
+def load(source: Path, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The built library of ``source`` with ``defines``; the caller
+    declares the argtypes of its launch functions."""
+    lib = ctypes.CDLL(str(build(source, defines)))
     lib.msl_cuda_error_string.argtypes = [ctypes.c_int]
     lib.msl_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -13,6 +13,14 @@ format (physically NHWC), HWIO conv kernels as in the JAX package, and the
 folded frozen-BN scale/bias vectors. On a CPU tensor they run the plain
 version; on a CUDA tensor they launch the kernel or raise.
 
+Types: x in float32 or bfloat16 (the compute dtype), the three kernels in
+x's dtype, the BN vectors float32 (the frozen buffers). The kernel has an
+instance for each of the two types (one source, two libraries: bf16 is
+built with ``-DMSL_BF16``); any other type raises, naming it. In bf16 the
+kernel and the plain version round where the Pallas body casts to the
+compute dtype: each conv's fp32 sum, the BN's product and sum (the BN
+vectors cast to bf16, as its ``_prep`` casts them), the residual add.
+
 - ``fused_bottleneck``: out only (eval, no grad).
 - ``fused_bottleneck_emit``: (out, h1, h2), the training forward.
 - ``FusedBottleneckFn.apply``: differentiable in x and the three conv
@@ -42,9 +50,14 @@ from maxsquareloss_torch.kernels.build import CSRC, load, raise_on_error
 SOURCE = CSRC / "fused_bottleneck.cu"
 
 K_STAGES = (16, 8)     # k rows per weight stage and channels per x stage (KB in the .cu)
-X_STAGE_PAD = 4        # an x stage keeps KB + 4 floats between two pixels
+PAD_BYTES = 16         # an x stage keeps KB elements + 16 bytes between two pixels
 TILE_CHANNELS = 8      # channels per thread tile (kCh)
 MAX_PIXEL_TILE = 8     # most pixels per thread tile the kernel is built for
+# the kernel's instances: each type's nvcc defines and launch function
+INSTANCES = {
+    torch.float32: ((), "msl_fused_bottleneck_f32"),
+    torch.bfloat16: (("-DMSL_BF16",), "msl_fused_bottleneck_bf16"),
+}
 SMEM_BLOCK_MAX = 232448  # bytes of shared memory one block may use on sm_90
 SMEM_SM = 233472         # bytes of shared memory per SM on sm_90
 BLOCK_SMEM_RESERVED = 1024  # bytes the runtime reserves per resident block
@@ -61,18 +74,23 @@ def fused_bottleneck_emit_reference(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilat
                                     valid=None):
     """The plain version: ``F.conv2d`` chain + affine frozen BN + ReLU, h1
     masked by ``valid``; (out, h1, h2), each channels_last (h1, h2:
-    (N, Cmid, H, W))."""
-    def bn(y, s, b):
-        return y * s.view(1, -1, 1, 1) + b.view(1, -1, 1, 1)
+    (N, Cmid, H, W)). In x's dtype: the kernels and the BN vectors are cast
+    to it, each conv sums in fp32 and rounds once, and every BN product and
+    sum and the residual add is an op of that dtype, so in bf16 it rounds
+    where the kernel does."""
+    dt = x.dtype
 
-    h1 = F.relu(bn(F.conv2d(x, w1.permute(3, 2, 0, 1)), s1, b1))
+    def conv(t, w, d=0):
+        return F.conv2d(t, w.to(dt).permute(3, 2, 0, 1), padding=d, dilation=max(d, 1))
+
+    def bn(y, s, b):
+        return y * s.to(dt).view(1, -1, 1, 1) + b.to(dt).view(1, -1, 1, 1)
+
+    h1 = F.relu(bn(conv(x, w1), s1, b1))
     if valid is not None:
-        h1 = h1 * valid_mask(valid, *x.shape[2:])
-    h2 = F.relu(bn(
-        F.conv2d(h1, w2.permute(3, 2, 0, 1), padding=dilation, dilation=dilation),
-        s2, b2,
-    ))
-    y = F.relu(bn(F.conv2d(h2, w3.permute(3, 2, 0, 1)), s3, b3) + x)
+        h1 = h1 * valid_mask(valid, *x.shape[2:]).to(dt)
+    h2 = F.relu(bn(conv(h1, w2, dilation), s2, b2))
+    y = F.relu(bn(conv(h2, w3), s3, b3) + x)
     return tuple(t.contiguous(memory_format=torch.channels_last) for t in (y, h1, h2))
 
 
@@ -95,16 +113,16 @@ class TilePlan(NamedTuple):
     px1: int      # pixels per thread tile in conv1, conv2, conv3
     px2: int
     px3: int
-    ldh: int      # floats between two pixels of h1/h2 in shared memory
-    wstage: int   # floats of one weight stage buffer
+    ldh: int      # elements between two pixels of h1/h2 in shared memory
+    wstage: int   # elements of one weight stage buffer
     xs_px: int    # pixels of one x stage buffer
     kb: int       # k rows per weight stage, channels per x stage
 
-    @property
-    def flop_per_l2_weight_byte(self) -> float:
+    def flop_per_l2_weight_byte(self, itemsize: int = 4) -> float:
         """A block reads every weight once from L2 per output row of tw
-        pixels: 2 FLOP per weight and pixel over 4 bytes per weight."""
-        return self.tw / 2.0
+        pixels: 2 FLOP per weight and pixel over ``itemsize`` bytes per
+        weight."""
+        return 2.0 * self.tw / itemsize
 
     def busy_threads(self, cmid: int, d: int) -> dict[str, int]:
         """Threads that own pixels in each conv (of ``threads``): a conv's
@@ -125,10 +143,10 @@ def block_threads(cmid: int) -> int:
     return 256 if cmid >= 128 else 128
 
 
-def _stage_layout(tw: int, cin: int, cmid: int, d: int, kb: int):
+def _stage_layout(tw: int, cin: int, cmid: int, d: int, kb: int, itemsize: int = 4):
     """(bn3, px1, px2, px3, ldh, wstage, xs_px, kb) for tw output columns a
-    block and stages of kb k-rows, or None where the thread mapping does not
-    exist. A conv's threads are T pixel tiles x BN/8 channel groups: conv1
+    block, stages of kb k-rows and elements of ``itemsize`` bytes, or None
+    where the thread mapping does not exist. A conv's threads are T pixel tiles x BN/8 channel groups: conv1
     and conv2 take BN = Cmid in one pass (T = threads * 8 / Cmid), conv3 the
     widest BN3 that divides Cin and cuts tw evenly into tiles of at most 8
     pixels."""
@@ -145,23 +163,25 @@ def _stage_layout(tw: int, cin: int, cmid: int, d: int, kb: int):
     else:
         return None
     # a warp that spans several pixel tiles reads several pixels at once:
-    # 4 floats of padding keep two neighbours off the same banks
-    ldh = cmid + (4 if cmid // TILE_CHANNELS < 32 else 0)
+    # 16 bytes of padding keep two neighbours off the same banks
+    ldh = cmid + (PAD_BYTES // itemsize if cmid // TILE_CHANNELS < 32 else 0)
     return (bn3, px1, tw // tiles, tw // tiles3, ldh, kb * max(cmid, bn3), tiles * px1, kb)
 
 
-def smem_bytes(tw: int, cin: int, cmid: int, d: int, kb: int) -> int:
+def smem_bytes(tw: int, cin: int, cmid: int, d: int, kb: int, itemsize: int = 4) -> int:
     """Shared memory of one block: 3 h1 rows of TW+2d pixels (pixel stride
     ldh; h2 takes the oldest row's slot), two weight stages of kb k-rows x
-    the widest BN, and two x stages of conv1's pixels x kb channels (kb + 4
-    floats a pixel)."""
-    _, _, _, _, ldh, wstage, xs_px, _ = _stage_layout(tw, cin, cmid, d, kb)
-    return 4 * (ldh * 3 * (tw + 2 * d) + 2 * wstage + 2 * xs_px * (kb + X_STAGE_PAD))
+    the widest BN, and two x stages of conv1's pixels x kb channels (kb
+    elements + 16 bytes a pixel), in elements of ``itemsize`` bytes."""
+    _, _, _, _, ldh, wstage, xs_px, _ = _stage_layout(tw, cin, cmid, d, kb, itemsize)
+    return itemsize * (ldh * 3 * (tw + 2 * d) + 2 * wstage
+                       + 2 * xs_px * (kb + PAD_BYTES // itemsize))
 
 
-def plan_tiles(n: int, h: int, w: int, cin: int, cmid: int, d: int, sm_count: int) -> TilePlan:
-    """Tile choice for one launch: the single place for the kernel's
-    shared-memory and thread arithmetic.
+def plan_tiles(n: int, h: int, w: int, cin: int, cmid: int, d: int, sm_count: int,
+               dtype: torch.dtype = torch.float32) -> TilePlan:
+    """Tile choice for one launch in ``dtype``: the single place for the
+    kernel's shared-memory and thread arithmetic.
 
     threads: ``block_threads``. TW: columns per block, a multiple of the
     block's pixel tiles T = threads * 8 / Cmid, at most 64, the largest whose
@@ -176,8 +196,11 @@ def plan_tiles(n: int, h: int, w: int, cin: int, cmid: int, d: int, sm_count: in
     tile in every conv. RS: output rows per chain segment, S: segments per
     chain (a chain is one residue class of the rows mod d). S trades conv1
     recompute (2 extra h1 rows per segment) against filling the SMs: it
-    minimises waves * (RS + 0.5).
+    minimises waves * (RS + 0.5). In bf16 the elements take 2 bytes: the
+    same tiles (layer4's TW is pinned by its pixel tiles, layer3's by
+    conv1's) in less shared memory.
     """
+    itemsize = dtype.itemsize
     threads = block_threads(cmid)
     if cmid not in (64, 128, 256, 512) or cin % 64:
         raise ValueError(
@@ -187,8 +210,8 @@ def plan_tiles(n: int, h: int, w: int, cin: int, cmid: int, d: int, sm_count: in
     tiles = threads * TILE_CHANNELS // cmid
 
     def fits(tw, kb=K_STAGES[-1]):
-        return (_stage_layout(tw, cin, cmid, d, kb) is not None
-                and smem_bytes(tw, cin, cmid, d, kb) <= SMEM_BLOCK_MAX)
+        return (_stage_layout(tw, cin, cmid, d, kb, itemsize) is not None
+                and smem_bytes(tw, cin, cmid, d, kb, itemsize) <= SMEM_BLOCK_MAX)
 
     tw_max = max((tw for tw in range(tiles, 65, tiles) if fits(tw)), default=None)
     if tw_max is None:
@@ -202,7 +225,7 @@ def plan_tiles(n: int, h: int, w: int, cin: int, cmid: int, d: int, sm_count: in
         tw += tiles
     ncols = math.ceil(w / tw)
     kb = next(kb for kb in K_STAGES if fits(tw, kb))
-    smem = smem_bytes(tw, cin, cmid, d, kb)
+    smem = smem_bytes(tw, cin, cmid, d, kb, itemsize)
     # the kernel takes 255 registers a thread: 256 threads an SM
     per_sm = max(1, min(256 // threads, SMEM_SM // (smem + BLOCK_SMEM_RESERVED)))
     slots = sm_count * per_sm
@@ -216,14 +239,17 @@ def plan_tiles(n: int, h: int, w: int, cin: int, cmid: int, d: int, sm_count: in
         if best is None or cost < best[0]:
             best = (cost, rs, s)
     _, rs, s = best
-    return TilePlan(tw, rs, s, threads, smem, *_stage_layout(tw, cin, cmid, d, kb))
+    return TilePlan(tw, rs, s, threads, smem, *_stage_layout(tw, cin, cmid, d, kb, itemsize))
 
 
-def _library() -> ctypes.CDLL:
-    lib = load(SOURCE)
+def _library(dtype: torch.dtype = torch.float32) -> ctypes.CDLL:
+    """The built library of ``dtype``'s instance (its launch function's
+    argtypes declared)."""
+    defines, fn = INSTANCES[dtype]
+    lib = load(SOURCE, defines)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.msl_fused_bottleneck_f32.argtypes = [p] * 14 + [i] * 19 + [p]
-    lib.msl_fused_bottleneck_f32.restype = i
+    getattr(lib, fn).argtypes = [p] * 14 + [i] * 19 + [p]
+    getattr(lib, fn).restype = i
     return lib
 
 
@@ -232,6 +258,9 @@ def _check(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation, valid=None):
         raise ValueError(f"fused bottleneck: x must be 4-D NCHW, got {tuple(x.shape)}")
     n, cin, h, w = x.shape
     cmid = w1.shape[-1]
+    if x.dtype not in INSTANCES:
+        raise TypeError(f"fused bottleneck: x is {x.dtype}; the kernel has instances for "
+                        f"{' and '.join(str(t) for t in INSTANCES)} only")
     want = {
         "w1": (w1, (1, 1, cin, cmid)), "w2": (w2, (3, 3, cmid, cmid)),
         "w3": (w3, (1, 1, cmid, cin)),
@@ -241,8 +270,10 @@ def _check(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation, valid=None):
     for name, (t, shape) in {"x": (x, tuple(x.shape)), **want}.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"fused bottleneck: {name} has shape {tuple(t.shape)}, expected {shape}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"fused bottleneck: {name} is {t.dtype}; only float32 is supported")
+        dtype = x.dtype if name[0] in "xw" else torch.float32
+        if t.dtype != dtype:
+            raise TypeError(f"fused bottleneck: {name} is {t.dtype}, expected {dtype} (x "
+                            f"and the kernels in the compute dtype, the BN vectors float32)")
         if t.device != x.device:
             raise ValueError(f"fused bottleneck: {name} is on {t.device}, x on {x.device}")
         if name != "x" and not t.is_contiguous():
@@ -280,17 +311,17 @@ def _launch(args, dilation: int, emit: bool, valid=None):
     if any(t.data_ptr() % 16 for t in args):
         raise ValueError("fused bottleneck: every tensor must be 16-byte aligned")
     sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
-    plan = plan_tiles(n, h, w, cin, cmid, dilation, sm_count)
+    plan = plan_tiles(n, h, w, cin, cmid, dilation, sm_count, x.dtype)
     out = torch.empty_like(x, memory_format=torch.channels_last)
     hs = tuple(
         torch.empty((n, cmid, h, w), dtype=x.dtype, device=x.device,
                     memory_format=torch.channels_last)
         for _ in range(2 if emit else 0)
     )
-    lib = _library()
+    lib = _library(x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.msl_fused_bottleneck_f32(
+        err = getattr(lib, INSTANCES[x.dtype][1])(
             *(t.data_ptr() for t in args), out.data_ptr(),
             *((t.data_ptr() for t in hs) if emit else (None, None)),
             None if valid is None else valid.data_ptr(),
@@ -306,7 +337,7 @@ def fused_bottleneck_emit(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation: int,
     h1 = relu(bn1(conv1 x)) (masked by ``valid``) and h2 = relu(bn2(conv2
     h1)), each (N, Cmid, H, W) channels_last; arguments as
     ``fused_bottleneck``. ``masked_launches`` counts the launches with
-    ``valid``."""
+    ``valid``, ``bf16_launches`` those of the bf16 instance."""
     args = (x, w1, w2, w3, s1, b1, s2, b2, s3, b3)
     _check(*args, dilation, valid)
     if x.device.type == "cpu":
@@ -316,11 +347,13 @@ def fused_bottleneck_emit(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation: int,
     outs = _launch(args, dilation, emit=True, valid=valid)
     fused_bottleneck_emit.launches += 1
     fused_bottleneck_emit.masked_launches += valid is not None
+    fused_bottleneck_emit.bf16_launches += x.dtype == torch.bfloat16
     return outs
 
 
 fused_bottleneck_emit.launches = 0
 fused_bottleneck_emit.masked_launches = 0
+fused_bottleneck_emit.bf16_launches = 0
 
 
 def bottleneck_backward(dy, x, h1, h2, out, w1, w2, w3, s1, s2, s3, dilation: int):
@@ -328,42 +361,53 @@ def bottleneck_backward(dy, x, h1, h2, out, w1, w2, w3, s1, s2, s3, dilation: in
     package's fused block): relu masks from out, h2 and h1, the BN scales,
     dw1/dw3 and the 1x1 adjoints as matrix products over the NHWC pixel
     rows, and the dilated 3x3's adjoints as one ``convolution_backward``.
-    Returns (dx channels_last, dw1, dw2, dw3 HWIO)."""
+    The saved tensors and the kernels are in the compute dtype (x's), the
+    BN scales float32. As in ``_bwd``, the cotangents stay in the compute
+    dtype, each product sums in fp32 (a BN scale multiplies in fp32 and
+    rounds once), dw1 and dw3 are fp32 sums returned in fp32, and dw2 is
+    the conv's weight gradient in the compute dtype (the JAX adjoint of a
+    conv whose fp32 weight was cast), widened to fp32; in fp32 every cast
+    is the identity. Returns (dx channels_last in the compute dtype, dw1,
+    dw2, dw3 HWIO in fp32)."""
     n, cin, h, w = x.shape
     cmid = h1.shape[1]
+    dt = x.dtype
 
     def rows(t):  # (N, C, H, W) → (N*H*W, C); a view for channels_last
         return t.permute(0, 2, 3, 1).reshape(-1, t.shape[1])
 
     dz3 = torch.where(rows(out) > 0, rows(dy), 0.0)         # relu' ⊙ dy
-    dz3c = dz3 * s3                                         # through bn3's scale
-    dw3 = rows(h2).T @ dz3c                                 # (Cmid, Cin)
+    dz3c = (dz3.float() * s3).to(dt)                        # through bn3's scale
+    dw3 = rows(h2).float().T @ dz3c.float()                 # (Cmid, Cin)
     dh2 = dz3c @ w3.view(cmid, cin).T
-    dacc = torch.where(rows(h2) > 0, dh2 * s2, 0.0)
+    dacc = torch.where(rows(h2) > 0, dh2.float() * s2, 0.0).to(dt)
     dacc = dacc.view(n, h, w, cmid).permute(0, 3, 1, 2)     # channels_last NCHW
     w2_oihw = w2.permute(3, 2, 0, 1)
     dh1, dw2, _ = torch.ops.aten.convolution_backward(
         dacc, h1, w2_oihw, None, [1, 1], [dilation, dilation],
         [dilation, dilation], False, [0, 0], 1, [True, True, False],
     )
-    dz1 = torch.where(rows(h1) > 0, rows(dh1) * s1, 0.0)
-    dw1 = rows(x).T @ dz1                                   # (Cin, Cmid)
+    dz1 = torch.where(rows(h1) > 0, rows(dh1).float() * s1, 0.0).to(dt)
+    dw1 = rows(x).float().T @ dz1.float()                   # (Cin, Cmid)
     dx = dz1 @ w1.view(cin, cmid).T + dz3
     return (dx.view(n, h, w, cin).permute(0, 3, 1, 2), dw1.view(1, 1, cin, cmid),
-            dw2.permute(2, 3, 1, 0), dw3.view(1, 1, cmid, cin))
+            dw2.float().permute(2, 3, 1, 0), dw3.view(1, 1, cmid, cin))
 
 
 class FusedBottleneckFn(torch.autograd.Function):
     """The identity block for training, with a gradient for x and the three
     HWIO kernels (frozen BN gets none); ``apply`` takes the arguments of
-    ``fused_bottleneck``, ``valid`` positional. Forward:
-    ``fused_bottleneck_emit`` on kernels made contiguous here, so strided
-    views of the convs' weights may come in; backward:
-    ``bottleneck_backward`` over the saved x, h1 (masked), h2, out."""
+    ``fused_bottleneck``, ``valid`` positional, with the kernels in any
+    float type (the fp32 parameters). Forward: ``fused_bottleneck_emit`` on
+    kernels cast to x's dtype and made contiguous here (the TPU kernel's
+    ``_prep``), so strided fp32 views of the convs' weights may come in;
+    backward: ``bottleneck_backward`` over the saved x, h1 (masked), h2,
+    out and cast kernels, whose fp32 weight gradients reach the parameters
+    without a round trip through the compute dtype."""
 
     @staticmethod
     def forward(ctx, x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation, valid=None):
-        w1, w2, w3 = (w.contiguous() for w in (w1, w2, w3))
+        w1, w2, w3 = (w.to(x.dtype).contiguous() for w in (w1, w2, w3))
         out, h1, h2 = fused_bottleneck_emit(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation,
                                             valid)
         ctx.save_for_backward(x, h1, h2, out, w1, w2, w3, s1, s2, s3)
@@ -380,15 +424,17 @@ def fused_bottleneck(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation: int, valid
     """Stride-1 identity-residual bottleneck in one kernel (eval: no h1/h2).
 
     Args:
-      x: (N, Cin, H, W) float32, ``torch.channels_last`` contiguous.
-      w1/w2/w3: HWIO kernels (1,1,Cin,Cmid), (3,3,Cmid,Cmid), (1,1,Cmid,Cin).
-      s1..b3: folded frozen-BN scale/bias vectors.
+      x: (N, Cin, H, W) float32 or bfloat16, ``torch.channels_last``
+        contiguous.
+      w1/w2/w3: HWIO kernels (1,1,Cin,Cmid), (3,3,Cmid,Cmid), (1,1,Cmid,Cin)
+        in x's dtype.
+      s1..b3: folded frozen-BN scale/bias vectors, float32.
       dilation: conv2's dilation (and zero padding).
       valid: None, or (N, 2) int32 valid (rows, columns) of each image on a
         canvas: h1 is zero past them before conv2 (``masked_launches``
-        counts these launches).
+        counts these launches; ``bf16_launches`` counts the bf16 instance's).
     Returns:
-      (N, Cin, H, W) float32, channels_last.
+      (N, Cin, H, W) in x's dtype, channels_last.
     """
     args = (x, w1, w2, w3, s1, b1, s2, b2, s3, b3)
     _check(*args, dilation, valid)
@@ -399,8 +445,10 @@ def fused_bottleneck(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation: int, valid
     (out,) = _launch(args, dilation, emit=False, valid=valid)
     fused_bottleneck.launches += 1
     fused_bottleneck.masked_launches += valid is not None
+    fused_bottleneck.bf16_launches += x.dtype == torch.bfloat16
     return out
 
 
 fused_bottleneck.launches = 0
 fused_bottleneck.masked_launches = 0
+fused_bottleneck.bf16_launches = 0

@@ -24,6 +24,19 @@ that ``pack_weights`` makes. The stem, the 4 downsample blocks and the
 heads are cuDNN convs. ``param_groups`` gives the optimizer's 1x/10x
 groups.
 
+Compute dtype (``DeepLabV2Config.compute_dtype``, float32 or bfloat16):
+the input is cast once at the stem; parameters and BN buffers stay float32
+and every conv casts its weight where it is used (``layers.Conv2d``); the
+identity blocks run the kernel's instance of that dtype (eval: HWIO copies
+packed in it; training: ``FusedBottleneckFn`` casts the fp32 HWIO views);
+both heads' logits come back float32, as the JAX package's
+``apply_deeplabv2``; the ASPP heads sum their four convs in the compute
+dtype in every forward (``Classifier``). ``remat="stages"``
+checkpoints each of the four ResNet stages (the JAX package's
+``jax.checkpoint``): their
+activations, the fused blocks' saved h1/h2 among them, are dropped after
+the forward and recomputed in the backward.
+
 Masked canvas (the UDA step's ``--concat_batches`` at unequal crops):
 images of different sizes are zero-padded at the bottom and right onto one
 canvas, and ``forward(x, masks=make_canvas_masks(...))`` re-zeroes the pad
@@ -42,6 +55,7 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from maxsquareloss_torch.kernels.fused_block import (
@@ -51,6 +65,7 @@ from maxsquareloss_torch.kernels.fused_block import (
     valid_mask,
 )
 from maxsquareloss_torch.models.layers import (
+    Conv2d,
     FrozenBN,
     classifier_normal_,
     kaiming_normal_,
@@ -81,22 +96,27 @@ class DeepLabV2Config:
     num_classes: int = 19
     multi_level: bool = True
     blocks: tuple[int, ...] = RESNET101_BLOCKS
+    compute_dtype: torch.dtype = torch.float32
+    # '' | 'stages': checkpoint each ResNet stage (activations recomputed in
+    # the backward instead of held)
+    remat: str = ""
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1, padding: int = 0,
           dilation: int = 1, bias: bool = False) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=padding,
-                     dilation=dilation, bias=bias)
+    return Conv2d(cin, cout, k, stride=stride, padding=padding,
+                  dilation=dilation, bias=bias)
 
 
 class Bottleneck(nn.Module):
     """caffe ResNet bottleneck (stride on conv1, conv2 padding = dilation)."""
 
     def __init__(self, in_ch: int, planes: int, stride: int, dilation: int,
-                 downsample: bool):
+                 downsample: bool, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         out_ch = planes * EXPANSION
         self.stride, self.dilation = stride, dilation
+        self.compute_dtype = compute_dtype
         self.conv1 = _conv(in_ch, planes, 1, stride=stride)
         self.bn1 = FrozenBN(planes)
         self.conv2 = _conv(planes, planes, 3, padding=dilation, dilation=dilation)
@@ -110,9 +130,9 @@ class Bottleneck(nn.Module):
             if downsample else None
         )
         if self.fusable:
-            # The eval kernel's weights: each conv kernel in HWIO order,
-            # flattened to a 2-D (kh*kw*Cin, Cout) matrix so that
-            # .to(memory_format=...) leaves it contiguous. Not saved; made
+            # The eval kernel's weights: each conv kernel in HWIO order in
+            # the compute dtype, flattened to a 2-D (kh*kw*Cin, Cout) matrix
+            # so that .to(memory_format=...) leaves it contiguous. Not saved; made
             # here and again whenever a state dict is loaded, by
             # init_deeplabv2 after its in-place init, and by the train steps
             # after every optimizer step.
@@ -131,7 +151,8 @@ class Bottleneck(nn.Module):
     def pack_weights(self) -> None:
         for i, conv in enumerate((self.conv1, self.conv2, self.conv3), 1):
             w = conv.weight
-            hwio = w.permute(2, 3, 1, 0).reshape(-1, w.shape[0]).contiguous()
+            hwio = w.permute(2, 3, 1, 0).reshape(-1, w.shape[0]).to(self.compute_dtype)
+            hwio = hwio.contiguous()  # a 1x1 kernel's permuted reshape is a view
             setattr(self, f"w{i}_hwio", hwio)
 
     def _hwio(self, i: int) -> torch.Tensor:
@@ -140,11 +161,12 @@ class Bottleneck(nn.Module):
 
     def forward(self, x: torch.Tensor, kernel, train_kernel,
                 mask: CanvasMask | None = None) -> torch.Tensor:
-        """``kernel`` (no grad, packed HWIO weights) and ``train_kernel``
-        (grad enabled, HWIO views of ``conv{i}.weight``): the fused
-        bottleneck or its plain version, for the identity blocks, which take
-        ``mask``'s valid extents; the others run as cuDNN convs and multiply
-        h1 by ``mask``'s 0/1 mask before conv2."""
+        """``kernel`` (no grad, packed HWIO weights in the compute dtype)
+        and ``train_kernel`` (grad enabled, fp32 HWIO views of
+        ``conv{i}.weight``, cast by the kernel's Function or plain version):
+        the fused bottleneck or its plain version, for the identity blocks,
+        which take ``mask``'s valid extents; the others run as cuDNN convs
+        and multiply h1 by ``mask``'s 0/1 mask before conv2."""
         valid = None if mask is None else mask.valid
         if self.fusable:
             bn = (self.bn1.scale, self.bn1.bias, self.bn2.scale, self.bn2.bias,
@@ -156,7 +178,7 @@ class Bottleneck(nn.Module):
                           self.dilation, valid)
         y = F.relu(self.bn1(self.conv1(x)))
         if mask is not None:
-            y = y * mask.mask
+            y = y * mask.mask.to(y.dtype)
         y = F.relu(self.bn2(self.conv2(y)))
         y = self.bn3(self.conv3(y))
         residual = x if self.downsample is None else self.downsample(x)
@@ -164,7 +186,12 @@ class Bottleneck(nn.Module):
 
 
 class Classifier(nn.Module):
-    """V2-style ASPP: four parallel dilated 3x3 convs, outputs summed."""
+    """V2-style ASPP: four parallel dilated 3x3 convs in x's dtype, outputs
+    summed in it (the JAX package's training form). Its eval form
+    (``aspp_matmul``: the 36 taps' outputs in the compute dtype summed in
+    float32) is not mirrored: in bf16 the eval logits keep the training
+    form's roundings, within the tolerance PERF.md section 2 states against
+    the JAX eval path; in float32 the two forms are one sum in two orders."""
 
     def __init__(self, in_ch: int, num_classes: int):
         super().__init__()
@@ -175,7 +202,7 @@ class Classifier(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: CanvasMask | None = None) -> torch.Tensor:
         if mask is not None:
-            x = x * mask.mask
+            x = x * mask.mask.to(x.dtype)
         out = None
         for conv in self.conv2d_list:
             y = conv(x)
@@ -215,7 +242,7 @@ class DeepLabV2(nn.Module):
                     stride != 1 or in_ch != planes * EXPANSION or dilation in (2, 4)
                 )
                 blocks.append(Bottleneck(in_ch, planes, stride if bi == 0 else 1,
-                                         dilation, need_ds))
+                                         dilation, need_ds, cfg.compute_dtype))
                 in_ch = planes * EXPANSION
             setattr(self, f"layer{li + 1}", nn.Sequential(*blocks))
         if cfg.multi_level:
@@ -224,9 +251,16 @@ class DeepLabV2(nn.Module):
 
     def _stage(self, layer: nn.Sequential, x: torch.Tensor,
                mask: CanvasMask | None) -> torch.Tensor:
-        for block in layer:
-            x = block(x, self.block_fn, self.train_block_fn, mask)
-        return x
+        def run(y):
+            for block in layer:
+                y = block(y, self.block_fn, self.train_block_fn, mask)
+            return y
+
+        if self.cfg.remat == "stages" and torch.is_grad_enabled():
+            # the forward draws no random numbers: no RNG state to replay
+            return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False,
+                                                     preserve_rng_state=False)
+        return run(x)
 
     def pack_weights(self) -> None:
         """Refresh the eval kernel's HWIO weights from the convs."""
@@ -237,17 +271,17 @@ class DeepLabV2(nn.Module):
     def forward(self, x: torch.Tensor, aux: bool = True,
                 masks: dict[str, CanvasMask] | None = None):
         """(N, H, W, 3) normalized images → (aux_or_None, main), each
-        (N, H/8, W/8, num_classes) float32. ``aux=False`` skips the layer5
-        head (the eval/predict path reads only the main head). ``masks``
-        (``make_canvas_masks``): a canvas batch whose pad region is re-zeroed
-        before the maxpool (``pool_in``), before every block's 3x3 (``os4``
+        (N, H/8, W/8, num_classes) float32 in either compute dtype.
+        ``aux=False`` skips the layer5 head (the eval/predict path reads only
+        the main head). ``masks`` (``make_canvas_masks``): a canvas batch
+        whose pad region is re-zeroed before the maxpool (``pool_in``), before every block's 3x3 (``os4``
         in layer1, ``os8`` in layers 2-4) and before both heads (``os8``)."""
         m = masks or {}
-        y = x.float().permute(0, 3, 1, 2)
+        y = x.to(self.cfg.compute_dtype).permute(0, 3, 1, 2)
         y = y.contiguous(memory_format=torch.channels_last)
         y = F.relu(self.bn1(self.conv1(y)))
         if masks is not None:
-            y = y * m["pool_in"].mask
+            y = y * m["pool_in"].mask.to(y.dtype)
         y = self.pool(y)
         y = self._stage(self.layer1, y, m.get("os4"))
         y = self._stage(self.layer2, y, m.get("os8"))

@@ -6,6 +6,13 @@ pair held as buffers: never parameters, never updated, so ``module.train()``
 cannot move it. Activations inside the model are NCHW tensors in
 ``torch.channels_last`` memory format; kernels are OIHW as in torch.
 
+Mixed precision as in the JAX package: parameters and BN buffers stay
+float32, each conv casts its weight (and adds its bias, cast) to the
+activation's dtype where it is used, and frozen BN runs in the activation's
+dtype. The casts are explicit (``torch.autocast`` keeps another cast list
+and does not reach the fused block's autograd Function); the weight's
+gradient comes back to float32 through the cast.
+
 ``aspp_sum`` (a TPU lane-padding rewrite of the summed ASPP head) has no
 counterpart here: the head is a plain sum of four dilated convs.
 """
@@ -16,9 +23,21 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5  # torch BatchNorm2d default
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` in the activation's dtype (``conv2d`` of the JAX
+    package): the weight cast to x's dtype, the bias cast and added after
+    the conv, as its own op."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv2d(x, self.weight.to(x.dtype), None, self.stride, self.padding,
+                     self.dilation, self.groups)
+        return y if self.bias is None else y + self.bias.to(y.dtype).view(1, -1, 1, 1)
 
 
 class FrozenBN(nn.Module):

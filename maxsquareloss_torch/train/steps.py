@@ -1,7 +1,8 @@
 """Train and eval steps of the port (counterparts of
 ``maxsquareloss_tpu/train/steps.py``).
 
-A train step is eager PyTorch: forward(s) → align-corners upsample →
+A train step is eager PyTorch: forward(s) in the compute dtype, fp32
+logits → align-corners upsample →
 loss(es) → ONE ``backward()`` of the summed loss → torch SGD over the 1x/10x
 groups at the poly LR of the iteration before the step → refresh of the
 eval kernel's packed weights. The UDA step's target loss for
@@ -64,11 +65,15 @@ from maxsquareloss_torch.utils.debug import anomaly_mode
 
 
 def model_config(cfg: TrainConfig) -> DeepLabV2Config:
-    """The model's config from the run's."""
+    """The model's config from the run's: its compute dtype and remat too.
+    (The JAX package's ``eval_mode``, its ASPP matmul form for eval, has no
+    counterpart: ``models.deeplabv2.Classifier``.)"""
     return DeepLabV2Config(
         num_classes=cfg.num_classes,
         multi_level=cfg.multi,
         blocks=tuple(cfg.blocks),
+        compute_dtype=cfg.dtype,
+        remat=cfg.remat,
     )
 
 

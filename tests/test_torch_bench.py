@@ -27,8 +27,9 @@ from maxsquareloss_torch import bench
 from maxsquareloss_torch.experiments import bench_e2e
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the fp32 line (the bf16 default's own cases are in tests/test_torch_bf16.py)
 TINY = ["--device", "cpu", "--blocks", "2,2,2,2", "--hw", "33,65", "--batch", "2",
-        "--steps", "1", "--warmup", "1"]
+        "--steps", "1", "--warmup", "1", "--dtype", "float32"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -77,16 +78,37 @@ def test_infer_mode(label_hw, capsys):
     assert "value_infer_fp32" not in extra
 
 
-UNPORTED = [
-    ["--dtype", "bfloat16"], ["--remat", "stages"], ["--quantize", "int8"],
-    ["--fp32_parity", "true"], ["--xla_options", "auto"], ["--comparator", "15"],
-]
+UNPORTED = [["--quantize", "int8"], ["--xla_options", "auto"], ["--comparator", "15"]]
 
 
 @pytest.mark.parametrize("flags", UNPORTED, ids=[f[0] for f in UNPORTED])
 def test_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="not ported"):
         bench.main([*TINY, *flags])
+
+
+# the flags the bf16 slice ported, which raised before it
+PORTED = [["--dtype", "bfloat16"], ["--remat", "stages"], ["--fp32_parity", "true"]]
+
+
+@pytest.mark.parametrize("flags", PORTED, ids=[f[0] for f in PORTED])
+def test_ported_flags_run(flags, capsys):
+    """Each runs the fp32 line's ``source`` step (the cheapest train mode)
+    with the flag taken: the compute dtype and remat in the JSON, and the
+    parity leg's fields when it is asked for."""
+    result = bench.main(["--mode", "source", *TINY, *flags])
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert printed == result and result["value"] > 0
+    extra = result["extra"]
+    assert math.isfinite(extra["final_loss"])
+    assert (extra["compute_dtype"], extra["remat"]) == (
+        "bfloat16" if "bfloat16" in flags else "float32", "stages" if "stages" in flags else "")
+    assert result["metric"].endswith(extra["compute_dtype"])
+    if "--fp32_parity" in flags:
+        assert extra["fp32_global_batch"] == 8 and extra["value_fp32_parity"] > 0
+        assert math.isfinite(extra["fp32_final_loss"])
+    else:
+        assert "value_fp32_parity" not in extra
 
 
 def test_bench_raises_without_a_card(monkeypatch):

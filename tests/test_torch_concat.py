@@ -351,8 +351,7 @@ def test_debug_nans_leaves_a_finite_step_unchanged(weights):
 
 
 # keywords of the ROADMAP Queue 1 item that each unported option waits on
-UNPORTED_ITEM_WORDS = {"compute_dtype": "bf16", "remat": "remat", "quantize": "int8",
-                       "loader": "grain", "sp": "spatial"}
+UNPORTED_ITEM_WORDS = {"quantize": "int8", "loader": "grain", "sp": "spatial"}
 
 
 def _roadmap_queue1_items() -> dict[int, str]:
@@ -363,8 +362,7 @@ def _roadmap_queue1_items() -> dict[int, str]:
     return {int(items[i]): items[i + 1] for i in range(1, len(items) - 1, 2)}
 
 
-@pytest.mark.parametrize("name,bad", [("compute_dtype", "bfloat16"), ("remat", "stages"),
-                                      ("quantize", "int8"), ("loader", "grain"), ("sp", 2)])
+@pytest.mark.parametrize("name,bad", [("quantize", "int8"), ("loader", "grain"), ("sp", 2)])
 def test_still_unported_options_raise_naming_their_roadmap_item(name, bad):
     assert {n for n, _, _ in _UNPORTED} == {*UNPORTED_ITEM_WORDS, "freeze_bn"}
     with pytest.raises(NotImplementedError, match="not ported") as err:
@@ -373,7 +371,8 @@ def test_still_unported_options_raise_naming_their_roadmap_item(name, bad):
     assert UNPORTED_ITEM_WORDS[name] in _roadmap_queue1_items()[item]
 
 
-@pytest.mark.parametrize("flags", [["--concat_batches", "true"], ["--profile"], ["--debug_nans"]])
+@pytest.mark.parametrize("flags", [["--concat_batches", "true"], ["--profile"], ["--debug_nans"],
+                                   ["--compute_dtype", "bfloat16"], ["--remat", "stages"]])
 def test_ported_flags_no_longer_raise(flags, tmp_path):
     import argparse
 
@@ -382,4 +381,5 @@ def test_ported_flags_no_longer_raise(flags, tmp_path):
     p = add_uda_train_args(add_train_args(argparse.ArgumentParser()))
     cfg = config_from_args(p.parse_args(["--checkpoint_dir", str(tmp_path), *flags]))
     check_supported(cfg)
-    assert getattr(cfg, flags[0][2:]) is True
+    want = True if flags[1:] in ([], ["true"]) else flags[1]
+    assert getattr(cfg, flags[0][2:]) == want

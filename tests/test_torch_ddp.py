@@ -12,7 +12,10 @@ one torch thread per rank): the port's counterpart of
   source labels are all ignored, so one rank has no valid source pixel (a
   mean of per-rank means would halve its CE). Two steps each, so the
   second runs on DDP's rebuilt buckets; after them the ranks' parameters
-  are the same.
+  are the same. A bf16 case with stage remat runs against the one-process
+  bf16 step: its first step at the fp32 bounds, after it the bf16 step's
+  (``BF16_STEP_RTOL``, ``BF16_PARAM_RTOL_L2``: each rank's conv weight
+  gradients round to bf16 before DDP averages them).
 - the confusion matrix over padded shards equals the one-process matrix
   exactly;
 - a SIGTERM flag on rank 1 alone stops both ranks at the same
@@ -59,7 +62,20 @@ CASES = {
     "uda_concat": (True, {"target_mode": "IW_maxsquare", "concat_batches": True}, 0),
     # the last two images: all of rank 1's at world 2, ranks 2 and 3's at 4
     "uda_ranks_without_source_labels": (True, {"target_mode": "IW_maxsquare"}, 2),
+    # bf16 compute with stage remat: against the one-process bf16 step
+    "uda_iw_bf16_remat": (True, {"target_mode": "IW_maxsquare", "compute_dtype": "bfloat16",
+                                 "remat": "stages"}, 0),
 }
+# the cases whose steps compute in fp32, held against the JAX package's too
+FP32_CASES = [c for c, (_, fields, _) in CASES.items() if "compute_dtype" not in fields]
+# bf16 against the one-process bf16 step: the first step's metrics (the
+# same weights, per-image forwards) within the fp32 bound; after it, each
+# rank's conv weight gradients have rounded to bf16 before DDP averages
+# them, the one process's once over the global batch (as the JAX package's
+# bf16 convs round theirs), so the parameter changes and the later metrics
+# differ at bf16's rounding: the port-vs-JAX bf16 step's bounds (PERF.md
+# section 2: metrics 1e-2 relative, each parameter's change 3e-2 relative L2)
+BF16_STEP_RTOL, BF16_PARAM_RTOL_L2 = 1e-2, 3e-2
 EVAL_IMAGES, EVAL_BATCH = 5, 4  # padded shards at both world sizes
 PREEMPT_SYNC, PREEMPT_FLAG_AT = 2, 1  # rank 1 flags after step 1: both stop at 2
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -85,10 +101,13 @@ def _batches(case: str):
     return out
 
 
-def _port_model(state_dict):
+def _port_model(state_dict, cfg: TrainConfig | None = None):
     from maxsquareloss_torch.models import deeplabv2 as tmodel
+    from maxsquareloss_torch.train.steps import model_config
 
-    model = tmodel.DeepLabV2(tmodel.DeepLabV2Config(num_classes=19, blocks=BLOCKS))
+    mcfg = (tmodel.DeepLabV2Config(num_classes=19, blocks=BLOCKS) if cfg is None
+            else model_config(cfg))
+    model = tmodel.DeepLabV2(mcfg)
     model.load_state_dict(state_dict)
     return model.to(memory_format=torch.channels_last)
 
@@ -101,7 +120,7 @@ def _run_steps(case: str, state_dict, rows=slice(None)):
 
     uda = CASES[case][0]
     cfg = _cfg(case)
-    model = _port_model(state_dict)
+    model = _port_model(state_dict, cfg)
     state = tsteps.make_train_state(model, cfg)
     step = (tsteps.make_uda_train_step if uda else tsteps.make_supervised_train_step)(cfg)
     metrics, after_1 = [], None
@@ -271,7 +290,7 @@ def ddp_runs(tmp_path_factory, weights):
             procs.append(p)
     try:
         reference = {case: _run_steps(case, weights[2])[:2] for case in CASES}
-        jax_reference = {case: _run_jax(case, *weights[:2]) for case in CASES}
+        jax_reference = {case: _run_jax(case, *weights[:2]) for case in FP32_CASES}
     finally:
         for p in procs:
             p.join(timeout=300)
@@ -304,18 +323,23 @@ def _rel_l2_changes(got: dict, want: dict, start: dict) -> dict:
 def test_ddp_step_equals_the_one_process_global_batch_step(ddp_runs, weights, case, world):
     (results, work), reference = ddp_runs[0][world], ddp_runs[1]
     got, want = results["steps"][case], reference[case][0]
+    bf16 = case not in FP32_CASES
     assert results["replicas_equal"][case], "the ranks' parameters differ after the steps"
     for i, (g, w) in enumerate(zip(got, want)):
         assert set(g) == set(w), f"step {i}: {sorted(g)} vs {sorted(w)}"
+        rtol = BF16_STEP_RTOL if bf16 and i > 0 else 1e-5
         for k in w:
-            np.testing.assert_allclose(g[k], w[k], rtol=1e-5, atol=1e-7, err_msg=f"step {i} {k}")
+            np.testing.assert_allclose(g[k], w[k], rtol=rtol, atol=1e-7, err_msg=f"step {i} {k}")
     params = torch.load(os.path.join(work, f"params_{case}.pt"))
     errs = _rel_l2_changes(params, reference[case][1], weights[2])
     worst = max(errs, key=errs.get)
-    assert errs[worst] <= 1e-4, f"{worst}: change off by {errs[worst]:.3g} (relative L2)"
+    bound = BF16_PARAM_RTOL_L2 if bf16 else 1e-4
+    assert errs[worst] <= bound, f"{worst}: change off by {errs[worst]:.3g} (relative L2)"
+    if bf16:
+        assert {p.dtype for p in params.values()} == {torch.float32}
 
 
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", FP32_CASES)
 def test_ddp_step_equals_the_jax_big_batch_step(ddp_runs, weights, case):
     """The 2-rank run against the JAX package's 1-device step over the whole
     global batch."""

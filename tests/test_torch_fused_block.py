@@ -115,10 +115,12 @@ PLAN_SHAPES = [
 ]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("n,h,w,cmid,d", PLAN_SHAPES)
-def test_plan_tiles_fits_and_covers(n, h, w, cmid, d):
+def test_plan_tiles_fits_and_covers(n, h, w, cmid, d, dtype):
     cin = 4 * cmid
-    plan = plan_tiles(n, h, w, cin, cmid, d, sm_count=132)
+    plan = plan_tiles(n, h, w, cin, cmid, d, sm_count=132, dtype=dtype)
+    size = dtype.itemsize
     tw, rs, segs, threads, smem = plan[:5]
     tiles = threads * fused_block.TILE_CHANNELS // cmid       # pixel tiles, conv1/conv2
     tiles3 = threads * fused_block.TILE_CHANNELS // plan.bn3  # pixel tiles, conv3
@@ -127,10 +129,11 @@ def test_plan_tiles_fits_and_covers(n, h, w, cmid, d):
     # weight and x stages
     p1 = tw + 2 * d
     assert plan.kb in fused_block.K_STAGES and cmid % plan.kb == 0
-    assert smem == fused_block.smem_bytes(tw, cin, cmid, d, plan.kb) <= fused_block.SMEM_BLOCK_MAX
-    assert smem == 4 * (plan.ldh * 3 * p1 + 2 * plan.wstage
-                        + 2 * plan.xs_px * (plan.kb + fused_block.X_STAGE_PAD))
-    assert plan.ldh >= cmid and plan.ldh % 4 == 0
+    assert (smem == fused_block.smem_bytes(tw, cin, cmid, d, plan.kb, size)
+            <= fused_block.SMEM_BLOCK_MAX)
+    assert smem == size * (plan.ldh * 3 * p1 + 2 * plan.wstage
+                           + 2 * plan.xs_px * (plan.kb + fused_block.PAD_BYTES // size))
+    assert plan.ldh >= cmid and (plan.ldh * size) % 16 == 0  # 16-byte pixel rows
     assert plan.wstage == plan.kb * max(cmid, plan.bn3)
     assert plan.xs_px >= tiles * plan.px1 >= p1
     # TW is a whole number of pixel tiles in conv2 and conv3; every tile has
@@ -142,7 +145,7 @@ def test_plan_tiles_fits_and_covers(n, h, w, cmid, d):
     # the strips cover the width, the segments cover every chain of rows
     assert -(-w // tw) * tw >= w and (-(-w // tw) - 1) * tw < w
     assert rs * segs >= -(-h // d)
-    assert plan.flop_per_l2_weight_byte == tw / 2
+    assert plan.flop_per_l2_weight_byte(size) == 2 * tw / size
     # conv2 and conv3 give every thread a tile; conv1's TW + 2d pixels are
     # no whole number of tiles at layers 1-2, where at most a fifth of the
     # threads idle in it; at layers 3 and 4 every thread works in every conv
@@ -153,9 +156,12 @@ def test_plan_tiles_fits_and_covers(n, h, w, cmid, d):
         assert busy["conv1"] == threads
 
 
-def test_plan_tiles_r101_tiles():
-    """The tiles the kernel's header note states for a 1024x512 forward."""
-    tws = {(cmid, w): plan_tiles(2, h, w, 4 * cmid, cmid, d, 132).tw
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_plan_tiles_r101_tiles(dtype):
+    """The tiles the kernel's header note states for a 1024x512 forward, the
+    same in bf16 (layer4's TW is pinned by its pixel tiles, not by its
+    shared memory)."""
+    tws = {(cmid, w): plan_tiles(2, h, w, 4 * cmid, cmid, d, 132, dtype).tw
            for h, w, cmid, d in ((129, 257, 64, 1), (65, 257, 128, 1), (65, 129, 256, 2),
                                  (81, 161, 256, 2), (65, 129, 512, 4))}
     assert tws == {(64, 257): 64, (128, 257): 64, (256, 129): 48, (256, 161): 56,

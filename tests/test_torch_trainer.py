@@ -16,6 +16,7 @@
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -26,7 +27,13 @@ import numpy as np
 import pytest
 import torch
 
-from maxsquareloss_torch.config import TrainConfig, add_train_args, add_uda_train_args, config_from_args
+from maxsquareloss_torch.config import (
+    TrainConfig,
+    add_train_args,
+    add_uda_train_args,
+    check_supported,
+    config_from_args,
+)
 from maxsquareloss_torch.convert import state_dict_from_jax
 from maxsquareloss_torch.data import synthetic as tsynthetic
 from maxsquareloss_torch.data.loader import SegDataLoader
@@ -234,7 +241,6 @@ def test_synthia_protocol_reports_16_and_13(tmp_path):
 
 
 UNPORTED = [
-    ("--compute_dtype", "bfloat16"), ("--remat", "stages"),
     ("--quantize", "int8"), ("--loader", "grain"), ("--sp", "2"),
     ("--freeze_bn", "false"), ("--xla_options", "a=b"),
 ]
@@ -252,9 +258,32 @@ def test_unported_flags_raise(tmp_path, flag, value):
 
 
 def test_unported_field_raises_in_the_trainer(tmp_path):
-    cfg = dataclasses.replace(_cfg(tmp_path), compute_dtype="bfloat16")
+    cfg = dataclasses.replace(_cfg(tmp_path), quantize="int8")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(cfg, _loader(), None)
+
+
+# the flags the bf16 slice ported, which raised before it
+PORTED = [("--compute_dtype", "bfloat16"), ("--remat", "stages")]
+
+
+@pytest.mark.parametrize("flag,value", PORTED, ids=[f for f, _ in PORTED])
+def test_ported_flags_run_in_the_trainer(tmp_path, flag, value):
+    """The flag parses, reaches the model (its compute dtype and remat) and
+    trains an iteration with a validation; parameters stay float32."""
+    p = argparse.ArgumentParser()
+    add_uda_train_args(add_train_args(p))
+    args = p.parse_args(["--checkpoint_dir", str(tmp_path), flag, value, "--device", "cpu"])
+    cfg = dataclasses.replace(_cfg(tmp_path, iter_stop=1, epoch_num=1),
+                              **{flag[2:]: getattr(args, flag[2:])})
+    check_supported(config_from_args(args))
+    tr = Trainer(cfg, _loader(n=2), _loader(n=2, seed=1))
+    assert (tr.model.cfg.compute_dtype, tr.model.cfg.remat) == (cfg.dtype, cfg.remat)
+    tr.train()
+    assert tr.state.iteration == 1
+    assert {p.dtype for p in tr.model.parameters()} == {torch.float32}
+    losses = list(_scalars(tmp_path, "train/loss").values())
+    assert losses and all(np.isfinite(losses))
 
 
 def test_data_parallel_on_one_device_is_accepted(tmp_path):
