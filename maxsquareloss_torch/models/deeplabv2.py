@@ -112,11 +112,10 @@ class Bottleneck(nn.Module):
     """caffe ResNet bottleneck (stride on conv1, conv2 padding = dilation)."""
 
     def __init__(self, in_ch: int, planes: int, stride: int, dilation: int,
-                 downsample: bool, compute_dtype: torch.dtype = torch.float32):
+                 downsample: bool):
         super().__init__()
         out_ch = planes * EXPANSION
         self.stride, self.dilation = stride, dilation
-        self.compute_dtype = compute_dtype
         self.conv1 = _conv(in_ch, planes, 1, stride=stride)
         self.bn1 = FrozenBN(planes)
         self.conv2 = _conv(planes, planes, 3, padding=dilation, dilation=dilation)
@@ -132,26 +131,20 @@ class Bottleneck(nn.Module):
         if self.fusable:
             # The eval kernel's weights: each conv kernel in HWIO order in
             # the compute dtype, flattened to a 2-D (kh*kw*Cin, Cout) matrix
-            # so that .to(memory_format=...) leaves it contiguous. Not saved; made
-            # here and again whenever a state dict is loaded, by
-            # init_deeplabv2 after its in-place init, and by the train steps
-            # after every optimizer step.
+            # so that .to(memory_format=...) leaves it contiguous. Not saved;
+            # made by DeepLabV2.pack_weights.
             for i in (1, 2, 3):
                 self.register_buffer(f"w{i}_hwio", None, persistent=False)
-            self.register_load_state_dict_post_hook(
-                lambda module, _: module.pack_weights()
-            )
-            self.pack_weights()
 
     @property
     def fusable(self) -> bool:
         return self.downsample is None and self.stride == 1
 
     @torch.no_grad()
-    def pack_weights(self) -> None:
+    def pack_weights(self, dtype: torch.dtype) -> None:
         for i, conv in enumerate((self.conv1, self.conv2, self.conv3), 1):
             w = conv.weight
-            hwio = w.permute(2, 3, 1, 0).reshape(-1, w.shape[0]).to(self.compute_dtype)
+            hwio = w.permute(2, 3, 1, 0).reshape(-1, w.shape[0]).to(dtype)
             hwio = hwio.contiguous()  # a 1x1 kernel's permuted reshape is a view
             setattr(self, f"w{i}_hwio", hwio)
 
@@ -242,12 +235,17 @@ class DeepLabV2(nn.Module):
                     stride != 1 or in_ch != planes * EXPANSION or dilation in (2, 4)
                 )
                 blocks.append(Bottleneck(in_ch, planes, stride if bi == 0 else 1,
-                                         dilation, need_ds, cfg.compute_dtype))
+                                         dilation, need_ds))
                 in_ch = planes * EXPANSION
             setattr(self, f"layer{li + 1}", nn.Sequential(*blocks))
         if cfg.multi_level:
             self.layer5 = Classifier(1024, cfg.num_classes)
         self.layer6 = Classifier(2048, cfg.num_classes)
+        # the packed weights are made here and again whenever a state dict is
+        # loaded, by init_deeplabv2 after its in-place init, and by the train
+        # steps after every optimizer step
+        self.register_load_state_dict_post_hook(lambda model, _: model.pack_weights())
+        self.pack_weights()
 
     def _stage(self, layer: nn.Sequential, x: torch.Tensor,
                mask: CanvasMask | None) -> torch.Tensor:
@@ -263,10 +261,11 @@ class DeepLabV2(nn.Module):
         return run(x)
 
     def pack_weights(self) -> None:
-        """Refresh the eval kernel's HWIO weights from the convs."""
+        """Refresh the eval kernel's HWIO weights (in the compute dtype)
+        from the convs."""
         for m in self.modules():
             if isinstance(m, Bottleneck) and m.fusable:
-                m.pack_weights()
+                m.pack_weights(self.cfg.compute_dtype)
 
     def forward(self, x: torch.Tensor, aux: bool = True,
                 masks: dict[str, CanvasMask] | None = None):

@@ -13,9 +13,9 @@ one torch thread per rank): the port's counterpart of
   mean of per-rank means would halve its CE). Two steps each, so the
   second runs on DDP's rebuilt buckets; after them the ranks' parameters
   are the same. A bf16 case with stage remat runs against the one-process
-  bf16 step: its first step at the fp32 bounds, after it the bf16 step's
-  (``BF16_STEP_RTOL``, ``BF16_PARAM_RTOL_L2``: each rank's conv weight
-  gradients round to bf16 before DDP averages them).
+  bf16 step: its first step at the fp32 bounds, after it at twice the
+  measured distance (``BF16_STEP_RTOL``, ``BF16_PARAM_RTOL_L2``: each
+  rank's conv weight gradients round to bf16 before DDP averages them).
 - the confusion matrix over padded shards equals the one-process matrix
   exactly;
 - a SIGTERM flag on rank 1 alone stops both ranks at the same
@@ -73,9 +73,10 @@ FP32_CASES = [c for c, (_, fields, _) in CASES.items() if "compute_dtype" not in
 # rank's conv weight gradients have rounded to bf16 before DDP averages
 # them, the one process's once over the global batch (as the JAX package's
 # bf16 convs round theirs), so the parameter changes and the later metrics
-# differ at bf16's rounding: the port-vs-JAX bf16 step's bounds (PERF.md
-# section 2: metrics 1e-2 relative, each parameter's change 3e-2 relative L2)
-BF16_STEP_RTOL, BF16_PARAM_RTOL_L2 = 1e-2, 3e-2
+# differ at bf16's rounding. Limits twice the readings at worlds 2 and 4
+# (PERF.md section 2): second-step metrics 3.9e-3 relative, parameter
+# changes 5.1e-3 relative L2
+BF16_STEP_RTOL, BF16_PARAM_RTOL_L2 = 8e-3, 1e-2
 EVAL_IMAGES, EVAL_BATCH = 5, 4  # padded shards at both world sizes
 PREEMPT_SYNC, PREEMPT_FLAG_AT = 2, 1  # rank 1 flags after step 1: both stop at 2
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
