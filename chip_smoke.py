@@ -9,7 +9,9 @@ Phases, one JSON object per line on stdout:
      every plain fp32 reference runs in full fp32;
   2. build: compiles every kernel source of the port from
      ``maxsquareloss_torch/csrc``, one ``nvcc`` per library, all at once
-     (the fused bottleneck twice: fp32, and bf16 with ``-DMSL_BF16``);
+     (the fused bottleneck twice: fp32, and bf16 with ``-DMSL_BF16``), with
+     each bottleneck kernel instance's registers a thread and stack bytes
+     (spills) as ``cuobjdump --dump-resource-usage`` reads them;
   3. kernels: the eval bottleneck against its plain PyTorch version at every shape
      the main path gives it (rtol = atol = 1e-4: fp32 sums over up to 4608
      terms in another order); the eval shapes are also timed with CUDA
@@ -91,7 +93,10 @@ Phases, one JSON object per line on stdout:
      eval out equal to the emit out, a second call the same bits; eval timed
      at the eval shapes, emit at the step's, beside the bf16 plain version
      (the cuDNN bf16 chain), the bound at 989 TFLOP/s bf16 or 3.35 TB/s and
-     the FMA route's ceiling at 67 TFLOP/s;
+     the FMA route's ceiling at 67 TFLOP/s. The bf16 instance runs conv1
+     and conv3 on wgmma and conv2 on the FMA loop: each row and the kernels
+     line name each conv's route, and each row the plan (m64 tiles and the
+     share of their rows in use, stages);
  11c. bf16: the train phase's step with --compute_dtype bfloat16 from the
      same seeded weights: one kernel-path step against one plain-path step
      (every metric within 1e-2 relative beyond what bf16 moves it from the
@@ -434,7 +439,29 @@ def phase_build() -> None:
         fused_block._library(dtype)
     emit({"phase": "build", "libraries": [lib.name for lib, _ in built],
           "seconds_by_library": {name: sec for name, (_, sec) in zip(builds, built)},
-          "seconds": time.perf_counter() - t0})
+          "seconds": time.perf_counter() - t0,
+          "resource_usage": {name: _resource_usage(lib) for name, (lib, _) in zip(builds, built)
+                             if name.startswith("fused_bottleneck")}})
+
+
+def _resource_usage(lib) -> dict | None:
+    """Each kernel instance's registers a thread and stack frame (spills and
+    local arrays, bytes) in a built library, as ``cuobjdump
+    --dump-resource-usage`` from the toolkit beside nvcc reads them; None
+    where the tool is missing."""
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    dump = subprocess.run([tool, "--dump-resource-usage", str(lib)], capture_output=True,
+                          text=True).stdout
+    usage = {}
+    for name, reg, stack, local in re.findall(
+            r"Function ([^\s:]+):\s*REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)", dump):
+        if "fused_bottleneck_kernel" in name:  # <Emit>: its template argument
+            name = "fused_bottleneck_kernel" + ("<emit>" if "ILb1E" in name else "<eval>")
+        usage[name] = {"registers": int(reg), "stack_bytes": int(stack), "local_bytes": int(local)}
+    return usage
 
 
 def _block_inputs(gen, n, h, w, cin, cmid, dtype=torch.float32):
@@ -462,6 +489,7 @@ def _tile_report(n, h, w, cin, cmid, d, dtype=torch.float32) -> dict:
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     plan = fused_block.plan_tiles(n, h, w, cin, cmid, d, sm_count, dtype)
     return {"tile": plan._asdict(), "smem_bytes_with_stages": plan.smem,
+            "conv_routes": plan.conv_routes(), "m_rows_used": plan.m_rows_used(d),
             "flop_per_l2_weight_byte": plan.flop_per_l2_weight_byte(dtype.itemsize),
             "busy_threads": plan.busy_threads(cmid, d)}
 
@@ -1451,7 +1479,11 @@ def phase_bf16_kernels() -> tuple[dict, list[dict]]:
                 "bound_by": "operations" if all(r["bound_by"] == "operations" for r in rs) else "bytes",
                 "library_ms": total("library_ms"), "fma_ceiling_ms": total("fma_ceiling_ms"),
                 "library": "the plain F.conv2d bf16 chain (cuDNN, channels_last), which is the "
-                           "plain version", "per": per, "shapes": rs}
+                           "plain version", "per": per,
+                # what runs each conv, by layer (the planner's choice; the same at
+                # every shape of a layer)
+                "conv_routes": {r["layer"]: r["conv_routes"] for r in rs},
+                "shapes": rs}
 
     return ({"fused_bottleneck_bf16": set(checked), "fused_bottleneck_emit_bf16": set(checked)},
             [entry("fused_bottleneck_bf16", "eval", "the 29 blocks of a batch-2 1024x512 forward"),

@@ -94,25 +94,67 @@
 //   place h1 is made, so the ring, conv2's input and the emitted h1 are all
 //   the masked h1; conv2, conv3, h2 and out run over the whole canvas as
 //   before. A runtime argument: no template instance of its own.
-// - bf16 (the library built with -DMSL_BF16, kernels/fused_block.py): the
-//   same body with every tensor but the BN vectors in bf16 (the weights the
-//   caller's HWIO copies cast from fp32, as the TPU kernel's _prep casts
-//   them). Operands are staged as bf16 (a 16-byte cp.async moves 8 of
-//   them; an x stage and an h1/h2 pixel are padded by 16 bytes, 8
-//   elements), widened to fp32 in registers where mac_stage reads them, and
-//   the fp32 FMA loop accumulates. Results are rounded to bf16 where the
-//   Pallas body casts to the compute dtype: each conv's fp32 sum; the BN's
-//   product and its sum (the BN vectors rounded to bf16 as they are read);
-//   the residual add; the ReLU is exact. h1 and h2 are stored as bf16, the
-//   ring and the emitted copies alike. No tensor cores yet: against
-//   device memory and L2 the work is the fp32 kernel's at half the bytes,
-//   and it stays bound by the FMA issue rate (plus one widening per operand
-//   element read), far from the card's 989 TFLOP/s bf16 rate.
-// - Left for later: more pixels per weight pass at layer4 (thread block
-//   clusters with multicast weight stages) and the tensor cores. Split-TF32
-//   mma.sync (three products) was measured at this structure: 1.17x the FMA
-//   loop at layer3's widths, 0.94x at layer4's, with 9-12x the error
-//   (PERF.md), so it needs wgmma and the wider tiles first.
+// - bf16 (the library built with -DMSL_BF16, kernels/fused_block.py): every
+//   tensor but the BN vectors in bf16 (the weights the caller's HWIO copies
+//   cast from fp32, as the TPU kernel's _prep casts them), and conv1 and
+//   conv3 on the tensor cores: the tc route, chosen at compile time
+//   (kTensorCores), so the fp32 build runs the FMA route above unchanged.
+//   Results are rounded to bf16 where the Pallas body casts to the compute
+//   dtype: each conv's fp32 sum; the BN's product and its sum (the BN
+//   vectors rounded to bf16 as they are read); the residual add; the ReLU
+//   is exact. h1 and h2 are stored as bf16, the ring and the emitted copies
+//   alike. Only the order of each fp32 sum differs from the plain version.
+// - The tc route: conv1 ([TW+2d pixels x Cin] x [Cin x Cmid]) and conv3 ([TW
+//   x Cmid] x [Cmid x Cin], in passes of bn3 columns) are wgmma.mma_async
+//   m64nNk16 bf16 -> fp32 products from shared memory without swizzle, in
+//   passes of bn1 (conv1) or bn3 (conv3) columns: each warpgroup takes the
+//   pass's columns over the warpgroups, 128 over one m64 tile of pixels or 64
+//   over two, 64 fp32 accumulators a thread (DISPATCH_TC: 3 instances a
+//   conv; 128 accumulators spill beside the FMA loop's registers), and the
+//   epilogue follows each pass's k loop (tc_pass: ptxas serializes the wgmma
+//   of a loop whose body reads the accumulators). The operands are staged
+//   as before, by cp.async double buffers of kb1 (conv1) or kb3 (conv3)
+//   k-rows, up to 64 (one barrier a stage, four k16 steps per barrier),
+//   only at other addresses: the x stage and h2 in the k-major
+//   core-matrix layout (8 pixels x 16 bytes a core matrix, channel block
+//   c/8 of pixel p at 8 (stride * c/8 + p), the pixel stride odd so the
+//   stores into it avoid bank conflicts), the weight stages in the n-major
+//   one (8 k-rows x 8 columns a core matrix, read with the transpose flag),
+//   which the 16-byte pieces of each weight row fill by address alone: no
+//   host-side packing. conv2 stays on the FMA loop (rung (b), nine shifted
+//   products from the ring, is for later) and writes h2 into its ring slot
+//   in the core-matrix layout, compact (h2p x Cmid fits the P1 x ldh slot).
+//   A stage's cp.async writes and conv2's plain stores of h2 are fenced
+//   into the async proxy (fence.proxy.async) before the barrier that hands
+//   them to wgmma; every thread waits for its warpgroup's products
+//   (wgmma.wait_group 0) before the next barrier lets a buffer be
+//   overwritten, so one stage's products run while the next stage lands.
+//   Rows of an m64 tile past the pixels (layer4: 28 of 64 in conv3) read
+//   whatever lies at their addresses inside the block's shared memory and
+//   are dropped. The epilogues take the accumulator fragment (thread t of a
+//   warpgroup holds columns 8j + 2(t%4) + {0,1} of rows 16(t/32) + (t%32)/4
+//   and 8 below): conv1 writes h1 pixel-major into the ring as 4-byte pairs
+//   (the h1 pixel stride padded by 16 bytes at every width: no bank
+//   conflict); conv3 writes bn3 of its fragment into a tile of 64 columns a
+//   warpgroup in the x stages (free during conv3, a swizzle of 16-byte
+//   pieces against bank conflicts) and then reads the residual and stores
+//   out in 16-byte pieces along each pixel's channels: in the fragment's
+//   order, 8 pixels x 16 bytes a warp instruction, those accesses took 2.3x
+//   as long (PERF.md). The planner (plan_tiles) picks TW by the m64 tiles
+//   the FMA loop's pixel tiles allow: R101 at 1024x512 layer1 TW 96 (P1 98:
+//   two tiles), layer2 48 (1024x512) or 96 (1280x640), layer3 48 or 56 (one
+//   tile), layer4 28 (P1 36, conv3 28 rows of a tile), in 85-188 KB of
+//   shared memory; timed at every other TW on an H100, no choice is more
+//   than 6 % off the fastest at its shape. Measured on an H100 (PERF.md):
+//   0.65-0.68x the FMA route's time; the tensor-core part runs at about a
+//   tenth of the bf16 peak and conv2's FMA loop takes most of the time.
+// - Left for later: conv2 on wgmma (nine shifted products from the h1 ring,
+//   behind a gate measured in a scratch kernel first), a fetching warp with
+//   mbarriers in place of the block barrier a stage, more pixels per weight
+//   pass at layer4 (thread block clusters with multicast weight stages), and
+//   the tensor cores in fp32 (split-TF32 mma.sync at this structure: 1.17x
+//   the FMA loop at layer3's widths, 0.94x at layer4's, with 9-12x the
+//   error, PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -129,8 +171,10 @@ constexpr int kCh = 8;         // channels per thread tile
 
 #ifdef MSL_BF16
 using Elem = __nv_bfloat16;    // the type of every tensor but the BN vectors
+constexpr bool kTensorCores = true;   // conv1 and conv3 on wgmma (the tc route)
 #else
 using Elem = float;
+constexpr bool kTensorCores = false;  // every conv on the FMA loop
 #endif
 constexpr int kVec = 16 / sizeof(Elem);  // elements per 16-byte copy
 
@@ -154,6 +198,11 @@ struct Args {
   // each conv, the pixel stride of h1/h2, the elements of one weight stage
   // buffer, the pixels of one x stage buffer and the k rows of a stage
   int bn3, px1, px2, px3, ldh, wstage, xs_px, kb;
+  // the tc route's: the k rows of a conv1 and a conv3 stage, the m64 tiles
+  // of conv1 (TW + 2d pixels) and conv3 (TW), the pixel stride of h2's
+  // core-matrix layout and conv1's columns per pass (kb1 = kb3 = kb, the
+  // others 0, on the FMA route)
+  int kb1, kb3, mt1, mt3, h2p, bn1;
 };
 
 // Four bf16 (8 bytes, the lower address in the low half of each word) as
@@ -419,7 +468,9 @@ __device__ __forceinline__ void conv2_row(const Args& a, const Elem* h1, Elem* h
 #pragma unroll
     for (int p = 0; p < PX; ++p) {
       const float4 y = bn_relu(&acc[p][hf * 4], s, b);
-      store4(h2 + (c0 + p) * a.ldh + ch, y);
+      // pixel-major for conv3_row; core matrices for conv3_row_tc's wgmma
+      store4(h2 + (kTensorCores ? 8 * (a.h2p * (ch >> 3) + c0 + p) + (ch & 7)
+                                : (c0 + p) * a.ldh + ch), y);
       const int col = col0 + c0 + p;
       if (Emit && col < a.W)
         store4(a.h2 + ((size_t)(n * a.H + r) * a.W + col) * a.Cmid + ch, y);
@@ -504,6 +555,343 @@ __device__ __forceinline__ void conv3_row(const Args& a, const Elem* h2, Elem* w
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tc route (the bf16 build): conv1 and conv3 on the tensor cores with
+// wgmma (bf16 x bf16 -> fp32), conv2 on the FMA loop above. The shared-memory
+// maps are restated in kernels/fused_block.py (x_stage_offset,
+// w_stage_offset, h2_offset, fragment_rows_cols) and checked there on the CPU.
+
+// Makes this thread's writes to shared memory (plain stores and cp.async)
+// visible to the async proxy that wgmma reads through.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of the accumulators across
+// a wgmma fence or wait (no instruction).
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// A shared-memory matrix descriptor without swizzle: core matrices of 8 rows
+// x 16 bytes (128 contiguous bytes); lbo is the byte step between core
+// matrices along k, sbo the step along m (A) or n (B).
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+// d (64 x NW, fp32) = (accumulate ? d : 0) + A (64 x 16, k-major) @ B (16 x
+// NW, n-major), both bf16 in shared memory. Thread t of the warpgroup holds
+// d[4j + 2h + e] = D[16 (t / 32) + 8h + (t % 32) / 4][8j + 2 (t % 4) + e].
+template <int NW>
+struct Wgmma;
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da, uint64_t db,
+                                             int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
+};
+
+// Start the copy of the weight stage W[k0 : k0+kb, n0 : n0+bn) (row-major,
+// ld = ldw) into ws in wgmma's n-major core-matrix layout: a core matrix is
+// 8 k-rows x 8 columns (16 bytes a row), the bn/8 core matrices of one block
+// of 8 k-rows side by side, so the 16-byte piece idx (k-row idx % 8 of column
+// block (idx / 8) % (bn / 8), k block idx / bn) lands at ws + 8 idx, and eight
+// neighbouring threads fill one core matrix. Descriptor: lbo = 16 bn bytes
+// (k), sbo = 128 (n).
+__device__ __forceinline__ void stage_weights_tc(Elem* ws, const Elem* __restrict__ w, int ldw,
+                                                 int n0, int k0, int bn, int kb) {
+  const int blocks = bn / 8;
+  for (int idx = threadIdx.x; idx < kb * blocks; idx += blockDim.x) {
+    const int kg = (idx >> 3) / blocks, cb = (idx >> 3) - kg * blocks;
+    cp_async16(ws + 8 * idx, w + (size_t)(k0 + 8 * kg + (idx & 7)) * ldw + n0 + 8 * cb);
+  }
+}
+
+// Two BN scale or bias values (fp32 vector, ch even), rounded as bn_vec.
+__device__ __forceinline__ float2 bn_vec2(const float* p) {
+  const float2 v = __ldg(reinterpret_cast<const float2*>(p));
+  return make_float2(rnd(v.x), rnd(v.y));
+}
+
+// Two values exact in bf16 (rounded by the epilogue), stored as 4 bytes.
+__device__ __forceinline__ void store2(Elem* p, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(p) =
+      (__float_as_uint(lo) >> 16) | (__float_as_uint(hi) & 0xffff0000u);
+}
+
+// relu(rnd(z + x)) of two bf16 pairs (the residual add rounds once more in
+// bf16), as a bf16 pair.
+__device__ __forceinline__ uint32_t add_relu2(uint32_t z, uint32_t x) {
+  const float lo = fmaxf(rnd(__uint_as_float(z << 16) + __uint_as_float(x << 16)), 0.f);
+  const float hi =
+      fmaxf(rnd(__uint_as_float(z & 0xffff0000u) + __uint_as_float(x & 0xffff0000u)), 0.f);
+  return (__float_as_uint(lo) >> 16) | (__float_as_uint(hi) & 0xffff0000u);
+}
+
+// conv3's epilogue stages kEpiCols columns of a warpgroup's fragment at a
+// time in a tile of TW pixels x kEpiCols (128 bytes a pixel), in the x
+// stages, which conv3 leaves free: column c of pixel p at piece (c/8) ^ (p%8)
+// of the pixel's eight 16-byte pieces, so a warp's fragment stores (8 pixels,
+// one piece) and its 16-byte reads (a pixel's 8 pieces a quarter warp) fall
+// on distinct banks.
+constexpr int kEpiCols = 64;
+
+__device__ __forceinline__ int epi_offset(int p, int c) {
+  return p * kEpiCols + 8 * ((c >> 3) ^ (p & 7)) + (c & 7);
+}
+
+// The barrier of this thread's warpgroup (ids 1 and 2; 0 is __syncthreads).
+__device__ __forceinline__ void warpgroup_sync() {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + (threadIdx.x >> 7)) : "memory");
+}
+
+// One pass of a tc product: acc[t] = (64 rows of m64 tile t) x (this
+// warpgroup's NW of the pass's bn columns), summed over `stages` stages of
+// kb k-rows, double buffered with cp.async. load(i) starts and commits stage
+// i's copies into buffer i & 1 (the weight stage at wst + (i & 1) * wstage,
+// kb x bn in the n-major core-matrix layout); a_at(i, s, t) is the A
+// descriptor of k16 step s of stage i for tile t. One barrier a stage; the
+// products of stage i run while stage i+1 lands. The epilogue reads acc
+// after the pass, outside its k loop: a read of the accumulators inside the
+// loop makes ptxas serialize every wgmma. Returns with all products done.
+template <int MT, int NW, class Load, class ADesc>
+__device__ __forceinline__ void tc_pass(float (&acc)[MT][NW / 2], int stages, int kb, int bn,
+                                        const Elem* wst, int wstage, Load load, ADesc a_at) {
+  const Elem* wcol = wst + 8 * (threadIdx.x >> 7) * NW;  // this warpgroup's columns
+  __syncthreads();  // the buffers' last readers (the last pass's products) are done
+  load(0);
+  for (int i = 0; i < stages; ++i) {
+    cp_async_wait_all();  // stage i has landed (this thread's copies)
+    fence_proxy_async();  // ... visible to wgmma
+    wgmma_wait_all();     // stage i-1's products are done with its buffers
+    __syncthreads();      // ... everyone's: stage i+1 may take them
+    if (i + 1 < stages) load(i + 1);
+    const Elem* ws = wcol + (i & 1) * wstage;
+#pragma unroll
+    for (int t = 0; t < MT; ++t) fence_acc(acc[t]);
+    wgmma_fence();
+    for (int s = 0; s < kb / 16; ++s) {
+      const uint64_t db = wgmma_desc(ws + 16 * s * bn, 16 * bn, 128);
+#pragma unroll
+      for (int t = 0; t < MT; ++t) Wgmma<NW>::mma(acc[t], a_at(i, s, t), db, i | s);
+    }
+    wgmma_commit();
+  }
+  wgmma_wait_all();
+#pragma unroll
+  for (int t = 0; t < MT; ++t) fence_acc(acc[t]);
+}
+
+// conv1 on the tensor cores: h1 for image row r at columns [col0 - d, col0 +
+// TW + d) into one ring slot, as conv1_row. [P1 pixels x Cin] x [Cin x Cmid]
+// in Cmid / bn1 passes of kb1-channel stages of x and w1: warpgroup g takes
+// the pass's columns [g NW, (g+1) NW) over MT m64 tiles of pixels. An x
+// stage holds channel block c/8 of pixel p at 8 (xs_px (c/8) + p) (lbo =
+// 16 xs_px bytes, sbo = 128): the tiles' rows past P1 read whatever lies
+// there (inside the block's shared memory, plan_tiles) and are never stored.
+template <int MT, int NW>
+__device__ __forceinline__ void conv1_row_tc(const Args& a, Elem* slot, Elem* wst, Elem* xst,
+                                             int n, int r, int col0) {
+  const int P1 = a.TW + 2 * a.d;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int vh = a.valid ? __ldg(a.valid + 2 * n) : a.H;
+  const int vw = a.valid ? __ldg(a.valid + 2 * n + 1) : a.W;
+  // the slot held the last trip's h2 and the stage buffers its weights: their
+  // readers (conv3's wgmma, waited for) are done
+  __syncthreads();
+  if (r < 0 || r >= vh) {  // the same for the whole block: a block has one image
+    const int nq = a.Cmid / kVec;
+    for (int i = tid; i < P1 * nq; i += nt)
+      *reinterpret_cast<uint4*>(slot + (i / nq) * a.ldh + (i % nq) * kVec) =
+          make_uint4(0u, 0u, 0u, 0u);
+    return;
+  }
+  const int kb = a.kb1, parts = kb / 8;
+  const int xlen = a.xs_px * kb;
+  const Elem* xrow = a.x + (size_t)(n * a.H + r) * a.W * a.Cin;
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, g = (tid & 31) >> 2, tq = tid & 3;
+  float acc[MT][NW / 2] = {};
+  for (int n0 = 0; n0 < a.Cmid; n0 += a.bn1) {
+    auto load = [&](int i) {
+      const int k0 = i * kb;
+      stage_weights_tc(wst + (i & 1) * a.wstage, a.w1, a.Cmid, n0, k0, a.bn1, kb);
+      Elem* xs = xst + (i & 1) * xlen;
+      for (int j = tid; j < P1 * parts; j += nt) {
+        const int pix = j / parts, part = j - pix * parts;
+        const int col = col0 - a.d + pix;
+        const bool ok = col >= 0 && col < a.W;
+        cp_async16(xs + 8 * (part * a.xs_px + pix),
+                   xrow + (size_t)(ok ? col : 0) * a.Cin + k0 + 8 * part, ok);
+      }
+      cp_async_commit();
+    };
+    auto a_at = [&](int i, int s, int t) {
+      return wgmma_desc(xst + (i & 1) * xlen + 8 * (2 * s * a.xs_px + 64 * t), 16 * a.xs_px, 128);
+    };
+    tc_pass<MT, NW>(acc, a.Cin / kb, kb, a.bn1, wst, a.wstage, load, a_at);
+#pragma unroll
+    for (int j = 0; j < NW / 8; ++j) {
+      const int ch = n0 + wg * NW + 8 * j + 2 * tq;
+      const float2 s = bn_vec2(a.s1 + ch);
+      const float2 b = bn_vec2(a.b1 + ch);
+#pragma unroll
+      for (int t = 0; t < MT; ++t)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int pix = 64 * t + 16 * warp + 8 * h + g;
+          const int col = col0 - a.d + pix;
+          if (pix < P1) {
+            const bool in = col >= 0 && col < vw;
+            store2(slot + pix * a.ldh + ch,
+                   in ? fmaxf(frozen_bn(acc[t][4 * j + 2 * h], s.x, b.x), 0.f) : 0.f,
+                   in ? fmaxf(frozen_bn(acc[t][4 * j + 2 * h + 1], s.y, b.y), 0.f) : 0.f);
+          }
+        }
+    }
+  }
+}
+
+// conv3 on the tensor cores: out row r = relu(bn3(conv3 h2) + x), as
+// conv3_row. h2 lies in its ring slot in the core-matrix layout (channel
+// block c/8 of pixel p at 8 (h2p (c/8) + p), written by conv2_row), whole:
+// [TW x Cmid] x [Cmid x Cin] in Cin / bn3 passes of kb3-row stages of w3;
+// warpgroup g takes the pass's columns [g NW, (g+1) NW) over MT m64 tiles.
+// The epilogue goes through shared memory (epi_offset): bn3 of the fragment
+// into the warpgroup's tile at xst + g TW kEpiCols, then the residual add
+// and the ReLU in 16-byte pieces along each pixel's channels, so the reads
+// of x and the stores of out take whole sectors.
+template <int MT, int NW>
+__device__ __forceinline__ void conv3_row_tc(const Args& a, const Elem* h2, Elem* wst,
+                                             Elem* xst, int n, int r, int col0) {
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int warp = (tid >> 5) & 3, g = (tid & 31) >> 2, tq = tid & 3;
+  const int kb = a.kb3;
+  float acc[MT][NW / 2] = {};
+  fence_proxy_async();  // conv2's epilogue wrote h2 with plain stores
+  for (int n0 = 0; n0 < a.Cin; n0 += a.bn3) {
+    auto load = [&](int i) {
+      stage_weights_tc(wst + (i & 1) * a.wstage, a.w3, a.Cin, n0, i * kb, a.bn3, kb);
+      cp_async_commit();
+    };
+    auto a_at = [&](int i, int s, int t) {
+      return wgmma_desc(h2 + 8 * (a.h2p * (i * kb / 8 + 2 * s) + 64 * t), 16 * a.h2p, 128);
+    };
+    tc_pass<MT, NW>(acc, a.Cmid / kb, kb, a.bn3, wst, a.wstage, load, a_at);
+    Elem* tile = xst + wg * a.TW * kEpiCols;
+#pragma unroll
+    for (int c = 0; c < NW / kEpiCols; ++c) {
+      if (c > 0) warpgroup_sync();  // the last chunk's reads of the tile are done
+#pragma unroll
+      for (int jj = 0; jj < kEpiCols / 8; ++jj) {
+        const int j = c * (kEpiCols / 8) + jj;
+        const int ch = n0 + wg * NW + 8 * j + 2 * tq;
+        const float2 s = bn_vec2(a.s3 + ch);
+        const float2 b = bn_vec2(a.b3 + ch);
+#pragma unroll
+        for (int t = 0; t < MT; ++t)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int pix = 64 * t + 16 * warp + 8 * h + g;
+            if (pix < a.TW)
+              store2(tile + epi_offset(pix, 8 * jj + 2 * tq),
+                     frozen_bn(acc[t][4 * j + 2 * h], s.x, b.x),
+                     frozen_bn(acc[t][4 * j + 2 * h + 1], s.y, b.y));
+          }
+      }
+      warpgroup_sync();  // the chunk's tile is whole
+      const int ch0 = n0 + wg * NW + c * kEpiCols;
+      constexpr int kPieces = kEpiCols / 8;  // 16-byte pieces a pixel
+      for (int i = tid & 127; i < a.TW * kPieces; i += 128) {
+        const int pix = i / kPieces, q = i % kPieces;
+        const int col = col0 + pix;
+        if (col < a.W) {
+          const size_t o = ((size_t)(n * a.H + r) * a.W + col) * a.Cin + ch0 + 8 * q;
+          const uint4 z = *reinterpret_cast<const uint4*>(tile + epi_offset(pix, 8 * q));
+          const uint4 xr = __ldg(reinterpret_cast<const uint4*>(a.x + o));
+          *reinterpret_cast<uint4*>(a.out + o) =
+              make_uint4(add_relu2(z.x, xr.x), add_relu2(z.y, xr.y), add_relu2(z.z, xr.z),
+                         add_relu2(z.w, xr.w));
+        }
+      }
+    }
+  }
+}
+
+// The tc route's instances: MT m64 tiles x NW columns a warpgroup, at most
+// 64 fp32 accumulators a thread (plan_tiles; 128 spill beside the FMA loop).
+#define DISPATCH_TC(mt, nw, CALL)                                   \
+  if ((nw) == 128) {                                                \
+    constexpr int MT = 1, NW = 128; CALL;                           \
+  } else if ((mt) == 1) {                                           \
+    constexpr int MT = 1, NW = 64; CALL;                            \
+  } else {                                                          \
+    constexpr int MT = 2, NW = 64; CALL;                            \
+  }
+
 // The pixels per thread tile are compile-time (the accumulators are
 // registers): one instance per value, picked by the planner's px.
 #define DISPATCH_PX(px, CALL)  \
@@ -527,7 +915,7 @@ __global__ void __launch_bounds__(kMaxThreads) fused_bottleneck_kernel(const Arg
   const int P1 = a.TW + 2 * a.d;
   const int slot_len = P1 * a.ldh;
   Elem* wst = h1 + 3 * slot_len;
-  Elem* xst = wst + 2 * a.wstage;  // a.kb + kVec elements a pixel
+  Elem* xst = wst + 2 * a.wstage;  // fma: a.kb + kVec elements a pixel; tc: core matrices
 
   const int col0 = blockIdx.x * a.TW;
   int chain = blockIdx.y;
@@ -544,7 +932,10 @@ __global__ void __launch_bounds__(kMaxThreads) fused_bottleneck_kernel(const Arg
     const int r = res + a.d * j;
     if (j >= j0 && r >= a.H) break;
     Elem* fill = h1 + ring_slot(j + 1) * slot_len;
-    if (a.kb == 16) {
+    if constexpr (kTensorCores) {
+      DISPATCH_TC(a.mt1, a.bn1 * 128 / (int)blockDim.x,
+                  (conv1_row_tc<MT, NW>(a, fill, wst, xst, n, r + a.d, col0)))
+    } else if (a.kb == 16) {
       DISPATCH_PX(a.px1, (conv1_row<PX, 16>(a, fill, wst, xst, n, r + a.d, col0)))
     } else {
       DISPATCH_PX(a.px1, (conv1_row<PX, 8>(a, fill, wst, xst, n, r + a.d, col0)))
@@ -561,7 +952,10 @@ __global__ void __launch_bounds__(kMaxThreads) fused_bottleneck_kernel(const Arg
       DISPATCH_PX(a.px2, (conv2_row<PX, 8, Emit>(a, h1, h2, wst, j, n, r, col0)))
     }
     __syncthreads();
-    if (a.kb == 16) {
+    if constexpr (kTensorCores) {
+      DISPATCH_TC(a.mt3, a.bn3 * 128 / (int)blockDim.x,
+                  (conv3_row_tc<MT, NW>(a, h2, wst, xst, n, r, col0)))
+    } else if (a.kb == 16) {
       DISPATCH_PX(a.px3, (conv3_row<PX, 16>(a, h2, wst, n, r, col0)))
     } else {
       DISPATCH_PX(a.px3, (conv3_row<PX, 8>(a, h2, wst, n, r, col0)))
@@ -582,6 +976,38 @@ cudaError_t launch(const Args& a, int threads, int smem_bytes, cudaStream_t stre
 
 bool px_ok(int px) { return px >= 1 && px <= 8; }
 
+// The mapping the kernel relies on (kernels/fused_block.py plan_tiles owns
+// the arithmetic); a plan that breaks it is refused.
+bool plan_ok(const Args& a, int threads) {
+  const int P1 = a.TW + 2 * a.d;
+  if (threads != 128 && threads != 256) return false;
+  if (a.Cmid % 32 || a.Cin % 32 || a.bn3 % 32 || a.Cin % a.bn3) return false;
+  // conv2, on the FMA loop in both routes
+  if (!px_ok(a.px2) || (a.kb != 8 && a.kb != 16) || threads % (a.Cmid / 4) ||
+      a.TW != a.px2 * (threads / (a.Cmid / 8)))
+    return false;
+  if (a.ldh < a.Cmid || a.ldh % kVec || a.wstage < a.kb * a.Cmid) return false;
+  if constexpr (kTensorCores) {
+    const int wgs = threads / 128, nw1 = a.bn1 / wgs, nw3 = a.bn3 / wgs;
+    auto tile_ok = [](int mt, int nw) {  // a DISPATCH_TC instance
+      return (nw == 64 && (mt == 1 || mt == 2)) || (nw == 128 && mt == 1);
+    };
+    return tile_ok(a.mt1, nw1) && tile_ok(a.mt3, nw3) && a.bn1 % wgs == 0 &&
+           a.bn3 % wgs == 0 && a.Cmid % a.bn1 == 0 &&
+           a.mt1 == (P1 + 63) / 64 && a.mt3 == (a.TW + 63) / 64 &&
+           a.kb1 % 16 == 0 && a.kb1 > 0 && a.Cin % a.kb1 == 0 &&
+           a.kb3 % 16 == 0 && a.kb3 > 0 && a.Cmid % a.kb3 == 0 &&
+           a.wstage >= a.kb1 * a.bn1 && a.wstage >= a.kb3 * a.bn3 && a.xs_px >= P1 &&
+           a.h2p >= a.TW && a.h2p * a.Cmid <= P1 * a.ldh &&
+           wgs * a.TW * kEpiCols <= 2 * a.xs_px * a.kb1;
+  } else {
+    return px_ok(a.px1) && px_ok(a.px3) && threads % (a.bn3 / 4) == 0 &&
+           a.TW == a.px3 * (threads / (a.bn3 / 8)) &&
+           a.px1 * (threads / (a.Cmid / 8)) >= P1 && a.wstage >= a.kb * a.bn3 &&
+           a.xs_px >= P1;
+  }
+}
+
 }  // namespace
 
 // The launch function of this library's element type: fp32, or bf16 when
@@ -593,10 +1019,18 @@ bool px_ok(int px) { return px >= 1 && px <= 8; }
 #endif
 
 // The tile arguments come from kernels/fused_block.py plan_tiles, which owns
-// their arithmetic: threads (128 or 256) = pixel tiles x Cmid/8 = pixel
-// tiles x bn3/8; TW = px2 x Cmid-tiles = px3 x bn3-tiles; px1 x tiles >=
-// TW + 2d; ldh >= Cmid, a multiple of 16 bytes; kb 8 or 16; wstage >= kb *
-// max(Cmid, bn3) elements; xs_px >= TW + 2d.
+// their arithmetic (plan_ok lists what the kernel relies on): threads (128
+// or 256) = pixel tiles x Cmid/8; TW = px2 x pixel tiles; ldh >= Cmid, a
+// multiple of 16 bytes; kb (conv2's stages) 8 or 16. The FMA route (fp32):
+// threads = pixel tiles x bn3/8 too, TW = px3 x those tiles, px1 x tiles >=
+// TW + 2d, wstage >= kb * max(Cmid, bn3) elements, xs_px >= TW + 2d, and
+// kb1, kb3, mt1, mt3, h2p, bn1 unused. The tc route (bf16): bn1 (dividing
+// Cmid) and bn3 (dividing Cin) over the warpgroups 128 columns with one m64
+// tile or 64 with one or two, mt1 = ceil((TW + 2d) / 64) and mt3 = ceil(TW /
+// 64), kb1 and kb3 multiples of 16 dividing Cin and Cmid, wstage >= kb1 * bn1
+// and kb3 * bn3,
+// xs_px >= TW + 2d, TW <= h2p with h2p * Cmid <= (TW + 2d) * ldh (h2 fits
+// its ring slot); px1, px3 unused.
 // x, the weights, out, h1 and h2 are Elem; the six BN vectors fp32.
 // h1, h2: both null (eval) or both (N, H, W, Cmid) outputs (training).
 // valid: null, or N x 2 ints on the device, each image's valid rows in
@@ -609,7 +1043,7 @@ extern "C" int MSL_FUSED_BOTTLENECK(
     const void* valid, int N,
     int H, int W, int Cin, int Cmid, int d, int TW, int RS, int S, int threads,
     int smem_bytes, int bn3, int px1, int px2, int px3, int ldh, int wstage,
-    int xs_px, int kb, void* stream) {
+    int xs_px, int kb, int kb1, int kb3, int mt1, int mt3, int h2p, int bn1, void* stream) {
   Args a;
   a.x = static_cast<const Elem*>(x);
   a.w1 = static_cast<const Elem*>(w1);
@@ -644,18 +1078,13 @@ extern "C" int MSL_FUSED_BOTTLENECK(
   a.wstage = wstage;
   a.xs_px = xs_px;
   a.kb = kb;
-  // the mapping the kernel relies on; a plan that breaks it is refused
-  if (threads != 128 && threads != 256) return (int)cudaErrorInvalidValue;
-  if (!px_ok(px1) || !px_ok(px2) || !px_ok(px3)) return (int)cudaErrorInvalidValue;
-  if (kb != 8 && kb != 16) return (int)cudaErrorInvalidValue;
-  if (Cmid % 32 || Cin % 32 || bn3 % 32 || Cin % bn3) return (int)cudaErrorInvalidValue;
-  if (threads % (Cmid / 4) || threads % (bn3 / 4)) return (int)cudaErrorInvalidValue;
-  if (TW != px2 * (threads / (Cmid / 8)) || TW != px3 * (threads / (bn3 / 8)) ||
-      px1 * (threads / (Cmid / 8)) < TW + 2 * d)
-    return (int)cudaErrorInvalidValue;
-  if (ldh < Cmid || ldh % kVec || wstage < kb * (Cmid > bn3 ? Cmid : bn3) ||
-      xs_px < TW + 2 * d)
-    return (int)cudaErrorInvalidValue;
+  a.kb1 = kb1;
+  a.kb3 = kb3;
+  a.mt1 = mt1;
+  a.mt3 = mt3;
+  a.h2p = h2p;
+  a.bn1 = bn1;
+  if (!plan_ok(a, threads)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(h1 != nullptr ? launch<true>(a, threads, smem_bytes, s)
                              : launch<false>(a, threads, smem_bytes, s));

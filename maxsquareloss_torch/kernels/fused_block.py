@@ -19,7 +19,13 @@ instance for each of the two types (one source, two libraries: bf16 is
 built with ``-DMSL_BF16``); any other type raises, naming it. In bf16 the
 kernel and the plain version round where the Pallas body casts to the
 compute dtype: each conv's fp32 sum, the BN's product and sum (the BN
-vectors cast to bf16, as its ``_prep`` casts them), the residual add.
+vectors cast to bf16, as its ``_prep`` casts them), the residual add. The
+bf16 instance runs conv1 and conv3 on the tensor cores (``wgmma``, the "tc"
+route of ``plan_tiles``) and conv2 on the FMA loop; the fp32 instance runs
+all three on the FMA loop. ``x_stage_offset``, ``w_stage_offset``,
+``h2_offset``, ``epilogue_offset``, ``fragment_rows_cols`` and
+``descriptor_read`` restate the tc route's shared-memory maps for the CPU
+tests.
 
 - ``fused_bottleneck``: out only (eval, no grad).
 - ``fused_bottleneck_emit``: (out, h1, h2), the training forward.
@@ -58,6 +64,23 @@ INSTANCES = {
     torch.float32: ((), "msl_fused_bottleneck_f32"),
     torch.bfloat16: (("-DMSL_BF16",), "msl_fused_bottleneck_bf16"),
 }
+# the tc route (the bf16 instance): conv1 and conv3 on wgmma
+WGMMA_M = 64            # pixels (rows) of one wgmma tile
+WGMMA_K = 16            # k of one bf16 wgmma
+WG_THREADS = 128        # threads of a warpgroup
+WGMMA_WIDTHS = (128, 64)  # columns of one warpgroup's wgmma (its NW)
+# MT x NW: at most 64 fp32 accumulators a thread (128 spill beside the FMA
+# loop's registers, ptxas on sm_90a, PERF.md)
+MAX_ACC_COLS = 128
+TC_MAX_TILES = 2        # m64 tiles a warpgroup holds at once (MT)
+TC_STAGE_ROWS = (64, 32, 16)  # k rows of a conv1 / conv3 stage, deepest that fits
+CORE = 8                # a core matrix: 8 rows x 8 bf16 (16 bytes)
+EPI_COLS = 64           # conv3's epilogue: columns a warpgroup stages at a time (kEpiCols)
+# plan_tiles' cost of a tc tile: conv2's FMA work on TW pixels plus conv1's
+# and conv3's work on their m64 tiles' rows at TC_OVER_FMA times the FMA
+# loop's rate, about 4 on an H100 at layer3's widths (PERF.md); every R101
+# shape takes the same TW at any weight from 3 to 12
+TC_OVER_FMA = 4
 SMEM_BLOCK_MAX = 232448  # bytes of shared memory one block may use on sm_90
 SMEM_SM = 233472         # bytes of shared memory per SM on sm_90
 BLOCK_SMEM_RESERVED = 1024  # bytes the runtime reserves per resident block
@@ -110,13 +133,32 @@ class TilePlan(NamedTuple):
     threads: int  # threads per block
     smem: int     # bytes of dynamic shared memory, stages included
     bn3: int      # conv3's output columns per pass over h2
-    px1: int      # pixels per thread tile in conv1, conv2, conv3
+    px1: int      # pixels per thread tile in conv1, conv2, conv3 (fma; tc: px2)
     px2: int
     px3: int
-    ldh: int      # elements between two pixels of h1/h2 in shared memory
+    ldh: int      # elements between two pixels of h1 (and fma h2) in shared memory
     wstage: int   # elements of one weight stage buffer
-    xs_px: int    # pixels of one x stage buffer
-    kb: int       # k rows per weight stage, channels per x stage
+    xs_px: int    # pixels of one x stage buffer (tc: its core-matrix pixel stride)
+    kb: int       # k rows per weight stage, channels per x stage (tc: conv2's)
+    kb1: int = 0  # tc: k rows of a conv1 stage and of a conv3 stage
+    kb3: int = 0
+    mt1: int = 0  # tc: m64 tiles of conv1 (tw + 2d pixels) and of conv3 (tw)
+    mt3: int = 0
+    h2p: int = 0  # tc: pixel stride of h2's core-matrix layout
+    bn1: int = 0  # tc: conv1's output columns per pass over x
+    route: str = "fma"  # conv1's and conv3's: "fma" (CUDA cores) or "tc" (wgmma)
+
+    def launch_args(self) -> tuple[int, ...]:
+        """The tile arguments of the launch function, in its order (on the
+        fma route kb1 = kb3 = kb)."""
+        kb13 = (self.kb1, self.kb3) if self.route == "tc" else (self.kb, self.kb)
+        return (*self[:13], *kb13, self.mt1, self.mt3, self.h2p, self.bn1)
+
+    def conv_routes(self) -> dict[str, str]:
+        """What runs each conv: "wgmma" (tensor cores) or "fma" (the FMA
+        loop on the CUDA cores)."""
+        outer = "wgmma" if self.route == "tc" else "fma"
+        return {"conv1": outer, "conv2": "fma", "conv3": outer}
 
     def flop_per_l2_weight_byte(self, itemsize: int = 4) -> float:
         """A block reads every weight once from L2 per output row of tw
@@ -127,14 +169,26 @@ class TilePlan(NamedTuple):
     def busy_threads(self, cmid: int, d: int) -> dict[str, int]:
         """Threads that own pixels in each conv (of ``threads``): a conv's
         threads are pixel tiles x channel groups of 8, and every tile that
-        starts inside the conv's pixel row has work."""
+        starts inside the conv's pixel row has work; on the tc route every
+        warpgroup takes part in each wgmma of conv1 and conv3."""
         tiles12 = self.threads // (cmid // TILE_CHANNELS)
+        conv2 = min(tiles12, math.ceil(self.tw / self.px2)) * (self.threads // tiles12)
+        if self.route == "tc":
+            return {"conv1": self.threads, "conv2": conv2, "conv3": self.threads}
         tiles3 = self.threads // (self.bn3 // TILE_CHANNELS)
         return {
             "conv1": min(tiles12, math.ceil((self.tw + 2 * d) / self.px1)) * (self.threads // tiles12),
-            "conv2": min(tiles12, math.ceil(self.tw / self.px2)) * (self.threads // tiles12),
+            "conv2": conv2,
             "conv3": min(tiles3, math.ceil(self.tw / self.px3)) * (self.threads // tiles3),
         }
+
+    def m_rows_used(self, d: int) -> dict[str, float]:
+        """tc: the share of the m64 tiles' rows that are pixels of conv1's
+        and conv3's rows (the rest are computed and dropped)."""
+        if self.route != "tc":
+            return {}
+        return {"conv1": (self.tw + 2 * d) / (WGMMA_M * self.mt1),
+                "conv3": self.tw / (WGMMA_M * self.mt3)}
 
 
 def block_threads(cmid: int) -> int:
@@ -143,9 +197,9 @@ def block_threads(cmid: int) -> int:
     return 256 if cmid >= 128 else 128
 
 
-def _stage_layout(tw: int, cin: int, cmid: int, d: int, kb: int, itemsize: int = 4):
-    """(bn3, px1, px2, px3, ldh, wstage, xs_px, kb) for tw output columns a
-    block, stages of kb k-rows and elements of ``itemsize`` bytes, or None
+def _stage_layout(tw: int, cin: int, cmid: int, d: int, kb: int):
+    """The FMA route's (bn3, px1, px2, px3, ldh, wstage, xs_px, kb) for tw
+    output columns a block and stages of kb k-rows, in fp32 elements, or None
     where the thread mapping does not exist. A conv's threads are T pixel tiles x BN/8 channel groups: conv1
     and conv2 take BN = Cmid in one pass (T = threads * 8 / Cmid), conv3 the
     widest BN3 that divides Cin and cuts tw evenly into tiles of at most 8
@@ -164,18 +218,196 @@ def _stage_layout(tw: int, cin: int, cmid: int, d: int, kb: int, itemsize: int =
         return None
     # a warp that spans several pixel tiles reads several pixels at once:
     # 16 bytes of padding keep two neighbours off the same banks
-    ldh = cmid + (PAD_BYTES // itemsize if cmid // TILE_CHANNELS < 32 else 0)
+    ldh = cmid + (PAD_BYTES // 4 if cmid // TILE_CHANNELS < 32 else 0)
     return (bn3, px1, tw // tiles, tw // tiles3, ldh, kb * max(cmid, bn3), tiles * px1, kb)
 
 
-def smem_bytes(tw: int, cin: int, cmid: int, d: int, kb: int, itemsize: int = 4) -> int:
-    """Shared memory of one block: 3 h1 rows of TW+2d pixels (pixel stride
-    ldh; h2 takes the oldest row's slot), two weight stages of kb k-rows x
-    the widest BN, and two x stages of conv1's pixels x kb channels (kb
-    elements + 16 bytes a pixel), in elements of ``itemsize`` bytes."""
-    _, _, _, _, ldh, wstage, xs_px, _ = _stage_layout(tw, cin, cmid, d, kb, itemsize)
-    return itemsize * (ldh * 3 * (tw + 2 * d) + 2 * wstage
-                       + 2 * xs_px * (kb + PAD_BYTES // itemsize))
+def smem_bytes(tw: int, cin: int, cmid: int, d: int, kb: int) -> int:
+    """Shared memory of one block on the FMA route: 3 h1 rows of TW+2d
+    pixels (pixel stride ldh; h2 takes the oldest row's slot), two weight
+    stages of kb k-rows x the widest BN, and two x stages of conv1's pixels
+    x kb channels (kb elements + 16 bytes a pixel), in fp32 elements."""
+    _, _, _, _, ldh, wstage, xs_px, _ = _stage_layout(tw, cin, cmid, d, kb)
+    return 4 * (ldh * 3 * (tw + 2 * d) + 2 * wstage + 2 * xs_px * (kb + PAD_BYTES // 4))
+
+
+def x_stage_offset(pix, ch, xs_px: int):
+    """tc: the element of an x stage that holds channel ``ch`` (of the
+    stage's kb1) of pixel ``pix``: core matrices of 8 pixels x 8 channels,
+    channel block c/8 of pixel p at 8 (xs_px (c/8) + p). A wgmma descriptor
+    reads it with lbo = 16 xs_px bytes (k) and sbo = 128 (m)."""
+    return CORE * (xs_px * (ch // CORE) + pix) + ch % CORE
+
+
+def h2_offset(pix, ch, h2p: int):
+    """tc: the element of h2's ring slot that holds channel ``ch`` of pixel
+    ``pix`` (the x stage's layout with pixel stride h2p)."""
+    return x_stage_offset(pix, ch, h2p)
+
+
+def epilogue_offset(pix, col):
+    """tc: the element of a warpgroup's conv3 epilogue tile (TW pixels x
+    EPI_COLS columns, 128 bytes a pixel, in the x stages) that holds column
+    ``col`` of pixel ``pix``: its 16-byte piece col/8 at piece (col/8) ^
+    (pix%8) of the pixel's eight."""
+    return EPI_COLS * pix + CORE * ((col // CORE) ^ (pix % CORE)) + col % CORE
+
+
+def w_stage_offset(k, col, bn: int):
+    """tc: the element of a weight stage (kb rows x bn columns) that holds
+    W[k, col]: n-major core matrices of 8 k-rows x 8 columns, the bn/8 core
+    matrices of one block of 8 k-rows side by side. Piece idx (16 bytes,
+    8 columns of one k-row) lands at 8 idx; a descriptor reads it with lbo =
+    16 bn bytes (k) and sbo = 128 (n)."""
+    return CORE * (bn * (k // CORE) + CORE * (col // CORE) + k % CORE) + col % CORE
+
+
+def w_stage_piece(idx, bn: int):
+    """tc: the (k-row, first column) of the weight stage's 16-byte piece
+    ``idx``, as ``stage_weights_tc`` copies it."""
+    blk, blocks = idx // CORE, bn // CORE
+    return CORE * (blk // blocks) + idx % CORE, CORE * (blk % blocks)
+
+
+def fragment_rows_cols(nw: int):
+    """tc: the (row, column) of the 64 x nw fp32 accumulator that thread t of
+    a warpgroup holds in register i: i = 4j + 2h + e is row 16 (t/32) + 8h +
+    (t%32)/4, column 8j + 2 (t%4) + e. Two (128, nw/2) int arrays."""
+    t = torch.arange(WG_THREADS)[:, None]
+    i = torch.arange(nw // 2)[None, :]
+    rows = 16 * (t // 32) + 8 * ((i // 2) % 2) + (t % 32) // 4
+    cols = 8 * (i // 4) + 2 * (t % 4) + i % 2
+    return rows, cols
+
+
+def descriptor_read(buf: torch.Tensor, start: int, lbo: int, sbo: int, rows: int,
+                    mn_major: bool = False) -> torch.Tensor:
+    """The (rows, 16) operand of one k16 step that a no-swizzle wgmma
+    descriptor reads from ``buf`` (elements of 2 bytes; byte offsets as in
+    the descriptor): the core matrix of element (m, kk) at start + (kk/8)
+    lbo + (m/8) sbo, its
+    16-byte rows along m for a k-major operand (A: m = pixels), element at
+    16 (m%8) + 2 (kk%8) in it, or along k for an mn-major one (the
+    transposed B: m = its columns), at 16 (kk%8) + 2 (m%8)."""
+    m = torch.arange(rows)[:, None]
+    kk = torch.arange(WGMMA_K)[None, :]
+    row, col = (kk, m) if mn_major else (m, kk)
+    byte = start + (kk // CORE) * lbo + (m // CORE) * sbo + 16 * (row % CORE) + 2 * (col % CORE)
+    return buf[byte // 2]
+
+
+def _tc_width(mt: int, n: int, wgs: int):
+    """tc: the widest of WGMMA_WIDTHS a warpgroup takes over mt m64 tiles
+    (MT x NW <= MAX_ACC_COLS) whose pass (wgs x NW columns) divides n."""
+    return next((nw for nw in WGMMA_WIDTHS
+                 if mt * nw <= MAX_ACC_COLS and n % (wgs * nw) == 0), None)
+
+
+def _tc_layout(tw: int, cin: int, cmid: int, d: int, rows: int):
+    """tc: (bn3, px2, ldh, wstage, xs_px, kb, kb1, kb3, mt1, mt3, h2p, bn1,
+    smem) for tw output columns a block and conv1/conv3 stages of ``rows``
+    k-rows, or None where the mapping does not exist. conv2 keeps the FMA
+    loop's pixel tiles (tw = pixel tiles x px2, px2 <= 8) and stages of 16
+    rows; conv1 runs over mt1 m64 tiles of the tw + 2d pixels, conv3 over
+    mt3 tiles of tw, each in passes of bn1 / bn3 = warpgroups x the widest
+    width that keeps 64 accumulators a thread. h1's pixel stride is padded
+    by 16 bytes (bank-free 4-byte epilogue stores), the x stages' and h2's
+    pixel strides are odd (bank-free stores into the core-matrix layout).
+    Shared memory: the h1 ring, two weight stages, two x stages, and the
+    rows past tw + 2d that conv1's last m64 tile reads behind the second x
+    stage; conv3's epilogue stages its tiles (each warpgroup's tw x
+    EPI_COLS) in the x stages."""
+    threads = block_threads(cmid)
+    wgs = threads // WG_THREADS
+    tiles = threads * TILE_CHANNELS // cmid
+    if tw % tiles or tw // tiles > MAX_PIXEL_TILE:
+        return None
+    p1 = tw + 2 * d
+    mt1, mt3 = math.ceil(p1 / WGMMA_M), math.ceil(tw / WGMMA_M)
+    nw1, nw3 = _tc_width(mt1, cmid, wgs), _tc_width(mt3, cin, wgs)
+    if nw1 is None or nw3 is None or max(mt1, mt3) > TC_MAX_TILES:
+        return None
+    bn1, bn3 = wgs * nw1, wgs * nw3
+    kb, kb1, kb3 = K_STAGES[0], rows, min(rows, cmid)
+    ldh = cmid + PAD_BYTES // 2
+    xs_px, h2p = p1 | 1, tw | 1
+    if wgs * tw * EPI_COLS > 2 * xs_px * kb1:
+        return None
+    wstage = max(kb1 * bn1, kb3 * bn3, kb * cmid)
+    overread = CORE * max(0, WGMMA_M * mt1 - xs_px)
+    smem = 2 * (3 * p1 * ldh + 2 * wstage + 2 * xs_px * kb1 + overread)
+    return (bn3, tw // tiles, ldh, wstage, xs_px, kb, kb1, kb3, mt1, mt3, h2p, bn1, smem)
+
+
+def _tc_fit(tw: int, cin: int, cmid: int, d: int):
+    """tc: the layout with the deepest stages that fits SMEM_BLOCK_MAX."""
+    for rows in TC_STAGE_ROWS:
+        layout = _tc_layout(tw, cin, cmid, d, rows)
+        if layout is not None and layout[-1] <= SMEM_BLOCK_MAX:
+            return layout
+    return None
+
+
+def tc_tws(cmid: int) -> range:
+    """tc: the TWs conv2's FMA loop allows, multiples of its pixel tiles with
+    at most 8 pixels a tile."""
+    tiles = block_threads(cmid) * TILE_CHANNELS // cmid
+    return range(tiles, MAX_PIXEL_TILE * tiles + 1, tiles)
+
+
+def _tc_tw(w: int, cin: int, cmid: int, d: int) -> int:
+    """tc: TW, the one of ``tc_tws`` with a layout that fits and the least
+    cost over the width: strips x (conv2's FMA work on tw pixels + conv1's
+    and conv3's work on their m64 tiles' rows over TC_OVER_FMA), so the m64
+    tiles waste little; ties go to the wider strip."""
+    best = None
+    for tw in tc_tws(cmid):
+        layout = _tc_fit(tw, cin, cmid, d)
+        if layout is None:
+            continue
+        mt1, mt3 = layout[8], layout[9]
+        cost = math.ceil(w / tw) * (9 * cmid * cmid * tw + cin * cmid * WGMMA_M * (mt1 + mt3)
+                                    / TC_OVER_FMA)
+        if best is None or cost <= best[0]:
+            best = (cost, tw)
+    if best is None:
+        raise ValueError(f"fused bottleneck: Cin={cin}, Cmid={cmid}, d={d} fits no tile in "
+                         f"{SMEM_BLOCK_MAX} B of shared memory")
+    return best[1]
+
+
+def _segments(n: int, h: int, d: int, ncols: int, threads: int, smem: int, sm_count: int):
+    """(RS, S): output rows per chain segment and segments per chain. S
+    trades conv1 recompute (2 extra h1 rows per segment) against filling the
+    SMs: it minimises waves * (RS + 0.5)."""
+    # the kernel takes up to 255 registers a thread: 256 threads an SM
+    per_sm = max(1, min(256 // threads, SMEM_SM // (smem + BLOCK_SMEM_RESERVED)))
+    slots = sm_count * per_sm
+    chain = math.ceil(h / d)
+    best = None
+    for segs in range(1, chain + 1):
+        rs = math.ceil(chain / segs)
+        s = math.ceil(chain / rs)
+        blocks = ncols * n * d * s
+        cost = math.ceil(blocks / slots) * (rs + 0.5)
+        if best is None or cost < best[0]:
+            best = (cost, rs, s)
+    return best[1], best[2]
+
+
+def tc_plan_at(tw: int, n: int, h: int, w: int, cin: int, cmid: int, d: int,
+               sm_count: int) -> TilePlan | None:
+    """tc: the plan at tw output columns a block, with the deepest stages
+    that fit, or None where no layout fits; ``plan_tiles`` takes it at the
+    TW of least cost."""
+    layout = _tc_fit(tw, cin, cmid, d)
+    if layout is None:
+        return None
+    bn3, px2, ldh, wstage, xs_px, kb, kb1, kb3, mt1, mt3, h2p, bn1, smem = layout
+    threads = block_threads(cmid)
+    rs, s = _segments(n, h, d, math.ceil(w / tw), threads, smem, sm_count)
+    return TilePlan(tw, rs, s, threads, smem, bn3, px2, px2, px2, ldh, wstage, xs_px, kb,
+                    kb1, kb3, mt1, mt3, h2p, bn1, "tc")
 
 
 def plan_tiles(n: int, h: int, w: int, cin: int, cmid: int, d: int, sm_count: int,
@@ -196,22 +428,27 @@ def plan_tiles(n: int, h: int, w: int, cin: int, cmid: int, d: int, sm_count: in
     tile in every conv. RS: output rows per chain segment, S: segments per
     chain (a chain is one residue class of the rows mod d). S trades conv1
     recompute (2 extra h1 rows per segment) against filling the SMs: it
-    minimises waves * (RS + 0.5). In bf16 the elements take 2 bytes: the
-    same tiles (layer4's TW is pinned by its pixel tiles, layer3's by
-    conv1's) in less shared memory.
+    minimises waves * (RS + 0.5).
+
+    bf16 takes the tc route (``_tc_tw``, ``tc_plan_at``): conv1 and conv3
+    on wgmma, whose m64 tiles, not conv1's pixel tiles, bound TW; conv2
+    keeps the FMA loop's pixel tiles (TW up to 8 x its tiles) and stages of
+    16 rows, conv1 and conv3 stream stages of up to 64 k-rows. R101 at 1024x512:
+    layer1 TW 96, layer2 48, layer3 48, layer4 28.
     """
-    itemsize = dtype.itemsize
     threads = block_threads(cmid)
     if cmid not in (64, 128, 256, 512) or cin % 64:
         raise ValueError(
             f"fused bottleneck: the kernel takes Cmid 64, 128, 256 or 512 and "
             f"Cin a multiple of 64, got Cmid={cmid}, Cin={cin}"
         )
+    if dtype == torch.bfloat16:
+        return tc_plan_at(_tc_tw(w, cin, cmid, d), n, h, w, cin, cmid, d, sm_count)
     tiles = threads * TILE_CHANNELS // cmid
 
     def fits(tw, kb=K_STAGES[-1]):
-        return (_stage_layout(tw, cin, cmid, d, kb, itemsize) is not None
-                and smem_bytes(tw, cin, cmid, d, kb, itemsize) <= SMEM_BLOCK_MAX)
+        return (_stage_layout(tw, cin, cmid, d, kb) is not None
+                and smem_bytes(tw, cin, cmid, d, kb) <= SMEM_BLOCK_MAX)
 
     tw_max = max((tw for tw in range(tiles, 65, tiles) if fits(tw)), default=None)
     if tw_max is None:
@@ -225,21 +462,9 @@ def plan_tiles(n: int, h: int, w: int, cin: int, cmid: int, d: int, sm_count: in
         tw += tiles
     ncols = math.ceil(w / tw)
     kb = next(kb for kb in K_STAGES if fits(tw, kb))
-    smem = smem_bytes(tw, cin, cmid, d, kb, itemsize)
-    # the kernel takes 255 registers a thread: 256 threads an SM
-    per_sm = max(1, min(256 // threads, SMEM_SM // (smem + BLOCK_SMEM_RESERVED)))
-    slots = sm_count * per_sm
-    chain = math.ceil(h / d)
-    best = None
-    for segs in range(1, chain + 1):
-        rs = math.ceil(chain / segs)
-        s = math.ceil(chain / rs)
-        blocks = ncols * n * d * s
-        cost = math.ceil(blocks / slots) * (rs + 0.5)
-        if best is None or cost < best[0]:
-            best = (cost, rs, s)
-    _, rs, s = best
-    return TilePlan(tw, rs, s, threads, smem, *_stage_layout(tw, cin, cmid, d, kb, itemsize))
+    smem = smem_bytes(tw, cin, cmid, d, kb)
+    rs, s = _segments(n, h, d, ncols, threads, smem, sm_count)
+    return TilePlan(tw, rs, s, threads, smem, *_stage_layout(tw, cin, cmid, d, kb))
 
 
 def _library(dtype: torch.dtype = torch.float32) -> ctypes.CDLL:
@@ -248,7 +473,7 @@ def _library(dtype: torch.dtype = torch.float32) -> ctypes.CDLL:
     defines, fn = INSTANCES[dtype]
     lib = load(SOURCE, defines)
     p, i = ctypes.c_void_p, ctypes.c_int
-    getattr(lib, fn).argtypes = [p] * 14 + [i] * 19 + [p]
+    getattr(lib, fn).argtypes = [p] * 14 + [i] * 25 + [p]
     getattr(lib, fn).restype = i
     return lib
 
@@ -325,7 +550,7 @@ def _launch(args, dilation: int, emit: bool, valid=None):
             *(t.data_ptr() for t in args), out.data_ptr(),
             *((t.data_ptr() for t in hs) if emit else (None, None)),
             None if valid is None else valid.data_ptr(),
-            n, h, w, cin, cmid, dilation, *plan, stream,
+            n, h, w, cin, cmid, dilation, *plan.launch_args(), stream,
         )
     raise_on_error(err, lib, "fused bottleneck")
     return (out, *hs)

@@ -115,11 +115,67 @@ PLAN_SHAPES = [
 ]
 
 
+def _assert_tc_plan(plan, n, h, w, cin, cmid, d):
+    """A bf16 (tc route) plan: conv1 and conv3 on wgmma m64 tiles of whole
+    warpgroups, conv2 on the FMA loop's pixel tiles, everything in 232,448 B
+    with stages deeper than the FMA loop's 16 rows."""
+    tw, rs, segs, threads, smem = plan[:5]
+    p1 = tw + 2 * d
+    assert plan.route == "tc"
+    assert plan.conv_routes() == {"conv1": "wgmma", "conv2": "fma", "conv3": "wgmma"}
+    # whole warpgroups; each takes a pass of bn1 (conv1) or bn3 (conv3)
+    # columns over their count
+    assert threads == fused_block.block_threads(cmid) and threads % fused_block.WG_THREADS == 0
+    wgs = threads // fused_block.WG_THREADS
+    nw1, nw3 = plan.bn1 // wgs, plan.bn3 // wgs
+    assert {nw1, nw3} <= set(fused_block.WGMMA_WIDTHS)
+    assert cmid % plan.bn1 == 0 and cin % plan.bn3 == 0
+    # the m64 tiles cover conv1's P1 pixels and conv3's TW, with no tile to spare
+    m = fused_block.WGMMA_M
+    assert m * (plan.mt1 - 1) < p1 <= m * plan.mt1 and m * (plan.mt3 - 1) < tw <= m * plan.mt3
+    # fp32 accumulators a thread: MT tiles x NW/2 (128 spill on sm_90a)
+    assert plan.mt1 * nw1 // 2 <= 64 and plan.mt3 * nw3 // 2 <= 64
+    # stages deeper than the FMA loop's, dividing K, inside the weight buffer
+    assert plan.kb1 in fused_block.TC_STAGE_ROWS and plan.kb1 > fused_block.K_STAGES[0]
+    assert plan.kb3 in fused_block.TC_STAGE_ROWS and plan.kb3 > fused_block.K_STAGES[0]
+    assert cin % plan.kb1 == 0 and cmid % plan.kb3 == 0
+    assert plan.wstage == max(plan.kb1 * plan.bn1, plan.kb3 * plan.bn3, plan.kb * cmid)
+    # shared memory: the ring, two weight stages, two x stages and the rows
+    # conv1's last m64 tile reads past the second x stage
+    overread = fused_block.CORE * max(0, m * plan.mt1 - plan.xs_px)
+    assert smem == 2 * (3 * p1 * plan.ldh + 2 * plan.wstage + 2 * plan.xs_px * plan.kb1
+                        + overread) <= fused_block.SMEM_BLOCK_MAX
+    assert plan.ldh == cmid + 8 and plan.xs_px >= p1 and plan.xs_px % 2 == 1
+    # the compact h2 tile fits the ring slot it shares with h1, and conv3's
+    # tiles read no further than the block's shared memory from the last slot
+    assert tw <= plan.h2p and plan.h2p % 2 == 1 and plan.h2p * cmid <= p1 * plan.ldh
+    last = 2 * p1 * plan.ldh + fused_block.CORE * (plan.h2p * (cmid // 8 - 1) + m * plan.mt3)
+    assert 2 * last <= smem
+    # conv3's epilogue tiles (tw x EPI_COLS a warpgroup) lie in the x stages
+    assert wgs * tw * fused_block.EPI_COLS <= 2 * plan.xs_px * plan.kb1
+    assert nw3 % fused_block.EPI_COLS == 0
+    # conv2's FMA mapping holds: TW = pixel tiles x px2, every thread a tile
+    tiles = threads * fused_block.TILE_CHANNELS // cmid
+    assert tw == tiles * plan.px2 and plan.px2 <= fused_block.MAX_PIXEL_TILE
+    assert plan.kb in fused_block.K_STAGES and threads % (cmid // 4) == 0
+    assert plan.busy_threads(cmid, d) == {"conv1": threads, "conv2": threads, "conv3": threads}
+    # the strips cover the width, the segments cover every chain of rows
+    assert -(-w // tw) * tw >= w and (-(-w // tw) - 1) * tw < w
+    assert rs * segs >= -(-h // d)
+    assert plan.flop_per_l2_weight_byte(2) == tw
+    assert len(plan.launch_args()) == 19  # with N, H, W, Cin, Cmid, d: the ABI's 25 ints
+    used = plan.m_rows_used(d)
+    assert used == {"conv1": p1 / (m * plan.mt1), "conv3": tw / (m * plan.mt3)}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("n,h,w,cmid,d", PLAN_SHAPES)
 def test_plan_tiles_fits_and_covers(n, h, w, cmid, d, dtype):
     cin = 4 * cmid
     plan = plan_tiles(n, h, w, cin, cmid, d, sm_count=132, dtype=dtype)
+    if dtype == torch.bfloat16:
+        _assert_tc_plan(plan, n, h, w, cin, cmid, d)
+        return
     size = dtype.itemsize
     tw, rs, segs, threads, smem = plan[:5]
     tiles = threads * fused_block.TILE_CHANNELS // cmid       # pixel tiles, conv1/conv2
@@ -129,7 +185,7 @@ def test_plan_tiles_fits_and_covers(n, h, w, cmid, d, dtype):
     # weight and x stages
     p1 = tw + 2 * d
     assert plan.kb in fused_block.K_STAGES and cmid % plan.kb == 0
-    assert (smem == fused_block.smem_bytes(tw, cin, cmid, d, plan.kb, size)
+    assert (smem == fused_block.smem_bytes(tw, cin, cmid, d, plan.kb)
             <= fused_block.SMEM_BLOCK_MAX)
     assert smem == size * (plan.ldh * 3 * p1 + 2 * plan.wstage
                            + 2 * plan.xs_px * (plan.kb + fused_block.PAD_BYTES // size))
@@ -156,16 +212,200 @@ def test_plan_tiles_fits_and_covers(n, h, w, cmid, d, dtype):
         assert busy["conv1"] == threads
 
 
+# the tc route's TW at R101's 1024x512 shapes, by (Cmid, W)
+R101_BF16_TWS = {(64, 257): 96, (128, 257): 96, (256, 129): 48, (256, 161): 56, (512, 129): 28}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_plan_tiles_r101_tiles(dtype):
-    """The tiles the kernel's header note states for a 1024x512 forward, the
-    same in bf16 (layer4's TW is pinned by its pixel tiles, not by its
-    shared memory)."""
+    """The tiles the kernel's header note states for a 1024x512 forward: in
+    fp32 layer4's TW is pinned by conv1's pixel tiles; in bf16 (the tc
+    route) the m64 tiles set TW, so layers 1-2 take 96 columns (P1 98 of
+    two tiles) and layer4 28 (conv2's 4 pixel tiles of 7)."""
     tws = {(cmid, w): plan_tiles(2, h, w, 4 * cmid, cmid, d, 132, dtype).tw
            for h, w, cmid, d in ((129, 257, 64, 1), (65, 257, 128, 1), (65, 129, 256, 2),
                                  (81, 161, 256, 2), (65, 129, 512, 4))}
+    if dtype == torch.bfloat16:
+        assert tws == R101_BF16_TWS
+        return
     assert tws == {(64, 257): 64, (128, 257): 64, (256, 129): 48, (256, 161): 56,
                    (512, 129): 24}
+
+
+@pytest.mark.parametrize("weight", [3, 4, 8, 12])
+def test_tc_tw_holds_over_the_rate_weight(weight, monkeypatch):
+    """The tc route's TW at R101's 1024x512 shapes does not hang on the
+    planning weight TC_OVER_FMA (the tensor cores' rate over the FMA
+    loop's) anywhere from 3 to 12."""
+    monkeypatch.setattr(fused_block, "TC_OVER_FMA", weight)
+    tws = {(cmid, w): plan_tiles(2, h, w, 4 * cmid, cmid, d, 132, torch.bfloat16).tw
+           for h, w, cmid, d in ((129, 257, 64, 1), (65, 257, 128, 1), (65, 129, 256, 2),
+                                 (81, 161, 256, 2), (65, 129, 512, 4))}
+    assert tws == R101_BF16_TWS
+
+
+# one plan shape of each layer's widths for the tc route's maps: layer1 and 2
+# with P1 above 64 (two m64 tiles), layer3 one tile, layer4 with M below 64
+# in both convs
+TC_SHAPES = [PLAN_SHAPES[i] for i in (0, 6, 2, 3)]
+
+
+def _tc_plan(n, h, w, cmid, d):
+    return plan_tiles(n, h, w, 4 * cmid, cmid, d, sm_count=132, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("n,h,w,cmid,d", TC_SHAPES)
+def test_tc_stage_maps_are_bijections(n, h, w, cmid, d):
+    """The x stage, weight stage and h2 maps put each element in a place of
+    its own and fill their buffers; the weight stage's 16-byte piece idx
+    lands at 8 idx (the copy loop of ``stage_weights_tc``)."""
+    plan = _tc_plan(n, h, w, cmid, d)
+    pix, ch = torch.meshgrid(torch.arange(plan.xs_px), torch.arange(plan.kb1), indexing="ij")
+    xo = fused_block.x_stage_offset(pix, ch, plan.xs_px).flatten()
+    assert torch.equal(xo.sort().values, torch.arange(plan.xs_px * plan.kb1))
+    for bn, kb in ((plan.bn1, plan.kb1), (plan.bn3, plan.kb3)):
+        k, col = torch.meshgrid(torch.arange(kb), torch.arange(bn), indexing="ij")
+        wo = fused_block.w_stage_offset(k, col, bn).flatten()
+        assert torch.equal(wo.sort().values, torch.arange(kb * bn))
+        idx = torch.arange(kb * bn // 8)
+        kr, c0 = fused_block.w_stage_piece(idx, bn)
+        assert torch.equal(fused_block.w_stage_offset(kr, c0, bn), 8 * idx)
+    pix, ch = torch.meshgrid(torch.arange(plan.h2p), torch.arange(cmid), indexing="ij")
+    ho = fused_block.h2_offset(pix, ch, plan.h2p).flatten()
+    assert torch.equal(ho.sort().values, torch.arange(plan.h2p * cmid))
+    assert plan.h2p * cmid <= (plan.tw + 2 * d) * plan.ldh
+
+
+@pytest.mark.parametrize("n,h,w,cmid,d", TC_SHAPES)
+def test_tc_plan_at_every_tw_holds_the_plan(n, h, w, cmid, d):
+    """Every TW of ``tc_tws`` with a layout gives a plan with the tc route's
+    invariants (the tiles ``experiments/tc_tiles.py`` times), and the
+    planner's plan is the one at its TW."""
+    cin = 4 * cmid
+    plans = [p for tw in fused_block.tc_tws(cmid)
+             if (p := fused_block.tc_plan_at(tw, n, h, w, cin, cmid, d, 132)) is not None]
+    assert len(plans) >= 2
+    for plan in plans:
+        _assert_tc_plan(plan, n, h, w, cin, cmid, d)
+    chosen = _tc_plan(n, h, w, cmid, d)
+    assert chosen == fused_block.tc_plan_at(chosen.tw, n, h, w, cin, cmid, d, 132)
+
+
+@pytest.mark.parametrize("n,h,w,cmid,d", TC_SHAPES)
+def test_tc_epilogue_tile_map(n, h, w, cmid, d):
+    """conv3's epilogue tile: each (pixel, column) in a place of its own,
+    filling tw x EPI_COLS; a warp's fragment stores (8 pixels x 4 threads
+    of 4 bytes, one column group) hit 32 distinct banks, and each quarter
+    warp's 16-byte reads (a pixel's 8 pieces) 8 distinct 16-byte bank
+    groups."""
+    plan = _tc_plan(n, h, w, cmid, d)
+    cols = fused_block.EPI_COLS
+    pix, col = torch.meshgrid(torch.arange(plan.tw), torch.arange(cols), indexing="ij")
+    off = fused_block.epilogue_offset(pix, col).flatten()
+    assert torch.equal(off.sort().values, torch.arange(plan.tw * cols))
+    lane = torch.arange(32)
+    g, tq = lane // 4, lane % 4
+    for warp in range(4):
+        for t in range(plan.mt3):
+            for hh in range(2):
+                p = 64 * t + 16 * warp + 8 * hh + g
+                for jj in range(cols // 8):
+                    word = fused_block.epilogue_offset(p, 8 * jj + 2 * tq) // 2
+                    assert len(set((word % 32).tolist())) == 32
+    i = torch.arange(plan.tw * (cols // 8))
+    piece = fused_block.epilogue_offset(i // (cols // 8), 8 * (i % (cols // 8))) // 8
+    assert torch.equal(piece.sort().values, torch.arange(plan.tw * (cols // 8)))
+    for q0 in range(0, len(i), 8):
+        assert len(set((piece[q0:q0 + 8] % 8).tolist())) == 8
+
+
+@pytest.mark.parametrize("nw", fused_block.WGMMA_WIDTHS)
+def test_tc_fragment_map_covers_the_tile_once(nw):
+    rows, cols = fused_block.fragment_rows_cols(nw)
+    assert rows.shape == cols.shape == (fused_block.WG_THREADS, nw // 2)
+    flat = (rows * nw + cols).flatten()
+    assert torch.equal(flat.sort().values, torch.arange(fused_block.WGMMA_M * nw))
+
+
+def _emulate_tc(a_buf_of_stage, w_buf_of_stage, stages, kb, bn, m_tiles, a_stride, a_start,
+                wgs, nw):
+    """Emulate the tc route's k loop: per stage its A and weight buffers;
+    warpgroup g multiplies its columns [g nw, (g+1) nw) over m_tiles m64
+    tiles, each k16 step an A and a B read by the descriptor rule; returns
+    the (64 m_tiles, bn) product gathered through the fragment map."""
+    m = fused_block.WGMMA_M
+    acc = torch.zeros(wgs, m_tiles, m, nw)
+    for i in range(stages):
+        abuf, wbuf = a_buf_of_stage(i), w_buf_of_stage(i)
+        for g in range(wgs):
+            for s in range(kb // 16):
+                b = fused_block.descriptor_read(wbuf, 2 * (8 * g * nw + 16 * s * bn), 16 * bn, 128,
+                                                nw, mn_major=True)
+                for t in range(m_tiles):
+                    a = fused_block.descriptor_read(abuf, 2 * a_start(i, s, t), 16 * a_stride, 128,
+                                                    m)
+                    acc[g, t] += a @ b.T
+    rows, cols = fused_block.fragment_rows_cols(nw)
+    out = torch.full((m * m_tiles, bn), float("nan"))
+    for g in range(wgs):
+        for t in range(m_tiles):
+            # each thread's registers hold D[rows, cols] of its tile
+            out[m * t + rows, g * nw + cols] = acc[g, t][rows, cols]
+    return out
+
+
+@pytest.mark.parametrize("conv", ["conv1", "conv3"])
+@pytest.mark.parametrize("n,h,w,cmid,d", TC_SHAPES)
+def test_tc_emulation_equals_the_product(n, h, w, cmid, d, conv):
+    """x and w scattered into the stage buffers through the maps (a
+    buffer's rest NaN, so rows past the tile read garbage), read back by
+    the descriptors' lbo/sbo rule, multiplied and gathered through the
+    fragment map equal x @ w exactly (small integers, exact in fp32)."""
+    plan = _tc_plan(n, h, w, cmid, d)
+    cin, p1, m = 4 * cmid, plan.tw + 2 * d, fused_block.WGMMA_M
+    wgs = plan.threads // fused_block.WG_THREADS
+    rng = np.random.default_rng(5)
+    if conv == "conv1":
+        rows, k, n_out, bn, kb, mt = p1, cin, cmid, plan.bn1, plan.kb1, plan.mt1
+    else:
+        rows, k, n_out, bn, kb, mt = plan.tw, cmid, cin, plan.bn3, plan.kb3, plan.mt3
+    nw = bn // wgs
+    a = torch.from_numpy(rng.integers(-3, 4, size=(rows, k)).astype(np.float32))
+    wt = torch.from_numpy(rng.integers(-3, 4, size=(k, n_out)).astype(np.float32))
+    pix = torch.arange(rows)[:, None]
+
+    def w_buf(i, n0):  # stage i of the pass at column n0, by 16-byte pieces
+        buf = torch.full((plan.wstage,), float("nan"))
+        idx = torch.arange(kb * bn // 8)
+        kr, c0 = fused_block.w_stage_piece(idx, bn)
+        for e in range(8):
+            buf[8 * idx + e] = wt[i * kb + kr, n0 + c0 + e]
+        return buf
+
+    if conv == "conv1":
+        # an x stage and what follows it in shared memory up to its end
+        size = plan.xs_px * kb + fused_block.CORE * max(0, m * mt - plan.xs_px)
+
+        def a_buf(i):
+            buf = torch.full((size,), float("nan"))
+            ch = torch.arange(kb)[None, :]
+            buf[fused_block.x_stage_offset(pix, ch, plan.xs_px)] = a[:, i * kb:(i + 1) * kb]
+            return buf
+
+        for n0 in range(0, n_out, bn):  # the passes over conv1's columns
+            got = _emulate_tc(a_buf, lambda i: w_buf(i, n0), k // kb, kb, bn, mt, plan.xs_px,
+                              lambda i, s, t: 8 * (2 * s * plan.xs_px + m * t), wgs, nw)
+            assert torch.equal(got[:rows], a @ wt[:, n0:n0 + bn])
+        return
+    # conv3: h2 whole in the last ring slot, then the rest of shared memory
+    buf = torch.full((plan.smem // 2 - 2 * p1 * plan.ldh,), float("nan"))
+    ch = torch.arange(cmid)[None, :]
+    buf[fused_block.h2_offset(pix, ch, plan.h2p)] = a
+    for n0 in range(0, n_out, bn):
+        got = _emulate_tc(lambda i: buf, lambda i: w_buf(i, n0), k // kb, kb, bn, mt, plan.h2p,
+                          lambda i, s, t: 8 * (plan.h2p * (i * kb // 8 + 2 * s) + m * t), wgs,
+                          nw)
+        assert torch.equal(got[:rows], a @ wt[:, n0:n0 + bn])
 
 
 @pytest.mark.parametrize("cin,cmid", [(64, 16), (384, 96), (1000, 256)])
