@@ -6,7 +6,9 @@
 Phases, one JSON object per line on stdout:
   1. environment: the card (as nvidia-smi reports name and power limit),
      torch and CUDA versions; TF32 is switched off for cuDNN and matmul so
-     every plain fp32 reference runs in full fp32;
+     every plain fp32 reference runs in full fp32; the host's CPU count,
+     whether g++ is there and preprocesses png.h and zlib.h, and whether
+     the grain package imports (in a child process);
   2. build: compiles every kernel source of the port from
      ``maxsquareloss_torch/csrc``, one ``nvcc`` per library, all at once
      (the fused bottleneck twice: fp32, and bf16 with ``-DMSL_BF16``), with
@@ -112,6 +114,27 @@ Phases, one JSON object per line on stdout:
      step without from the same weights (each dtype's limits above), each
      step's peak memory, 2 + 5 remat steps (steps/s, 116 emit launches a
      step);
+ 11e. int8: each kind of int8 site at R101's eval shapes (the stem's 7x7
+     stride 2, 1x1 at stride 1 and 2, the 3x3 at dilation 1, 2, 4): the
+     card's int8 product (torch._int_mm) bitwise equal to the CPU's int32
+     product of the same tensors, timed beside the whole int8 site and the
+     bf16 cuDNN conv; then in bf16 from seeded weights the int8 model
+     (quantize_from_loader over the 3 eval batches, each identity block
+     calibrated through the bf16 emit kernel: 29 launches a batch) in ``evaluate``
+     (1024x512, 3 batches of 2) and predict (0.75,1.0 + flip), REPS times
+     each, beside the bf16 kernel path and the bf16 plain path (the cuDNN
+     chain) in this call: images/s, 29 eval launches a forward on the kernel
+     path and none on the others, a profile of one batch of each, and the
+     int8 trainIds against the plain path's (informational);
+ 11f. export: ``tools.export_inference`` on the card at R101, batch 2,
+     512x1024, in bf16 (bf16 parameters embedded) and in int8 (calibrated
+     on 4 images through the bf16 emit kernel), one copy of each kernel in
+     either artifact; each
+     artifact's ``--load --selftest`` in a fresh process (equal to the live
+     graph rebuilt from the sidecar, exact; 29 eval kernel launches a
+     forward in bf16, none in int8), then each artifact's forward beside
+     its live graph's in this process (images/s, launches counted);
+     phases 11e-11f record every kernel launch's shape, as the later phases;
  12. cli: ``tools.solve_gta5`` for 2 iterations on a small on-disk
      domain-shift pair at 128x256 (PIL is required: the run fails without it);
  13. serving_cli: ``tools.evaluate`` on that run's ``checkpoint_latest.pth``
@@ -127,7 +150,9 @@ Phases, one JSON object per line on stdout:
      inference, the fp32 parity leg with stage remat at batch 8), uda with
      --concat (equal crops: one unmasked forward over 16 images) and source
      (5 timed steps after 2), infer at 1024x512 with 1024x512 and 1024x2048
-     labels, and e2e at the protocol's disk sizes over 16 images a domain
+     labels and with --quantize int8 (no fused launch after the
+     calibration's 29 emit launches; the uda line carries value_infer_int8
+     too), and e2e at the protocol's disk sizes over 16 images a domain
      for one epoch a leg; each prints its JSON line;
  16. efficacy: the adaptation-efficacy gate at ``tests/test_adaptation.py``'s
      protocol (seed 0, --blocks 1,1,2,1, 128x64, batch 8, 300 source and
@@ -206,6 +231,7 @@ from maxsquareloss_torch.kernels.fused_loss import (
     fused_max_square_loss_reference,
 )
 from maxsquareloss_torch.kernels.matmul_probe import matmul_chain, matmul_chain_plain
+from maxsquareloss_torch.models import layers as model_layers
 from maxsquareloss_torch.models.deeplabv2 import (
     Bottleneck,
     DeepLabV2,
@@ -411,9 +437,31 @@ def phase_environment() -> dict:
         "torch": torch.__version__, "cuda": torch.version.cuda,
         "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
         "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        **_host_facts(),
     }
     emit(env)
     return env
+
+
+def _host_facts() -> dict:
+    """What the host data path would build on (ROADMAP Queue 1 item 1): the
+    CPU count, whether g++ is there and preprocesses libpng's and zlib's
+    headers, whether the ``grain`` package imports (in a child process: it
+    may pull in JAX, which this script never imports)."""
+    gpp = shutil.which("g++")
+
+    def header(name):
+        if gpp is None:
+            return None
+        return subprocess.run([gpp, "-E", "-x", "c++", "-", "-o", os.devnull],
+                              input=f"#include <{name}>\n", capture_output=True,
+                              text=True).returncode == 0
+
+    grain = subprocess.run([sys.executable, "-c", "import grain"], capture_output=True,
+                           text=True, timeout=120)
+    return {"cpu_count": os.cpu_count(), "gpp": gpp, "png_h": header("png.h"),
+            "zlib_h": header("zlib.h"), "grain_imports": grain.returncode == 0,
+            "grain_error": grain.stderr.strip().splitlines()[-1:] if grain.returncode else []}
 
 
 def phase_build() -> None:
@@ -2024,6 +2072,237 @@ def phase_trainer(bare_steps_per_s: float) -> dict[str, int]:
     return counts
 
 
+# int8 sites at R101's eval shapes (batch 2 at 1024x512): (name, kernel, Cin,
+# Cout, stride, dilation, input H, W): the stem, a 1x1 at stride 1 and 2, the
+# dilated 3x3 of layers 1, 3 and 4
+INT8_SITES = (
+    ("stem_7x7_s2", 7, 3, 64, 2, 1, 512, 1024),
+    ("layer1_1x1_s1", 1, 256, 64, 1, 1, 129, 257),
+    ("layer2_1x1_s2", 1, 256, 128, 2, 1, 129, 257),
+    ("layer1_3x3_d1", 3, 64, 64, 1, 1, 129, 257),
+    ("layer3_3x3_d2", 3, 256, 256, 1, 2, 65, 129),
+    ("layer4_3x3_d4", 3, 512, 512, 1, 4, 65, 129),
+)
+BF16_EVAL_CFG = TrainConfig(eval_h_chunk=-1, compute_dtype="bfloat16")
+
+
+def _int8_sites() -> list[dict]:
+    """Each INT8_SITES site: the card's int8 product (``torch._int_mm``) of
+    random int8 windows and weights against the plain int32 product of the
+    same tensors on the CPU, bitwise; timed: the product alone, the whole
+    int8 site in bf16 (quantize, windows, product, dequant) and the bf16
+    cuDNN conv of the same shape."""
+    from maxsquareloss_torch.models.layers import int8_matmul, int8_patches, qconv2d
+
+    gen = torch.Generator().manual_seed(11)
+    rows = []
+    for name, k, cin, cout, stride, d, h, w in INT8_SITES:
+        pad = d * (k // 2)
+        xq = torch.randint(-127, 128, (BATCH, h, w, cin), generator=gen, dtype=torch.int8).cuda()
+        wq = torch.randint(-127, 128, (cout, cin, k, k), generator=gen, dtype=torch.int8)
+        w_mat = torch.nn.functional.pad(wq.permute(0, 2, 3, 1).reshape(cout, -1),
+                                        (0, -(k * k * cin) % 8)).contiguous().cuda()
+        cols = int8_patches(xq, k, stride, pad, d)
+        a = cols.view(-1, cols.shape[-1])
+        got = int8_matmul(a, w_mat)
+        torch.cuda.synchronize()
+        want = int8_matmul(a.cpu(), w_mat.cpu())
+        check(got.dtype == torch.int32 and torch.equal(got.cpu(), want),
+              f"int8 {name}: the card's int32 product differs from the CPU's")
+        x = (torch.randn(BATCH, cin, h, w, generator=gen) * 2).to(BF16).cuda().contiguous(
+            memory_format=torch.channels_last)
+        wf = torch.randn(cout, cin, k, k, generator=gen).to(BF16).cuda()
+        oscale = torch.rand(cout, generator=gen).cuda() * 1e-3
+        ainv = torch.tensor(40.0, device="cuda")
+        with torch.no_grad():  # tens of microseconds each: medians of windows
+            mm_ms = time_ms_median(lambda: int8_matmul(a, w_mat), 20)
+            site_ms = time_ms_median(lambda: qconv2d(x, w_mat, oscale, ainv, k, stride, pad, d),
+                                     20)
+            bf16_ms = time_ms_median(
+                lambda: torch.nn.functional.conv2d(x, wf, None, stride, pad, d), 20)
+        m_rows, kk = a.shape
+        rows.append({"site": name, "m": m_rows, "k": kk, "n": cout, "bitwise_equal": True,
+                     "int_mm_ms": mm_ms, "int8_site_ms": site_ms, "bf16_cudnn_ms": bf16_ms,
+                     "int_mm_tops": 2 * m_rows * kk * cout / mm_ms / 1e9})
+        del xq, cols, a, got, want, x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_int8() -> None:
+    """int8 PTQ at the protocol: the site products bitwise (``_int8_sites``);
+    then R101 in bf16 from seeded weights, calibrated (``quantize_from_loader``
+    over the 3 eval batches, amax) and quantized, ``evaluate`` (1024x512, 3
+    batches of 2) and predict (0.75,1.0 + flip) REPS times each beside the
+    bf16 kernel path and the bf16 plain path (the cuDNN chain) on the same
+    weights, in this call. The int8 path launches no fused kernel (its
+    identity blocks run their int8 convs one by one); its trainIds against
+    the plain path's are informational (random weights: near-ties).
+    Calibration runs each identity block as the bf16 emit kernel (29
+    launches a forward; its shapes are held after the phase). A profile of
+    one evaluate batch of each path."""
+    from maxsquareloss_torch.models.quantize import quantize_from_loader
+
+    sites = _int8_sites()
+    emit({"phase": "int8_sites", "sites": sites})
+    cfg = BF16_EVAL_CFG
+    model = init_deeplabv2(model_config(cfg, eval_mode=True), torch.Generator().manual_seed(0),
+                           device="cuda")
+    plain = DeepLabV2(model.cfg, plain_blocks=True).to(
+        device="cuda", memory_format=torch.channels_last).eval()
+    plain.load_state_dict(model.state_dict())
+    ds = SyntheticSegDataset(length=3 * BATCH, hw=IMG_HW, seed=1)
+    batches = list(uint8_batches(ds, BATCH))
+    zero_counts()
+    t0 = time.perf_counter()
+    int8 = quantize_from_loader(cfg, model, batches)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    calib = {k: 0 for k in COUNTERS}  # one bf16 emit launch a block and batch
+    calib.update(dict.fromkeys(("fused_bottleneck_emit", "fused_bottleneck_emit_bf16"),
+                               29 * len(batches)))
+    check(read_counts() == calib, f"calibration launches {read_counts()}, expected {calib}")
+    check(int8.quantized and all(b.quantized for b in int8.layer3), "the int8 model has float sites")
+    x0 = torch.from_numpy(batches[0][0]).cuda()
+    valid = sum(int((y >= 0).sum()) for _, y, _ in batches)
+    paths = (("bf16_kernel", model, 29), ("bf16_plain_cudnn", plain, 0), ("int8", int8, 0))
+    lines, preds = [], {}
+    for path, m, per_forward in paths:
+        predict = make_predict_fn(cfg, m, PREDICT_SCALES, flip=True, out_hw=IMG_HW)
+        for run, fn, images, forwards in (
+                ("evaluate_1024x512", lambda: evaluate(m, cfg, batches), len(ds), len(batches)),
+                ("predict_ms_flip", lambda: predict(x0), BATCH, len(PREDICT_SCALES))):
+            fn()  # warm-up
+            secs = []
+            for _ in range(REPS):
+                torch.cuda.synchronize()
+                zero_counts()
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                want = {k: per_forward * forwards if k in ("fused_bottleneck", "fused_bottleneck_bf16")
+                        else 0 for k in COUNTERS}
+                check(read_counts() == want, f"int8 phase {path} {run}: {read_counts()}")
+            if run.startswith("evaluate"):
+                total = int(out["_eval"].confusion_matrix.sum())
+                check(total == valid and math.isfinite(out["MIoU"]),
+                      f"int8 phase {path}: CM counts {total} of {valid}, mIoU {out['MIoU']}")
+            else:
+                check(out.shape == (BATCH, *IMG_HW) and bool(((out >= 0) & (out < 19)).all()),
+                      f"int8 phase {path}: trainIds {tuple(out.shape)}")
+                preds[path] = out
+            rates = sorted(images / t for t in secs)
+            lines.append({"path": path, "run": run, "images": images, "seconds": secs,
+                          "images_per_s_median": statistics.median(rates),
+                          "images_per_s_min": rates[0], "images_per_s_max": rates[-1],
+                          "kernel_launches_per_rep": per_forward * forwards})
+    for path, m, _ in paths:  # where one evaluate batch's time goes, by path
+        phase_profile(f"int8_phase_evaluate_batch_{path}", lambda: evaluate(m, cfg, batches[:1]),
+                      top_n=10)
+    with torch.inference_mode():
+        xn, _ = _prepare_inputs(x0, None, cfg)
+        logits = {p: m(xn, aux=False)[1] for p, m, _ in paths}
+    ref = logits["bf16_plain_cudnn"]
+    agreement = {p: {"predict_trainids_vs_plain": (preds[p] == preds["bf16_plain_cudnn"]).float()
+                     .mean().item(),
+                     "logits_argmax_vs_plain": (logits[p].argmax(-1) == ref.argmax(-1)).float()
+                     .mean().item(),
+                     "logits_max_abs_diff_vs_plain": (logits[p] - ref).abs().max().item()}
+                 for p in ("bf16_kernel", "int8")}
+    rate = {(ln["path"], ln["run"]): ln["images_per_s_median"] for ln in lines}
+    emit({"phase": "int8", "calibration_seconds": calib_s, "runs": lines,
+          "int8_over_bf16_kernel": {r: rate[("int8", r)] / rate[("bf16_kernel", r)]
+                                    for _, r in rate},
+          "int8_over_bf16_cudnn": {r: rate[("int8", r)] / rate[("bf16_plain_cudnn", r)]
+                                   for _, r in rate},
+          "agreement": agreement, "logits_max_abs_plain": ref.abs().max().item(),
+          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30})
+    del model, plain, int8, logits, preds
+    torch.cuda.empty_cache()
+
+
+def phase_export() -> None:
+    """The serving export at the protocol: R101 from seeded weights saved as
+    a ``.pth``, exported by ``tools.export_inference`` on the card at batch 2,
+    512x1024, in bf16 (its default, bf16 parameters embedded) and in int8
+    (calibrated on 4 synthetic PNGs). Each artifact is loaded in a fresh
+    process by ``--load --selftest``, which must find it equal to the live
+    graph rebuilt from the sidecar (exact); the bf16 artifact's forward must
+    launch the fused kernel exactly 29 times, the int8 one never. Then, in
+    this process, REPS forwards of each loaded artifact beside its live
+    graph (images/s), the launches counted."""
+    from PIL import Image
+
+    from maxsquareloss_torch.optim import make_sgd
+    from maxsquareloss_torch.tools import export_inference
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    try:
+        cfg = TrainConfig()
+        model = init_deeplabv2(model_config(cfg), torch.Generator().manual_seed(0), device="cuda")
+        ckpt = ckpt_lib.save_checkpoint(os.path.join(root, "ckpt"), model, make_sgd(model, cfg),
+                                        0, 0, 0.0)
+        del model
+        for x, _, name in uint8_batches(SyntheticSegDataset(length=4, hw=IMG_HW, seed=3), 1):
+            Image.fromarray(x[0]).save(os.path.join(root, f"calib_{name[0]}.png"))
+        x = torch.from_numpy(next(uint8_batches(SyntheticSegDataset(length=BATCH, hw=IMG_HW,
+                                                                    seed=4), BATCH))[0]).cuda()
+        # export traces with fake tensors (no launch); the int8 export
+        # calibrates on the 4 images, one bf16 emit launch a block each
+        for tag, extra, per_forward, calib in (
+                ("bf16", [], 29, {}),
+                ("int8", ["--quantize", "int8", "--calib_images",
+                          os.path.join(root, "calib_*.png")], 0,
+                 {"fused_bottleneck_emit": 29 * 4, "fused_bottleneck_emit_bf16": 29 * 4})):
+            base = os.path.join(root, f"serve_{tag}")
+            argv = ["--pretrained_ckpt_file", ckpt, "--output", base, "--hw", ",".join(
+                str(v) for v in IMG_HW), "--batch_size", str(BATCH)] + extra
+            meta, _, line = _counted_cli("maxsquareloss_torch.tools.export_inference",
+                                         lambda: export_inference.main(argv), None, calib)
+            check((meta["compute_dtype"], meta["embed_dtype"], meta["quantize"]) == (
+                "bfloat16", "bfloat16", "int8" if extra else ""), f"export {tag}: sidecar {meta}")
+            t0 = time.perf_counter()
+            child = subprocess.run(
+                [sys.executable, "-m", "maxsquareloss_torch.tools.export_inference", "--load",
+                 base, "--selftest", "--pretrained_ckpt_file", ckpt],
+                capture_output=True, text=True, timeout=600,
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+            selftest_s = time.perf_counter() - t0
+            check(child.returncode == 0, f"export {tag}: --load --selftest failed:\n"
+                  f"{child.stdout[-3000:]}\n{child.stderr[-3000:]}")
+            report = json.loads(child.stdout.strip().splitlines()[-1])
+            check(report["selftest"] == "OK" and report["artifact_kernel_launches"] == per_forward,
+                  f"export {tag}: selftest {report}, expected {per_forward} launches")
+
+            art = torch.export.load(base + ".pt2").module()
+            live_cfg = export_inference._cfg({**meta, "numpy_transform": True,
+                                              "pretrained_ckpt_file": ckpt})
+            live = export_inference.make_serving_fn(
+                live_cfg, export_inference._model(live_cfg, "cuda", meta.get("calib_amax")),
+                (1.0,), False, IMG_HW)
+            rates = {}
+            with torch.no_grad():
+                check(torch.equal(art(x), live(x)), f"export {tag}: the artifact differs from "
+                      "the live graph in this process")
+                for name, fn in (("artifact", art), ("live", live)):
+                    zero_counts()
+                    ms = time_ms(lambda: fn(x), REPS)
+                    launches = read_counts()["fused_bottleneck_bf16"]
+                    check(launches == per_forward * (REPS + 1),
+                          f"export {tag} {name}: {launches} bf16 eval launches in {REPS + 1} "
+                          f"forwards, expected {per_forward} a forward")
+                    rates[name] = {"ms_per_batch": ms, "images_per_s": BATCH / ms * 1e3}
+            emit({"phase": "export", "artifact": tag, **line,
+                  "artifact_mb": os.path.getsize(base + ".pt2") / 1e6,
+                  "embed_dtype": meta["embed_dtype"], "selftest": report,
+                  "selftest_seconds": selftest_s, "rates": rates})
+            del art, live
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 LOSSES = {
     "fused_iw_max_square_loss": (fused_iw_max_square_loss, fused_iw_max_square_loss_reference),
     "fused_max_square_loss": (fused_max_square_loss, fused_max_square_loss_reference),
@@ -2042,10 +2321,13 @@ def recorded_shapes():
     forward = Bottleneck.forward
 
     def recording_forward(self, x, kernel, train_kernel, mask=None):
-        if self.fusable and kernel is fused_bottleneck:
+        # int8 blocks run their convs one by one: no launch; calibration runs
+        # the emit kernel
+        if self.fusable and not self.quantized and kernel is fused_bottleneck:
             check(mask is None, "a masked launch on a path whose shapes are held unmasked")
             n, cin, h, w = x.shape
-            key = "fused_bottleneck_emit" if torch.is_grad_enabled() else "fused_bottleneck"
+            emits = torch.is_grad_enabled() or model_layers._calib_recorder is not None
+            key = "fused_bottleneck_emit" if emits else "fused_bottleneck"
             key += "_bf16" if x.dtype == BF16 else ""
             seen[key].add((n, h, w, cin, self.conv1.out_channels, self.dilation))
         return forward(self, x, kernel, train_kernel, mask)
@@ -2241,8 +2523,9 @@ def phase_bench() -> None:
     its own, then the run's launch counts, each exact. ``uda`` is the JAX
     bench's default line: the bf16 step, bf16 inference and the fp32 parity
     leg (fp32, stage remat, batch 8: 116 fp32 emit launches a step); the
-    fp32 lines run no parity leg and no remat. Both e2e runs read one
-    synthesized dataset."""
+    fp32 lines run no parity leg and no remat. An int8 leg calibrates with
+    one emit launch a block (the ``uda`` lines carry one). Both e2e runs
+    read one synthesized dataset."""
     from maxsquareloss_torch import bench
 
     root = tempfile.mkdtemp(prefix="chip_smoke_bench_")
@@ -2262,8 +2545,9 @@ def phase_bench() -> None:
 
     runs = (
         ("uda", ["--mode", "uda", *short],
-         {**{k: 2 * v * calls for k, v in losses.items()}, "fused_bottleneck_emit_bf16": 58 * calls,
-          "fused_bottleneck_emit": (58 + 116) * calls, **bf16("fused_bottleneck", 29 * calls)}),
+         {**{k: 2 * v * calls for k, v in losses.items()},
+          "fused_bottleneck_emit_bf16": 58 * calls + 29,
+          "fused_bottleneck_emit": (58 + 116) * calls + 29, **bf16("fused_bottleneck", 29 * calls)}),
         # equal crops: one unmasked forward over 16 images a step
         ("uda_concat", ["--mode", "uda", "--concat", "--fp32_parity", "false",
                         "--with_infer", "false", *short],
@@ -2272,15 +2556,19 @@ def phase_bench() -> None:
         ("infer", ["--mode", "infer", *short], bf16("fused_bottleneck", 29 * calls)),
         ("infer_fullres_labels", ["--mode", "infer", "--label_hw", "1024,2048", *short],
          bf16("fused_bottleneck", 29 * calls)),
+        # int8 backbone convs: no fused kernel (the identity blocks run their
+        # int8 convs one by one) after the calibration's forward
+        ("infer_int8", ["--mode", "infer", "--quantize", "int8", *short],
+         bf16("fused_bottleneck_emit", 29)),
         ("e2e", ["--mode", "e2e", *e2e],
          {**bf16("fused_bottleneck_emit", 58 * e2e_steps),
           **{k: v * e2e_steps for k, v in losses.items()}}),
         # fp32: the step, inference and e2e without the parity leg
         ("uda_fp32", ["--mode", "uda", *fp32],
-         {"fused_bottleneck_emit": 58 * calls, "fused_bottleneck": 29 * calls,
+         {"fused_bottleneck_emit": 58 * calls + 29, "fused_bottleneck": 29 * calls,
           **{k: v * calls for k, v in losses.items()}}),
         ("uda_concat_fp32", ["--mode", "uda", "--concat", *fp32],
-         {"fused_bottleneck_emit": 29 * calls, "fused_bottleneck": 29 * calls,
+         {"fused_bottleneck_emit": 29 * calls + 29, "fused_bottleneck": 29 * calls,
           **{k: v * calls for k, v in losses.items()}}),
         ("source_fp32", ["--mode", "source", *fp32], {"fused_bottleneck_emit": 29 * calls}),
         ("infer_fp32", ["--mode", "infer", *fp32], {"fused_bottleneck": 29 * calls}),
@@ -2301,7 +2589,8 @@ def phase_bench() -> None:
                   "metric": result["metric"], "value": result["value"],
                   "extra": {k: extra[k] for k in (
                       "value_bf16", "value_fp32", "value_fp32_parity", "fp32_global_batch",
-                      "fp32_step_ms", "value_infer_bf16", "infer_int8", "step_ms",
+                      "fp32_step_ms", "value_infer_bf16", "value_infer_int8",
+                      "infer_int8_step_ms", "infer_step_ms", "quantize", "step_ms",
                       "peak_memory_bytes", "fp32_peak_memory_bytes") if k in extra},
                   "launch_counts": line["launch_counts"]})
             torch.cuda.empty_cache()
@@ -2827,6 +3116,11 @@ def main() -> int:
     loss_checked = {(*shape, NUM_CLASSES) for shape in LOSS_SHAPES}
     checked_all = {"fused_bottleneck": checked, "fused_bottleneck_emit": emit_checked,
                    **bf16_checked, **{name: set(loss_checked) for name in LOSSES}}
+    for path, phase in (("int8", phase_int8), ("export", phase_export)):
+        with recorded_shapes() as seen:
+            phase()
+        hold_path_shapes(path, seen, checked_all)
+        lap(path)
     root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     try:
         with recorded_shapes() as seen:

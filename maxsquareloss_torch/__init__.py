@@ -22,7 +22,13 @@ What is ported so far:
   solve_crosscity}.py``; a trainer starts from the JAX package's initial
   weights for its ``--seed`` (``utils/jax_random.py``);
 - serving and data tools: ``tools/evaluate.py``, ``tools/predict.py``,
-  ``tools/prepare_dataset.py``;
+  ``tools/prepare_dataset.py``, and the serving export
+  ``tools/export_inference.py`` (``torch.export``, the eval kernel as the
+  custom op ``msl::fused_bottleneck``); evaluation and serving run the ASPP
+  heads in the JAX eval path's form;
+- post-training int8 of the backbone convs (``models/quantize.py``,
+  ``--quantize int8``) for evaluation, prediction, the export and the
+  bench;
 - mixed precision and remat: ``--compute_dtype bfloat16`` (activations in
   bf16, parameters, optimizer and checkpoints fp32, logits fp32) and
   ``--remat stages`` (each ResNet stage recomputed in the backward) through

@@ -18,13 +18,16 @@ Modes:
   source  the supervised step on ``--batch`` source images
   infer   val inference: forward (+``--scales``/``--flip``) + upsample +
           argmax + confusion matrix; ``--label_hw`` larger than ``--hw`` is
-          the full-resolution label protocol
+          the full-resolution label protocol; ``--quantize int8`` times the
+          post-training int8 model (``models/quantize.py``), calibrated on
+          the bench batch as the JAX bench does
   e2e     disk → loader → device UDA training (``experiments/bench_e2e.py``)
 
 ``--dtype`` (default bfloat16, as the JAX bench) is the compute dtype,
-``--remat stages`` checkpoints each ResNet stage. The JAX bench's int8
-serving leg (``value_infer_int8``) is not ported: the line says so in
-``extra.infer_int8`` with its ROADMAP item, and carries no such value.
+``--remat stages`` checkpoints each ResNet stage. With ``--with_infer``
+the line also carries the JAX bench's int8 serving leg:
+``value_infer_int8`` and ``infer_int8_step_ms``, the same inference with
+int8 backbone convs in the compute dtype around them.
 
 The model is DeepLabV2-ResNet101 (``--blocks`` cuts depth) from random
 weights seeded 0; inputs come from ``np.random.default_rng(0)``. Timing:
@@ -41,7 +44,7 @@ under DDP, ``value`` is the global rate over N (images/s per chip, as in
 the JAX bench), ``extra.chips`` is N and rank 0 alone prints the line. With
 one process the line is the one-card line.
 
-``--quantize``, ``--xla_options`` and ``--comparator`` raise.
+``--xla_options`` and ``--comparator`` raise.
 """
 
 from __future__ import annotations
@@ -81,11 +84,6 @@ def device_report(device: torch.device) -> dict:
 def _hw(s: str) -> tuple[int, int]:
     h, w = (int(v) for v in s.split(","))
     return h, w
-
-
-# the JAX bench's int8 serving leg, which waits on int8 PTQ
-INT8_UNPORTED = ("not ported: int8 PTQ waits on ROADMAP Queue 1 item 3 (int8 PTQ and the "
-                 "serving export)")
 
 
 def measure_step_rate(args, device: torch.device, dtype: str | None = None,
@@ -140,6 +138,18 @@ def measure_step_rate(args, device: torch.device, dtype: str | None = None,
                 rng.integers(-1, 19, size=(batch, *_hw(args.label_hw))).astype(np.int32)[rows]
             ).to(device)
         scales = tuple(float(s) for s in args.scales.split(","))
+        if args.quantize:
+            # calibrated on the bench batch itself, as the JAX bench (the
+            # timing cares for the graph, not the ranges); each process on its
+            # rows, the ranges then the maximum over the processes
+            from maxsquareloss_torch.models.quantize import (
+                calibrate,
+                quantize_params,
+                sync_amax_across_processes,
+            )
+
+            amax = sync_amax_across_processes(calibrate(model, cfg, [xs]), model)
+            model = quantize_params(model, amax)
         estep = make_multiscale_eval_step(cfg, model, scales=scales, flip=args.flip)
         run = lambda: estep(xs, ys)[0][0, 0]  # noqa: E731  (the loss slot: one CM entry)
         imgs_per_step = batch
@@ -169,7 +179,6 @@ def measure_step_rate(args, device: torch.device, dtype: str | None = None,
 def _check_supported(args) -> None:
     """Raise on every flag whose feature the port does not have."""
     unported = (
-        (args.quantize, "--quantize waits on int8 PTQ (ROADMAP Queue 1 item 3)"),
         (args.xla_options is not None, "--xla_options configures XLA, which the port does not use"),
         (args.comparator is not None, "--comparator: the port's JSON carries no comparator "
          "and no vs_baseline"),
@@ -203,7 +212,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--label_hw", default="",
                    help="infer mode: label resolution H,W (full-res protocol: "
                         "1024,2048); default = input --hw")
-    p.add_argument("--quantize", default="", choices=("", "int8"))
+    p.add_argument("--quantize", default="", choices=("", "int8"),
+                   help="infer mode: post-training int8 backbone convs")
     p.add_argument("--eval_h_chunk", type=int, default=-1,
                    help="infer mode: stream the upsample/argmax/CM tail over output-row "
                         "blocks of this height (-1 = auto: 256 when label H > 512; 0 = off)")
@@ -258,12 +268,21 @@ def main(argv=None) -> dict:
     if args.mode == "infer":
         extra.update(scales=args.scales, flip=args.flip, label_hw=args.label_hw or args.hw,
                      eval_h_chunk=args.eval_h_chunk)
+        if args.quantize:
+            extra["quantize"] = args.quantize
     with_infer = args.mode == "uda" if args.with_infer is None else args.with_infer
     if with_infer and args.mode != "infer":
         iargs = copy.copy(args)
-        iargs.mode = "infer"
+        iargs.mode, iargs.quantize = "infer", ""  # value_infer_<dtype>: the float model
         inf = measure_step_rate(iargs, device, remat="")
-        extra.update({f"value_infer_{tag}": inf["images_per_sec"]}, infer_int8=INT8_UNPORTED,
+        # the int8 serving leg: the same inference, backbone convs int8
+        qargs = copy.copy(iargs)
+        qargs.quantize = "int8"
+        q = measure_step_rate(qargs, device, remat="")
+        extra.update({f"value_infer_{tag}": inf["images_per_sec"]},
+                     value_infer_int8=q["images_per_sec"],
+                     infer_int8_step_ms=min(q["step_ms_passes"]),
+                     infer_int8_step_ms_passes=q["step_ms_passes"],
                      infer_step_ms=min(inf["step_ms_passes"]),
                      infer_step_ms_passes=inf["step_ms_passes"],
                      infer_scales=args.scales, infer_flip=args.flip,

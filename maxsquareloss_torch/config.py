@@ -100,7 +100,7 @@ class TrainConfig:
     # a time (exact: row-local interpolation); -1 = auto (256-row chunks
     # whenever the label height exceeds 512), 0 = off
     eval_h_chunk: int = -1
-    quantize: str = ""                 # int8 PTQ (not ported)
+    quantize: str = ""                 # '' | 'int8': PTQ for evaluation and serving
     calib_batches: int = 4
     calib_mode: str = "amax"
     profile: bool = False              # torch.profiler trace of iterations 2-5
@@ -130,8 +130,6 @@ class TrainConfig:
 
 # (field, value that is fine, why not) for every option the port lacks
 _UNPORTED = (
-    ("quantize", "", "--quantize waits on int8 PTQ (ROADMAP Queue 1 item 3, int8 PTQ and "
-     "the serving export)"),
     ("loader", "threads", "--loader grain waits on the grain pipeline (ROADMAP Queue 1 "
      "item 1, hostops and grain)"),
     ("sp", 1, "--sp > 1 waits on spatial partitioning (ROADMAP Queue 1 item 2, spatial "

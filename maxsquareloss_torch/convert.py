@@ -13,6 +13,10 @@ plus the port's two loaders:
 - ``reference_state_dict(model)``: the inverse, the port's model → a
   reference-layout state dict whose BN unfolds exactly: loading it back
   folds to the same float32 bits.
+- ``model_from_jax(params, frozen, cfg)``: the port's model of a JAX
+  (params, frozen) pair whose backbone conv sites may be int8 (the output
+  of the JAX package's ``quantize_params``, as numpy): those become
+  ``layers.QConv2d`` sites with the same int8 weights and scales.
 """
 
 from __future__ import annotations
@@ -254,3 +258,42 @@ def load_reference_state_dict(model: torch.nn.Module, sd: Mapping[str, Any]):
     """Fold a reference-layout state dict and load it into ``model`` (strict)."""
     params, frozen = torch_state_dict_to_pytrees(sd)
     return model.load_state_dict(state_dict_from_jax(params, frozen))
+
+
+def model_from_jax(params: Mapping[str, Any], frozen: Mapping[str, Any], cfg) -> torch.nn.Module:
+    """The port's ``DeepLabV2(cfg)`` (a ``DeepLabV2Config``) on the CPU with
+    the weights of the JAX (params, frozen) numpy pytrees. A conv site
+    ``{'w': int8 HWIO, 'oscale', 'ascale_inv'}`` becomes an int8 site
+    holding those arrays bit for bit; float sites load as
+    ``state_dict_from_jax`` loads them."""
+    from maxsquareloss_torch.models.deeplabv2 import DeepLabV2
+    from maxsquareloss_torch.models.layers import QConv2d
+    from maxsquareloss_torch.models.quantize import _set_site, iter_conv_sites
+
+    int8_sites = {}
+
+    def as_float(path, site):
+        if np.asarray(site["w"]).dtype == np.int8:
+            int8_sites[path] = site
+            return {"w": np.zeros(np.shape(site["w"]), np.float32)}
+        return site
+
+    fp = {k: v for k, v in params.items()}
+    fp["conv1"] = as_float("conv1", params["conv1"])
+    for li in range(1, 5):
+        key = f"layer{li}"
+        if key in params:
+            fp[key] = [{name: as_float(f"{key}.{bi}.{name}", sub) for name, sub in block.items()}
+                       for bi, block in enumerate(params[key])]
+    model = DeepLabV2(cfg)
+    model.load_state_dict(state_dict_from_jax(fp, frozen))
+    for path, conv in list(iter_conv_sites(model)):
+        if path in int8_sites:
+            site = int8_sites[path]
+            w = np.ascontiguousarray(np.transpose(np.asarray(site["w"]), (3, 2, 0, 1)))
+            _set_site(model, path, QConv2d(
+                torch.from_numpy(w), torch.from_numpy(np.array(site["oscale"], np.float32)),
+                torch.tensor(np.float32(site["ascale_inv"])), stride=conv.stride[0],
+                padding=conv.padding[0], dilation=conv.dilation[0]))
+    model.pack_weights()  # drops the int8 blocks' packed float weights
+    return model.to(memory_format=torch.channels_last).eval()

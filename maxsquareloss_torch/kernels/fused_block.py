@@ -27,7 +27,14 @@ all three on the FMA loop. ``x_stage_offset``, ``w_stage_offset``,
 ``descriptor_read`` restate the tc route's shared-memory maps for the CPU
 tests.
 
-- ``fused_bottleneck``: out only (eval, no grad).
+- ``fused_bottleneck``: out only (eval, no grad), through the custom op
+  ``torch.ops.msl.fused_bottleneck`` (``torch.library``): its CUDA
+  implementation launches the kernel or raises, its CPU implementation is
+  the plain version, and its fake implementation gives ``torch.export`` a
+  channels_last tensor of x's shape and dtype. ``torch.export`` cannot
+  trace the ``ctypes`` call, so the op is what lets an exported program
+  (``tools/export_inference.py``) launch the kernel; a process that loads
+  such a program imports this module to register the op.
 - ``fused_bottleneck_emit``: (out, h1, h2), the training forward.
 - ``FusedBottleneckFn.apply``: differentiable in x and the three conv
   kernels; its backward is the adjoint chain of ``_bwd``
@@ -645,8 +652,43 @@ class FusedBottleneckFn(torch.autograd.Function):
         return (*grads, *(None,) * 8)
 
 
+FUSED_BOTTLENECK_SCHEMA = (
+    "(Tensor x, Tensor w1, Tensor w2, Tensor w3, Tensor s1, Tensor b1, Tensor s2, Tensor b2, "
+    "Tensor s3, Tensor b3, int dilation, Tensor? valid=None) -> Tensor")
+
+
+@torch.library.custom_op("msl::fused_bottleneck", mutates_args=(),
+                         schema=FUSED_BOTTLENECK_SCHEMA)
+def _fused_bottleneck_op(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation, valid=None):
+    raise ValueError(f"fused bottleneck: no kernel for device {x.device}")
+
+
+@_fused_bottleneck_op.register_kernel("cpu")
+def _fused_bottleneck_cpu(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation, valid=None):
+    args = (x, w1, w2, w3, s1, b1, s2, b2, s3, b3)
+    _check(*args, dilation, valid)
+    return fused_bottleneck_reference(*args, dilation, valid)
+
+
+@_fused_bottleneck_op.register_kernel("cuda")
+def _fused_bottleneck_cuda(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation, valid=None):
+    args = (x, w1, w2, w3, s1, b1, s2, b2, s3, b3)
+    _check(*args, dilation, valid)
+    (out,) = _launch(args, dilation, emit=False, valid=valid)
+    fused_bottleneck.launches += 1
+    fused_bottleneck.masked_launches += valid is not None
+    fused_bottleneck.bf16_launches += x.dtype == torch.bfloat16
+    return out
+
+
+@_fused_bottleneck_op.register_fake
+def _fused_bottleneck_fake(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation, valid=None):
+    return torch.empty_like(x, memory_format=torch.channels_last)
+
+
 def fused_bottleneck(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation: int, valid=None):
-    """Stride-1 identity-residual bottleneck in one kernel (eval: no h1/h2).
+    """Stride-1 identity-residual bottleneck in one kernel (eval: no h1/h2),
+    as the custom op ``torch.ops.msl.fused_bottleneck``.
 
     Args:
       x: (N, Cin, H, W) float32 or bfloat16, ``torch.channels_last``
@@ -659,19 +701,10 @@ def fused_bottleneck(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation: int, valid
         canvas: h1 is zero past them before conv2 (``masked_launches``
         counts these launches; ``bf16_launches`` counts the bf16 instance's).
     Returns:
-      (N, Cin, H, W) in x's dtype, channels_last.
+      (N, Cin, H, W) in x's dtype, channels_last. ``launches`` counts the
+      kernel's launches, from a live graph or an exported program alike.
     """
-    args = (x, w1, w2, w3, s1, b1, s2, b2, s3, b3)
-    _check(*args, dilation, valid)
-    if x.device.type == "cpu":
-        return fused_bottleneck_reference(*args, dilation, valid)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused bottleneck: no kernel for device {x.device}")
-    (out,) = _launch(args, dilation, emit=False, valid=valid)
-    fused_bottleneck.launches += 1
-    fused_bottleneck.masked_launches += valid is not None
-    fused_bottleneck.bf16_launches += x.dtype == torch.bfloat16
-    return out
+    return torch.ops.msl.fused_bottleneck(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation, valid)
 
 
 fused_bottleneck.launches = 0

@@ -30,8 +30,12 @@ and every conv casts its weight where it is used (``layers.Conv2d``); the
 identity blocks run the kernel's instance of that dtype (eval: HWIO copies
 packed in it; training: ``FusedBottleneckFn`` casts the fp32 HWIO views);
 both heads' logits come back float32, as the JAX package's
-``apply_deeplabv2``; the ASPP heads sum their four convs in the compute
-dtype in every forward (``Classifier``). ``remat="stages"``
+``apply_deeplabv2``. The ASPP heads have the JAX package's two forms
+(``Classifier``): the training form sums their four convs in the compute
+dtype; the eval form (``DeepLabV2Config.aspp_matmul``, which
+``train.steps.model_config(cfg, eval_mode=True)`` sets, or ``eval_form``
+on a model built for training, as the evaluator, predict and calibration
+take it) sums the 36 taps' products in float32. ``remat="stages"``
 checkpoints each of the four ResNet stages (the JAX package's
 ``jax.checkpoint``): their
 activations, the fused blocks' saved h1/h2 among them, are dropped after
@@ -45,10 +49,22 @@ block's 3x3, the ASPP heads), as the JAX package's ``apply_deeplabv2``
 does. The valid pixels then see exactly the zero padding of a forward of
 the unpadded image. The identity blocks take the per-image valid extents
 and zero h1 inside the kernel.
+
+int8 sites (``models/quantize.py``): a conv whose weight was quantized is a
+``layers.QConv2d`` and runs the int8 path. A block whose convs are int8
+sites runs them one by one (the fused kernel takes float weights) and has
+no packed weights; the heads stay float. Calibration
+(``layers._calib_recorder`` set) runs each float identity block as the
+fused kernel's training forward (``fused_bottleneck_emit``), which also
+returns conv2's and conv3's inputs, so the recorder sees each conv's
+input, as the JAX package's ``conv_site``, from the kernel the card
+serves. ``DeepLabV2.drop_fused_conv_weights`` frees the conv kernels that
+the identity blocks' packed copies replace (the serving export).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import NamedTuple
@@ -61,12 +77,17 @@ from torch import nn
 from maxsquareloss_torch.kernels.fused_block import (
     FusedBottleneckFn,
     fused_bottleneck,
+    fused_bottleneck_emit,
+    fused_bottleneck_emit_reference,
     fused_bottleneck_reference,
     valid_mask,
 )
+from maxsquareloss_torch.models import layers
 from maxsquareloss_torch.models.layers import (
     Conv2d,
     FrozenBN,
+    QConv2d,
+    aspp_matmul_forward,
     classifier_normal_,
     kaiming_normal_,
     max_pool_ceil,
@@ -100,6 +121,9 @@ class DeepLabV2Config:
     # '' | 'stages': checkpoint each ResNet stage (activations recomputed in
     # the backward instead of held)
     remat: str = ""
+    # the ASPP heads' eval form (Classifier); the evaluator, predict,
+    # calibration and the export run it, the train steps the training form
+    aspp_matmul: bool = False
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1, padding: int = 0,
@@ -140,17 +164,26 @@ class Bottleneck(nn.Module):
     def fusable(self) -> bool:
         return self.downsample is None and self.stride == 1
 
+    @property
+    def quantized(self) -> bool:
+        """Its convs are int8 sites (``models/quantize.py``)."""
+        return isinstance(self.conv1, QConv2d)
+
     @torch.no_grad()
     def pack_weights(self, dtype: torch.dtype) -> None:
         for i, conv in enumerate((self.conv1, self.conv2, self.conv3), 1):
+            if self.quantized:  # int8 sites run one by one: nothing to pack
+                setattr(self, f"w{i}_hwio", None)
+                continue
             w = conv.weight
             hwio = w.permute(2, 3, 1, 0).reshape(-1, w.shape[0]).to(dtype)
             hwio = hwio.contiguous()  # a 1x1 kernel's permuted reshape is a view
             setattr(self, f"w{i}_hwio", hwio)
 
     def _hwio(self, i: int) -> torch.Tensor:
-        cout, cin, kh, kw = getattr(self, f"conv{i}").weight.shape
-        return getattr(self, f"w{i}_hwio").view(kh, kw, cin, cout)
+        conv = getattr(self, f"conv{i}")  # its weight may be dropped
+        return getattr(self, f"w{i}_hwio").view(*conv.kernel_size, conv.in_channels,
+                                                conv.out_channels)
 
     def forward(self, x: torch.Tensor, kernel, train_kernel,
                 mask: CanvasMask | None = None) -> torch.Tensor:
@@ -161,9 +194,19 @@ class Bottleneck(nn.Module):
         which take ``mask``'s valid extents; the others run as cuDNN convs
         and multiply h1 by ``mask``'s 0/1 mask before conv2."""
         valid = None if mask is None else mask.valid
-        if self.fusable:
+        if self.fusable and not self.quantized:
             bn = (self.bn1.scale, self.bn1.bias, self.bn2.scale, self.bn2.bias,
                   self.bn3.scale, self.bn3.bias)
+            if layers._calib_recorder is not None:
+                # calibration: the training forward also returns h1 and h2,
+                # the inputs of conv2 and conv3
+                emit = (fused_bottleneck_emit_reference if kernel is fused_bottleneck_reference
+                        else fused_bottleneck_emit)
+                out, h1, h2 = emit(x, self._hwio(1), self._hwio(2), self._hwio(3), *bn,
+                                   self.dilation, valid)
+                for conv, t in ((self.conv1, x), (self.conv2, h1), (self.conv3, h2)):
+                    layers._calib_recorder(conv, t)
+                return out
             if torch.is_grad_enabled():
                 w = (getattr(self, f"conv{i}").weight.permute(2, 3, 1, 0) for i in (1, 2, 3))
                 return train_kernel(x, *w, *bn, self.dilation, valid)
@@ -179,12 +222,11 @@ class Bottleneck(nn.Module):
 
 
 class Classifier(nn.Module):
-    """V2-style ASPP: four parallel dilated 3x3 convs in x's dtype, outputs
-    summed in it (the JAX package's training form). Its eval form
-    (``aspp_matmul``: the 36 taps' outputs in the compute dtype summed in
-    float32) is not mirrored: in bf16 the eval logits keep the training
-    form's roundings, within the tolerance PERF.md section 2 states against
-    the JAX eval path; in float32 the two forms are one sum in two orders."""
+    """V2-style ASPP: four parallel dilated 3x3 convs. The training form
+    sums their outputs in x's dtype; the eval form (``aspp_matmul``, the JAX
+    package's ``aspp_sum`` forward) computes the 36 taps' products in x's
+    dtype and sums them in float32 (``layers.aspp_matmul_forward``). In
+    float32 the two are one sum in two orders."""
 
     def __init__(self, in_ch: int, num_classes: int):
         super().__init__()
@@ -193,9 +235,14 @@ class Classifier(nn.Module):
             for d in ASPP_DILATIONS
         )
 
-    def forward(self, x: torch.Tensor, mask: CanvasMask | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: CanvasMask | None = None,
+                aspp_matmul: bool = False) -> torch.Tensor:
         if mask is not None:
             x = x * mask.mask.to(x.dtype)
+        if aspp_matmul:
+            convs = self.conv2d_list
+            return aspp_matmul_forward(x, [c.weight for c in convs], [c.bias for c in convs],
+                                       ASPP_DILATIONS)
         out = None
         for conv in self.conv2d_list:
             y = conv(x)
@@ -260,22 +307,40 @@ class DeepLabV2(nn.Module):
                                                      preserve_rng_state=False)
         return run(x)
 
+    @property
+    def quantized(self) -> bool:
+        """Its backbone convs are int8 sites (``models/quantize.py``)."""
+        return isinstance(self.conv1, QConv2d)
+
     def pack_weights(self) -> None:
         """Refresh the eval kernel's HWIO weights (in the compute dtype)
-        from the convs."""
+        from the convs (none for int8 blocks)."""
         for m in self.modules():
             if isinstance(m, Bottleneck) and m.fusable:
                 m.pack_weights(self.cfg.compute_dtype)
+
+    @torch.no_grad()
+    def drop_fused_conv_weights(self) -> None:
+        """Free each float identity block's conv kernels, which its packed
+        HWIO copies replace on the eval path: a model that only serves then
+        holds (and an export embeds) one copy of them. It can no longer
+        train, repack or quantize."""
+        for m in self.modules():
+            if isinstance(m, Bottleneck) and m.fusable and not m.quantized:
+                for conv in (m.conv1, m.conv2, m.conv3):
+                    conv.weight = None
 
     def forward(self, x: torch.Tensor, aux: bool = True,
                 masks: dict[str, CanvasMask] | None = None):
         """(N, H, W, 3) normalized images → (aux_or_None, main), each
         (N, H/8, W/8, num_classes) float32 in either compute dtype.
         ``aux=False`` skips the layer5 head (the eval/predict path reads only
-        the main head). ``masks`` (``make_canvas_masks``): a canvas batch
+        the main head); the heads' form is ``cfg.aspp_matmul``'s. ``masks``
+        (``make_canvas_masks``): a canvas batch
         whose pad region is re-zeroed before the maxpool (``pool_in``), before every block's 3x3 (``os4``
         in layer1, ``os8`` in layers 2-4) and before both heads (``os8``)."""
         m = masks or {}
+        aspp_matmul = self.cfg.aspp_matmul
         y = x.to(self.cfg.compute_dtype).permute(0, 3, 1, 2)
         y = y.contiguous(memory_format=torch.channels_last)
         y = F.relu(self.bn1(self.conv1(y)))
@@ -286,14 +351,26 @@ class DeepLabV2(nn.Module):
         y = self._stage(self.layer2, y, m.get("os8"))
         y3 = self._stage(self.layer3, y, m.get("os8"))
         aux_out = (
-            self.layer5(y3, m.get("os8")) if aux and self.cfg.multi_level else None
+            self.layer5(y3, m.get("os8"), aspp_matmul) if aux and self.cfg.multi_level else None
         )
-        main = self.layer6(self._stage(self.layer4, y3, m.get("os8")), m.get("os8"))
+        main = self.layer6(self._stage(self.layer4, y3, m.get("os8")), m.get("os8"), aspp_matmul)
 
         def nhwc(t):
             return t.permute(0, 2, 3, 1).float()
 
         return (None if aux_out is None else nhwc(aux_out)), nhwc(main)
+
+
+def eval_form(model: DeepLabV2) -> DeepLabV2:
+    """``model`` with the heads' eval form (``cfg.aspp_matmul``), as the JAX
+    evaluator's ``model_config(cfg, eval_mode=True)`` over the same params:
+    the model itself when it has that form, else a shallow copy that shares
+    every parameter, buffer and submodule and differs only in ``cfg``."""
+    if model.cfg.aspp_matmul:
+        return model
+    view = copy.copy(model)
+    view.cfg = dataclasses.replace(model.cfg, aspp_matmul=True)
+    return view
 
 
 def init_deeplabv2(

@@ -26,11 +26,17 @@ def make_predict_fn(
     out_hw: tuple[int, int],
 ):
     """``fn(x) → (N, H_out, W_out) int32`` for a uint8 (or normalized
-    float) NHWC batch on the model's device."""
+    float) NHWC batch on the model's device, under inference mode."""
+    return torch.inference_mode()(predict_core(cfg, model, scales, flip, out_hw))
+
+
+def predict_core(cfg: TrainConfig, model, scales: Sequence[float], flip: bool,
+                 out_hw: tuple[int, int]):
+    """``make_predict_fn``'s function without inference mode: the graph
+    ``tools/export_inference.py`` traces (under ``torch.no_grad``)."""
     scales = tuple(float(s) for s in scales)
     hc = resolve_h_chunk(cfg.eval_h_chunk, out_hw[0])
 
-    @torch.inference_mode()
     def fn(x: torch.Tensor) -> torch.Tensor:
         x, _ = _prepare_inputs(x, None, cfg)
         prob_rows = tta_prob_rows(model, x, scales, flip, out_hw)

@@ -97,13 +97,14 @@ def init_distributed(cfg: TrainConfig) -> int:
 
 
 def load_inference_model(cfg: TrainConfig, device: torch.device):
-    """``--pretrained_ckpt_file`` → a model on ``device``: any ``.pth`` the
-    trainer reads; heads the file lacks (another class count) keep a fresh
-    init."""
+    """``--pretrained_ckpt_file`` → a model on ``device`` with the heads'
+    eval form: any ``.pth`` the trainer reads; heads the file lacks
+    (another class count) keep a fresh init."""
     from maxsquareloss_torch.models.deeplabv2 import init_deeplabv2
     from maxsquareloss_torch.train import checkpoint as ckpt_lib
     from maxsquareloss_torch.train.steps import model_config
 
-    model = init_deeplabv2(model_config(cfg), torch.Generator().manual_seed(0), device=device)
+    model = init_deeplabv2(model_config(cfg, eval_mode=True), torch.Generator().manual_seed(0),
+                           device=device)
     ckpt_lib.load_torch_pth(cfg.pretrained_ckpt_file, model, cfg.num_classes)
     return model

@@ -11,6 +11,12 @@ and ``main`` returns it. It runs on the card; ``--device cpu`` runs the
 plain PyTorch versions on the host. Under ``torchrun --nproc_per_node N``
 each process evaluates a shard of the split (``--batch_size`` is global)
 and rank 0 prints the metrics of the whole split.
+
+``--quantize int8`` evaluates the post-training int8 model
+(``models/quantize.py``): calibrated on the first ``--calib_batches``
+batches of the split (``--calib_mode``; with several processes each
+calibrates on its shard and the ranges take the maximum over the
+processes), then evaluated over the whole split, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -53,6 +59,10 @@ def main(argv=None) -> dict:
         class_16=cfg.class_16, class_13=cfg.class_13,
         full_res_labels=args.full_res_labels,
     )
+    if cfg.quantize == "int8":
+        from maxsquareloss_torch.models.quantize import quantize_from_loader
+
+        model = quantize_from_loader(cfg, model, loader, logger)
     scales = tuple(float(s) for s in args.scales.split(","))
     out = evaluate(model, cfg, loader, scales=scales, flip=args.flip,
                    synthia_protocol=cfg.class_16)

@@ -15,7 +15,10 @@ It runs on the card; ``--device cpu`` runs the plain PyTorch versions on
 the host. ``main`` returns the number of images written. It runs as one
 process: the JAX tool predicts one image at a time and scales out only by
 ``--sp``, which is not ported; under ``torchrun`` with more than one
-process it raises.
+process it raises. ``--quantize int8`` predicts with the post-training
+int8 model (``models/quantize.py``), calibrated on the first
+``--calib_batches`` images of the list, one at a time through the
+transform the predictions use, as the JAX tool does.
 """
 
 from __future__ import annotations
@@ -66,15 +69,28 @@ def main(argv=None) -> int:
     with open(list_path) as f:
         items = [ln.split()[0] for ln in f if ln.strip()]
 
-    scales = tuple(float(s) for s in args.scales.split(","))
-    fns: dict[tuple[int, int], object] = {}  # one predict function per output size
-    n = 0
-    for rel in items:
+    def load(rel):
+        """(the image's native (W, H), its normalized batch of one at base size)."""
         pil = Image.open(os.path.join(paths["root"], rel)).convert("RGB")
         native_wh = pil.size
         if pil.size != tuple(cfg.base_size):
             pil = pil.resize(cfg.base_size, Image.BICUBIC)
-        x = torch.from_numpy(img_transform(pil, cfg.numpy_transform)[None]).to(device)
+        return native_wh, img_transform(pil, cfg.numpy_transform)[None]
+
+    if cfg.quantize == "int8":
+        from maxsquareloss_torch.models.quantize import calibrate, quantize_params
+
+        amax = calibrate(model, cfg, (load(rel)[1] for rel in items[: max(1, cfg.calib_batches)]))
+        model = quantize_params(model, amax)
+        logger.info(f"int8 PTQ: calibrated {len(amax)} conv sites; backbone convs now int8 "
+                    "(heads stay float)")
+
+    scales = tuple(float(s) for s in args.scales.split(","))
+    fns: dict[tuple[int, int], object] = {}  # one predict function per output size
+    n = 0
+    for rel in items:
+        native_wh, x = load(rel)
+        x = torch.from_numpy(x).to(device)
         out_wh = native_wh if args.native_size_output else tuple(cfg.base_size)
         out_hw = (out_wh[1], out_wh[0])
         if out_hw not in fns:

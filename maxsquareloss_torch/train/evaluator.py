@@ -20,6 +20,7 @@ import torch
 
 from maxsquareloss_torch.config import TrainConfig
 from maxsquareloss_torch.metrics import Eval, confusion_matrix_update
+from maxsquareloss_torch.models.deeplabv2 import eval_form
 from maxsquareloss_torch.ops.resize import resize_bilinear_align_corners
 from maxsquareloss_torch.parallel import ddp
 from maxsquareloss_torch.train.steps import _prepare_inputs
@@ -37,10 +38,13 @@ def tta_prob_rows(model, x: torch.Tensor, scales, flip: bool, out_hw):
     """Run the TTA forwards and return ``prob_rows(r0, r1)``.
 
     One forward per scale; flip rides the same forward as a doubled batch
-    (frozen BN: no coupling across the batch). ``prob_rows`` yields the
+    (frozen BN: no coupling across the batch). The heads run their eval form
+    (``deeplabv2.eval_form``), as the JAX evaluator's ``model_config(cfg,
+    eval_mode=True)``, on a model built for training too. ``prob_rows`` yields the
     scale/flip-summed probabilities for output rows [r0, r1), or the raw
     logits when there is a single head (argmax is softmax-invariant).
     """
+    model = eval_form(model)
     h, w = x.shape[1], x.shape[2]
     n = x.shape[0]
     heads = []  # (logits, flipped) pairs, probability-summed below

@@ -64,16 +64,19 @@ from maxsquareloss_torch.parallel import ddp
 from maxsquareloss_torch.utils.debug import anomaly_mode
 
 
-def model_config(cfg: TrainConfig) -> DeepLabV2Config:
+def model_config(cfg: TrainConfig, eval_mode: bool = False) -> DeepLabV2Config:
     """The model's config from the run's: its compute dtype and remat too.
-    (The JAX package's ``eval_mode``, its ASPP matmul form for eval, has no
-    counterpart: ``models.deeplabv2.Classifier``.)"""
+    ``eval_mode`` turns on the forward-only form of the ASPP heads
+    (``aspp_matmul``), as in the JAX package: models built for evaluation,
+    prediction, calibration and the export take it; the train steps run
+    the training form."""
     return DeepLabV2Config(
         num_classes=cfg.num_classes,
         multi_level=cfg.multi,
         blocks=tuple(cfg.blocks),
         compute_dtype=cfg.dtype,
         remat=cfg.remat,
+        aspp_matmul=eval_mode,
     )
 
 
@@ -125,7 +128,11 @@ class TrainState:
 def make_train_state(model: torch.nn.Module, cfg: TrainConfig) -> TrainState:
     """A fresh optimizer over ``model``; with several processes, DDP over
     the step's loss (which makes every rank start from rank 0's
-    parameters). Build it once per model and process."""
+    parameters). Build it once per model and process. An int8 model
+    (``models/quantize.py``) raises: int8 is for evaluation and serving."""
+    if getattr(model, "quantized", False):
+        raise ValueError("an int8 model does not train: --quantize int8 is for evaluation "
+                         "and serving, and training keeps the float32 weights")
     wrapped = None
     if ddp.world() > 1:
         wrapped = ddp.wrap(_StepLoss(model))

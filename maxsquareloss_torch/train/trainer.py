@@ -80,6 +80,10 @@ class Trainer:
         synthia_protocol: bool = False,
     ):
         check_supported(cfg)
+        if cfg.quantize:
+            raise ValueError(f"--quantize {cfg.quantize} is for evaluation and serving "
+                             "(tools.evaluate, tools.predict, tools.export_inference, the "
+                             "bench's infer mode); the trainers keep float32 weights")
         self.cfg = cfg
         self.train_loader = train_loader
         self.val_loader = val_loader

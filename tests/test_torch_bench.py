@@ -1,7 +1,7 @@
 """The port's benchmark entry point (``maxsquareloss_torch.bench`` and
 ``experiments/bench_e2e.py``) on the CPU at a tiny size: the JSON keys, the
-JAX bench's metric names for the same flags, a finite loss, every
-unported flag raising, the e2e legs at the scale of
+JAX bench's metric names for the same flags, a finite loss, the int8
+inference line, every unported flag raising, the e2e legs at the scale of
 ``tests/test_bench_e2e.py``, ``ensure_dataset`` writing the JAX
 harness's pixels, and both under ``torchrun --nproc_per_node 2`` (gloo)
 against one process on the same global batch.
@@ -78,7 +78,17 @@ def test_infer_mode(label_hw, capsys):
     assert "value_infer_fp32" not in extra
 
 
-UNPORTED = [["--quantize", "int8"], ["--xla_options", "auto"], ["--comparator", "15"]]
+UNPORTED = [["--xla_options", "auto"], ["--comparator", "15"]]
+
+
+def test_infer_mode_int8(capsys):
+    """``--mode infer --quantize int8``: the int8 model, calibrated on the
+    bench batch as the JAX bench does; the JAX bench's metric name and
+    ``extra.quantize``."""
+    result = bench.main(["--mode", "infer", *TINY, "--quantize", "int8"])
+    extra = _check_common(result, capsys)
+    assert result["metric"] == "infer_images_per_sec_per_chip_65x33_float32"
+    assert extra["quantize"] == "int8"
 
 
 @pytest.mark.parametrize("flags", UNPORTED, ids=[f[0] for f in UNPORTED])

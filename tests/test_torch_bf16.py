@@ -11,9 +11,14 @@ Tolerances (PERF.md section 2 states each with its reason):
 - the bf16 block backward against the Pallas kernel's ``_bwd`` on the same
   saved tensors: dx and each dW within 1e-2 relative L2; dW comes back fp32;
 - logits, port against JAX in bf16 from the same weights (the train heads
-  against the JAX train path, the port's eval forward against the JAX eval
-  path's ``aspp_matmul`` form): max abs difference <= 3e-2 of the largest
-  |logit|, argmax agreement >= 98 %, both fp32;
+  against the JAX train path, the port's eval forward, whose heads run the
+  eval form ``aspp_matmul`` as the JAX eval path's do, against that path):
+  max abs difference <= 1.35e-2 of the largest |logit| (twice the 6.7e-3
+  read; the trunk's bf16 roundings: the heads alone are within one bf16
+  ulp, ``tests/test_torch_quantize.py``), argmax agreement >= 98.7 % (the
+  99.35 % read, its disagreement doubled), both fp32; the evaluator,
+  predict, the export's serving function and calibration, handed a model
+  built for training: every forward bitwise the eval form's;
 - one UDA step in bf16, port against JAX: every metric within 1e-2
   relative; the metrics counted over the thresholded pseudo-label set
   (the guidance's valid share, the CE on its labels) and the IW weights'
@@ -227,9 +232,9 @@ def jax_weights():
     return params, frozen
 
 
-def _port_model(params, frozen, **cfg_kw):
+def _port_model(params, frozen, eval_mode=False, **cfg_kw):
     cfg = TrainConfig(blocks=BLOCKS, **cfg_kw)
-    model = tmodel.DeepLabV2(tsteps.model_config(cfg))
+    model = tmodel.DeepLabV2(tsteps.model_config(cfg, eval_mode=eval_mode))
     model.load_state_dict(state_dict_from_jax(params, frozen))
     return model.to(memory_format=torch.channels_last)
 
@@ -238,15 +243,16 @@ def _port_model(params, frozen, **cfg_kw):
 def test_bf16_logits_match_jax(jax_weights, heads):
     """The port's bf16 forward against ``apply_deeplabv2`` in bf16: the
     training forward (grad on) against the JAX train path, the eval forward
-    against the JAX eval path (``aspp_matmul``: the ASPP taps summed in
-    fp32, which the port does not mirror)."""
+    of a model built with ``model_config(cfg, eval_mode=True)`` against the
+    JAX eval path (``aspp_matmul``: the 36 taps summed in fp32 in both)."""
     params, frozen = jax_weights
     x = np.random.default_rng(12).normal(0, 50, size=(2, 64, 128, 3)).astype(np.float32)
     jcfg = jmodel.DeepLabV2Config(num_classes=19, blocks=BLOCKS, compute_dtype=jnp.bfloat16,
                                   aspp_matmul=heads == "eval")
     want = jmodel.apply_deeplabv2(jax.tree.map(jnp.asarray, params),
                                   jax.tree.map(jnp.asarray, frozen), jnp.asarray(x), jcfg)
-    model = _port_model(params, frozen, compute_dtype="bfloat16")
+    model = _port_model(params, frozen, compute_dtype="bfloat16", eval_mode=heads == "eval")
+    assert model.cfg.aspp_matmul == (heads == "eval")
     ctx = torch.enable_grad() if heads == "train" else torch.inference_mode()
     with ctx:
         got = model(torch.from_numpy(x))
@@ -254,8 +260,52 @@ def test_bf16_logits_match_jax(jax_weights, heads):
         assert g.dtype == torch.float32 and wj.dtype == jnp.float32
         g, wn = g.detach().numpy(), np.asarray(wj)
         scale = float(np.abs(wn).max())
-        assert float(np.abs(g - wn).max()) <= 3e-2 * scale
-        assert float((g.argmax(-1) == wn.argmax(-1)).mean()) >= 0.98
+        assert float(np.abs(g - wn).max()) <= 1.35e-2 * scale
+        assert float((g.argmax(-1) == wn.argmax(-1)).mean()) >= 0.987
+
+
+@pytest.mark.parametrize("entry", ["evaluate", "predict", "export", "calibrate"])
+def test_eval_entries_run_the_eval_heads(jax_weights, entry, monkeypatch):
+    """The evaluator, predict, the export's serving function and calibration,
+    each handed a model built for training (``model_config(cfg)``), run the
+    heads' eval form in bf16: every forward they make gives bitwise the main
+    logits of ``eval_form(model)`` on its input, which differ from the
+    training form's."""
+    from maxsquareloss_torch.models import quantize as tq
+    from maxsquareloss_torch.predict import make_predict_fn
+    from maxsquareloss_torch.tools import export_inference
+    from maxsquareloss_torch.train.evaluator import make_multiscale_eval_step
+
+    model = _port_model(*jax_weights, compute_dtype="bfloat16")
+    assert not model.cfg.aspp_matmul
+    cfg = TrainConfig(blocks=BLOCKS, compute_dtype="bfloat16")
+    seen = []
+    forward = tmodel.DeepLabV2.forward
+
+    def recording(self, x, aux=True, masks=None):
+        out = forward(self, x, aux, masks)
+        seen.append((x, out[1]))
+        return out
+
+    monkeypatch.setattr(tmodel.DeepLabV2, "forward", recording)
+    xs = np.random.default_rng(13).integers(0, 256, size=(2, *HW, 3)).astype(np.uint8)
+    x = torch.from_numpy(xs)
+    with torch.no_grad():
+        if entry == "evaluate":
+            make_multiscale_eval_step(cfg, model, flip=True)(x, torch.zeros((2, *HW),
+                                                                            dtype=torch.int64))
+        elif entry == "predict":
+            make_predict_fn(cfg, model, (1.0,), False, HW)(x)
+        elif entry == "export":
+            export_inference.make_serving_fn(cfg, model, (1.0,), False, HW)(x)
+        else:
+            tq.calibrate(model, cfg, [xs])
+    monkeypatch.undo()
+    assert seen
+    with torch.inference_mode():
+        for xin, main in seen:
+            assert torch.equal(main, tmodel.eval_form(model)(xin, aux=False)[1])
+            assert not torch.equal(main, model(xin, aux=False)[1])
 
 
 def test_bf16_eval_weights_follow_the_convs(jax_weights):

@@ -55,11 +55,20 @@ def test_kernel_wrapper_swallows_no_error():
 
 
 def test_cuda_tensor_never_takes_the_plain_path():
-    """The wrapper's CPU branch is keyed on the tensor's device alone."""
+    """The eval wrapper's CPU branch is keyed on the tensor's device alone:
+    it calls the custom op, whose dispatch on the device picks the CPU
+    implementation (the plain version, and only there) or the CUDA one
+    (the kernel launch, never the plain version)."""
     src = (ROOT / "maxsquareloss_torch/kernels/fused_block.py").read_text()
-    body = src.split("def fused_bottleneck(", 1)[1]
-    assert body.count("fused_bottleneck_reference(") == 1
-    assert 'if x.device.type == "cpu":\n        return fused_bottleneck_reference(' in body
+    wrapper = _function_source("kernels/fused_block.py", "fused_bottleneck")
+    assert "torch.ops.msl.fused_bottleneck(" in wrapper and "_reference(" not in wrapper
+    cpu = _function_source("kernels/fused_block.py", "_fused_bottleneck_cpu")
+    cuda = _function_source("kernels/fused_block.py", "_fused_bottleneck_cuda")
+    assert cpu.count("fused_bottleneck_reference(") == 1
+    assert "_reference(" not in cuda and "_launch(" in cuda
+    assert src.count("fused_bottleneck_reference(") == 2  # its def and the CPU implementation
+    assert '@_fused_bottleneck_op.register_kernel("cpu")\ndef _fused_bottleneck_cpu(' in src
+    assert '@_fused_bottleneck_op.register_kernel("cuda")\ndef _fused_bottleneck_cuda(' in src
 
 
 @pytest.mark.parametrize("module", ["kernels/fused_loss.py", "kernels/build.py",

@@ -8,8 +8,13 @@ val split, and every key of the printed metric dict must agree within 1e-6
 absolute. The port's ``tools.predict`` and the JAX ``tools/predict.main``
 write trainId PNGs that must agree on at least 99.9 % of the pixels (the
 count that differs is reported; it is expected to be 0), and each colour PNG
-is bitwise ``decode_labels`` of its trainIds. Unported flags raise, and
-without a card and without ``--device cpu`` the CLIs raise.
+is bitwise ``decode_labels`` of its trainIds. With ``--quantize int8``
+both packages calibrate and quantize (the ranges over the first
+``--calib_batches`` batches, amax or a percentile): the metrics agree
+within 1e-4 and the trainIds on at least 99.9 % of the pixels (an
+activation one float32 ulp off a rounding boundary of the int8 grid moves
+one input by one step). ``--sp 2`` raises, and without a card and without
+``--device cpu`` the CLIs raise.
 """
 
 from __future__ import annotations
@@ -130,10 +135,48 @@ def test_predict_writes_the_jax_trainids(served, tmp_path, native):
     assert differ <= 1e-3 * total, f"{differ} of {total} trainIds differ from the JAX CLI's"
 
 
-@pytest.mark.parametrize("flags", [["--quantize", "int8"], ["--sp", "2"]], ids=["int8", "sp2"])
+INT8 = ["--quantize", "int8", "--calib_batches", "2"]
+
+
+@pytest.mark.parametrize("calib_mode", ["amax", "p99.9"])
+def test_evaluate_int8_prints_the_jax_metrics(served, tmp_path, capsys, calib_mode):
+    """``--quantize int8``: both CLIs calibrate on the first 2 val batches and
+    evaluate the int8 model; the metrics within 1e-4."""
+    from tools import evaluate as jevaluate
+
+    extra = [*INT8, "--calib_mode", calib_mode]
+    evaluate.main(_argv(served, str(tmp_path / "port"), [*extra, *PORT]))
+    port_printed = _printed_dict(capsys.readouterr().out)
+    jevaluate.main(_argv(served, str(tmp_path / "jax"), [*extra, *JAX]))
+    jax_printed = _printed_dict(capsys.readouterr().out)
+    assert set(port_printed) == set(jax_printed) == {"PA", "MPA", "MIoU", "FWIoU"}
+    for k, v in jax_printed.items():
+        assert abs(port_printed[k] - v) <= 1e-4, (k, port_printed[k], v)
+
+
+def test_predict_int8_writes_the_jax_trainids(served, tmp_path):
+    from tools import predict as jpredict
+
+    dirs = {side: str(tmp_path / side) for side in ("port", "jax")}
+    predict.main(_argv(served, str(tmp_path / "run_port"),
+                       ["--output_dir", dirs["port"], *INT8, *PORT]))
+    jpredict.main(_argv(served, str(tmp_path / "run_jax"),
+                        ["--output_dir", dirs["jax"], *INT8, *JAX]))
+    names = sorted(f for f in os.listdir(dirs["jax"]) if f.endswith("_trainids.png"))
+    assert len(names) == 5
+    differ = total = 0
+    for name in names:
+        port = np.asarray(Image.open(os.path.join(dirs["port"], name)))
+        jax_ids = np.asarray(Image.open(os.path.join(dirs["jax"], name)))
+        differ += int((port != jax_ids).sum())
+        total += port.size
+    assert differ <= 1e-3 * total, f"{differ} of {total} trainIds differ from the JAX CLI's"
+
+
 @pytest.mark.parametrize("cli", ["evaluate", "predict"])
-def test_unported_flags_raise(served, tmp_path, cli, flags):
-    extra = [*flags, *PORT] + (["--output_dir", str(tmp_path / "out")] if cli == "predict" else [])
+def test_sp_raises(served, tmp_path, cli):
+    extra = ["--sp", "2", *PORT] + (["--output_dir", str(tmp_path / "out")] if cli == "predict"
+                                    else [])
     with pytest.raises(NotImplementedError, match="not ported"):
         {"evaluate": evaluate, "predict": predict}[cli].main(
             _argv(served, str(tmp_path / "run"), extra))

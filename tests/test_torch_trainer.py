@@ -241,7 +241,7 @@ def test_synthia_protocol_reports_16_and_13(tmp_path):
 
 
 UNPORTED = [
-    ("--quantize", "int8"), ("--loader", "grain"), ("--sp", "2"),
+    ("--loader", "grain"), ("--sp", "2"),
     ("--freeze_bn", "false"), ("--xla_options", "a=b"),
 ]
 
@@ -258,8 +258,14 @@ def test_unported_flags_raise(tmp_path, flag, value):
 
 
 def test_unported_field_raises_in_the_trainer(tmp_path):
-    cfg = dataclasses.replace(_cfg(tmp_path), quantize="int8")
+    """An option the trainers do not take raises in the trainer itself:
+    ``--sp 2`` (not ported) and ``--quantize int8`` (evaluation and serving
+    only; the JAX trainers never read it)."""
+    cfg = dataclasses.replace(_cfg(tmp_path), sp=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Trainer(cfg, _loader(), None)
+    cfg = dataclasses.replace(_cfg(tmp_path), quantize="int8")
+    with pytest.raises(ValueError, match="evaluation and serving"):
         Trainer(cfg, _loader(), None)
 
 
