@@ -7,13 +7,24 @@ Phases, one JSON object per line on stdout:
   1. environment: the card (as nvidia-smi reports name and power limit),
      torch and CUDA versions; TF32 is switched off for cuDNN and matmul so
      every plain fp32 reference runs in full fp32; the host's CPU count,
-     whether g++ is there and preprocesses png.h and zlib.h, and whether
-     the grain package imports (in a child process);
+     the Pillow version, whether g++ is there and preprocesses png.h and
+     zlib.h, whether Python.h is there, and whether the grain package
+     imports (in a child process);
   2. build: compiles every kernel source of the port from
      ``maxsquareloss_torch/csrc``, one ``nvcc`` per library, all at once
      (the fused bottleneck twice: fp32, and bf16 with ``-DMSL_BF16``), with
      each bottleneck kernel instance's registers a thread and stack bytes
      (spills) as ``cuobjdump --dump-resource-usage`` reads them;
+  2b. hostops: the host extension (``maxsquareloss_torch/csrc/hostops.cpp``,
+     PNG decode over zlib, no libpng) built by g++ (its seconds); every PNG
+     kind x ``expand_rgb`` decoded bitwise as the card's PIL reads it, 200
+     blur draws byte-exact against the card's Pillow, the fused train/val
+     routes and the raw route bitwise against the general path with the
+     extension off on a small synthetic root, and ms a sample, one thread,
+     at 1914x1052 → base 1280x720 from native-size PNGs, prepared PNGs and
+     prepared raw sidecars, each with the extension and with PIL
+     (``experiments/host_data.py``); the run fails where the extension
+     cannot be built, so the loader never reads through PIL unnoticed;
   3. kernels: the eval bottleneck against its plain PyTorch version at every shape
      the main path gives it (rtol = atol = 1e-4: fp32 sums over up to 4608
      terms in another order); the eval shapes are also timed with CUDA
@@ -152,8 +163,11 @@ Phases, one JSON object per line on stdout:
      (5 timed steps after 2), infer at 1024x512 with 1024x512 and 1024x2048
      labels and with --quantize int8 (no fused launch after the
      calibration's 29 emit launches; the uda line carries value_infer_int8
-     too), and e2e at the protocol's disk sizes over 16 images a domain
-     for one epoch a leg; each prints its JSON line;
+     too), and e2e at the protocol's disk sizes over 8 images a domain
+     (one step an epoch) for one epoch a leg, the host extension serving
+     every decode of the cold and prepared legs (``hostops: true``, from
+     its call counts), no decode on the raw leg and the blur on every leg;
+     each prints its JSON line;
  16. efficacy: the adaptation-efficacy gate at ``tests/test_adaptation.py``'s
      protocol (seed 0, --blocks 1,1,2,1, 128x64, batch 8, 300 source and
      200 UDA iterations, lambda 64): IW_maxsquare must beat the
@@ -202,6 +216,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import sysconfig
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -444,10 +459,11 @@ def phase_environment() -> dict:
 
 
 def _host_facts() -> dict:
-    """What the host data path would build on (ROADMAP Queue 1 item 1): the
-    CPU count, whether g++ is there and preprocesses libpng's and zlib's
-    headers, whether the ``grain`` package imports (in a child process: it
-    may pull in JAX, which this script never imports)."""
+    """What the host data path builds on: the CPU count, the Pillow version
+    (the extension's blur is held to it), whether g++ is there and
+    preprocesses libpng's, zlib's and Python's headers (the extension needs
+    the last two), whether the ``grain`` package imports (in a child
+    process: it may pull in JAX, which this script never imports)."""
     gpp = shutil.which("g++")
 
     def header(name):
@@ -457,9 +473,13 @@ def _host_facts() -> dict:
                               input=f"#include <{name}>\n", capture_output=True,
                               text=True).returncode == 0
 
+    from PIL import __version__ as pillow
+
     grain = subprocess.run([sys.executable, "-c", "import grain"], capture_output=True,
                            text=True, timeout=120)
-    return {"cpu_count": os.cpu_count(), "gpp": gpp, "png_h": header("png.h"),
+    return {"cpu_count": os.cpu_count(), "pillow": pillow, "gpp": gpp,
+            "png_h": header("png.h"),
+            "python_h": os.path.exists(os.path.join(sysconfig.get_paths()["include"], "Python.h")),
             "zlib_h": header("zlib.h"), "grain_imports": grain.returncode == 0,
             "grain_error": grain.stderr.strip().splitlines()[-1:] if grain.returncode else []}
 
@@ -490,6 +510,25 @@ def phase_build() -> None:
           "seconds": time.perf_counter() - t0,
           "resource_usage": {name: _resource_usage(lib) for name, (lib, _) in zip(builds, built)
                              if name.startswith("fused_bottleneck")}})
+
+
+def phase_hostops() -> None:
+    """The host extension on this machine (``experiments/host_data.py``):
+    build, decode matrix and blur draws against this machine's PIL, the
+    fused routes against the general path, per-sample host ms. Fails where
+    the extension cannot be built here or any check disagrees."""
+    from maxsquareloss_torch.data import hostops
+    from maxsquareloss_torch.experiments import host_data
+
+    check(hostops.available(), "the host extension cannot be built here (no g++ or no zlib.h): "
+                               "the loader would decode through PIL")
+    work = tempfile.mkdtemp(prefix="chip_smoke_hostops_")
+    try:
+        ok = host_data.run(work, lambda obj: emit({"phase": "hostops", **obj}))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    check(ok, "hostops: the extension disagrees with PIL or a fused route with the general "
+              "path (see the hostops lines)")
 
 
 def _resource_usage(lib) -> dict | None:
@@ -2532,16 +2571,16 @@ def phase_bench() -> None:
     warmup, steps = 2, 5
     calls = warmup + 2 * steps  # warm-up, then two timed passes
     short = ["--steps", str(steps), "--warmup", str(warmup)]
-    # e2e: 16 images a domain at batch 8 are 2 steps an epoch; 4 legs of a
+    # e2e: 8 images a domain at batch 8 are 1 step an epoch; 4 legs of a
     # priming and a timed epoch, then 2 + 6 device-only steps
-    e2e_steps = 4 * 2 * 2 + 8
+    e2e_steps = 4 * 2 * 1 + 8
     losses = {"fused_iw_max_square_loss": 1, "fused_iw_max_square_loss_backward": 1}
 
     def bf16(kernel, n):  # n bf16 launches of a bottleneck kernel
         return {kernel: n, f"{kernel}_bf16": n}
 
     fp32 = ["--dtype", "float32", *short]
-    e2e = ["--n_per_domain", "16", "--epochs", "1", "--data_root", os.path.join(root, "data")]
+    e2e = ["--n_per_domain", "8", "--epochs", "1", "--data_root", os.path.join(root, "data")]
 
     runs = (
         ("uda", ["--mode", "uda", *short],
@@ -2585,13 +2624,24 @@ def phase_bench() -> None:
             check(math.isfinite(result["extra"]["final_loss"]),
                   f"bench {name}: final_loss {result['extra']['final_loss']}")
             extra = result["extra"]
+            if name.startswith("e2e"):
+                calls = extra["hostops_calls"]
+                check(extra["hostops"], f"bench {name}: the host extension did not serve every "
+                                        f"decode of the cold and prepared legs: {calls}")
+                check(calls["prepared_raw"]["decode"] == 0 and
+                      all(c["blur"] > 0 for c in calls.values()),
+                      f"bench {name}: a raw sidecar went through a PNG decode, or a leg "
+                      f"blurred through PIL: {calls}")
             emit({"phase": "bench", "run": name, "argv": argv, "seconds": line["seconds"],
                   "metric": result["metric"], "value": result["value"],
                   "extra": {k: extra[k] for k in (
                       "value_bf16", "value_fp32", "value_fp32_parity", "fp32_global_batch",
                       "fp32_step_ms", "value_infer_bf16", "value_infer_int8",
                       "infer_int8_step_ms", "infer_step_ms", "quantize", "step_ms",
-                      "peak_memory_bytes", "fp32_peak_memory_bytes") if k in extra},
+                      "peak_memory_bytes", "fp32_peak_memory_bytes", "e2e_cold_imgs_per_sec",
+                      "e2e_warm_imgs_per_sec", "e2e_prepared_imgs_per_sec",
+                      "e2e_prepared_raw_imgs_per_sec", "device_only_imgs_per_sec",
+                      "hostops", "hostops_calls") if k in extra},
                   "launch_counts": line["launch_counts"]})
             torch.cuda.empty_cache()
     finally:
@@ -3085,6 +3135,8 @@ def main() -> int:
     phase_environment()
     phase_build()
     lap("build")
+    phase_hostops()
+    lap("hostops")
     checked, kernel = phase_kernels()
     kernel["launches"] = phase_slice(checked)["launches"]
     lap("kernels_slice")

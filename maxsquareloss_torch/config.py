@@ -71,7 +71,7 @@ class TrainConfig:
     target_base_size: tuple[int, int] = (1024, 512)
     target_crop_size: tuple[int, int] = (1024, 512)
     num_workers: int = 8
-    loader: str = "threads"            # 'threads' ('grain' is not ported)
+    loader: str = "threads"            # 'threads' | 'grain' (needs the grain package)
     # ship uint8 images / int8 labels and normalize on the device
     device_normalize: bool = False
     cache_dir: str | None = None       # decoded-sample cache (base-size npz)
@@ -130,8 +130,6 @@ class TrainConfig:
 
 # (field, value that is fine, why not) for every option the port lacks
 _UNPORTED = (
-    ("loader", "threads", "--loader grain waits on the grain pipeline (ROADMAP Queue 1 "
-     "item 1, hostops and grain)"),
     ("sp", 1, "--sp > 1 waits on spatial partitioning (ROADMAP Queue 1 item 2, spatial "
      "partitioning); data parallelism over processes is ported"),
     ("freeze_bn", True, "--freeze_bn false: BN is always frozen (folded into buffers), "

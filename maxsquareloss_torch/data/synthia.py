@@ -3,10 +3,11 @@
 
 Labels are 16-bit multi-channel PNGs with the class id in the file's first
 (R) channel; SYNTHIA ids remap to the 16 trainIds it shares with Cityscapes
-(no terrain, truck or train). PIL cannot read 16-bit colour PNGs, so the
-label decode takes OpenCV, or imageio where OpenCV is missing, as the JAX
-package does without its native extension; raw ``.npy`` sidecars need
-neither.
+(no terrain, truck or train). PIL cannot read 16-bit colour PNGs: the
+label decode takes the host extension (``data/hostops.py``: the stored
+samples, channel 0 = R) where it builds, else OpenCV, or imageio where
+OpenCV is missing, as the JAX package does; raw ``.npy`` sidecars need none
+of them.
 """
 
 from __future__ import annotations
@@ -15,7 +16,14 @@ import os
 
 import numpy as np
 
-from maxsquareloss_torch.data.cityscapes import SegDataset, _label_image
+from maxsquareloss_torch.data import hostops
+from maxsquareloss_torch.data.cityscapes import (
+    PngHeader,
+    SegDataset,
+    _first_channel,
+    _label_image,
+    _native_bytes,
+)
 
 # SYNTHIA id → Cityscapes trainId (16 shared classes)
 SYNTHIA_ID_TO_TRAINID = {
@@ -65,6 +73,16 @@ class SynthiaDataset(SegDataset):
             os.path.join(self.root, "GT", "LABELS", name),
         )
 
+    def _native_label(self, hdr: PngHeader) -> bool:
+        """Files whose stored samples OpenCV reads unchanged: 8- and 16-bit,
+        no palette (OpenCV expands one to colours), not interlaced."""
+        return not hdr.interlaced and hdr.depth >= 8 and hdr.color != 3
+
     def _decode_mask(self, path: str):
         """→ PIL 'I' image of raw SYNTHIA class ids (exact through NEAREST)."""
-        return _label_image(read_label_ids(path).astype(np.int32))
+        data = _native_bytes(path, self._native_label)
+        if data is None:
+            ids = read_label_ids(path)
+        else:
+            ids = _first_channel(hostops.decode_png(data, False))
+        return _label_image(ids.astype(np.int32))

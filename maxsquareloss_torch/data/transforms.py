@@ -7,7 +7,9 @@ crop_size, optional Gaussian blur; caffe (BGR − IMG_MEAN) or torchvision
 -1. All randomness flows through an explicit ``np.random.Generator`` in the
 JAX package's order of draws, so the same ``(seed, epoch, index)`` gives
 the same sample bit for bit. PIL is imported inside the functions that
-resize or blur, so a trainer over in-memory data runs without it.
+resize or blur, so a trainer over in-memory data runs without it. The blur
+runs through the host extension's byte-exact copy of Pillow's where the
+extension builds (``data/hostops.py``), through PIL otherwise.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import dataclasses
 
 import numpy as np
 
+from maxsquareloss_torch.data import hostops
 from maxsquareloss_torch.data.palette import IMAGENET_MEAN, IMAGENET_STD, IMG_MEAN
 
 IGNORE_LABEL = -1
@@ -77,7 +80,7 @@ def _resize_pair(img, mask, size_wh: tuple[int, int]):
 
 def train_sync_transform(img, mask, cfg: TransformConfig, rng: np.random.Generator):
     """Paired train-time augmentation of PIL images (before normalization)."""
-    from PIL import Image, ImageFilter
+    from PIL import Image
 
     if cfg.random_mirror and rng.random() < 0.5:
         img = img.transpose(Image.FLIP_LEFT_RIGHT)
@@ -94,8 +97,19 @@ def train_sync_transform(img, mask, cfg: TransformConfig, rng: np.random.Generat
         box = (x0, y0, x0 + cfg.crop_size[0], y0 + cfg.crop_size[1])
         img, mask = img.crop(box), mask.crop(box)
     if cfg.gaussian_blur and rng.random() < cfg.blur_prob:
-        img = img.filter(ImageFilter.GaussianBlur(radius=float(rng.random())))
+        img = Image.fromarray(gaussian_blur(np.asarray(img), float(rng.random())))
     return img, mask
+
+
+def gaussian_blur(arr: np.ndarray, radius: float) -> np.ndarray:
+    """uint8 (H, W, 3) → Pillow's ``GaussianBlur(radius)`` of it: the host
+    extension's blur where it builds, PIL's otherwise; the same bytes."""
+    if hostops.available():
+        return hostops.gaussian_blur(arr, radius)
+    from PIL import Image, ImageFilter
+
+    img = Image.fromarray(np.ascontiguousarray(arr))
+    return np.asarray(img.filter(ImageFilter.GaussianBlur(radius=radius)))
 
 
 def val_sync_transform(img, mask, cfg: TransformConfig, full_res_labels: bool = False):

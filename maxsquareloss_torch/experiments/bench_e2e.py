@@ -18,11 +18,15 @@ Rates (images/s, source and target images counted):
 
 Each leg runs one priming epoch, then ``--epochs`` timed ones (median
 reported); an epoch is fenced by ``torch.cuda.synchronize()`` and a host
-read of the last loss. ``h2d_MB_per_sec`` times pinned host → card copies
-(``null`` on the CPU). Under ``torchrun`` each process loads its shard of
-every global batch and the steps run under DDP; rank 0 writes the dataset
-and the prepared roots while the others wait, and the rates are rank 0's
-images a second, a rate per chip.
+read of the last loss. ``hostops_calls`` gives each leg's decodes and
+blurs through the host extension (``data/hostops.py``) beside the images it
+loaded, its priming epoch included. ``hostops`` says whether the extension
+served every decode of the cold and prepared legs (two PNGs a loaded
+image); without it the loader reads through PIL. ``h2d_MB_per_sec`` times
+pinned host → card copies (``null`` on the CPU). Under ``torchrun`` each
+process loads its shard of every global batch and the steps run under DDP;
+rank 0 writes the dataset and the prepared roots while the others wait,
+and the rates are rank 0's images a second, a rate per chip.
 
     python -m maxsquareloss_torch.bench --mode e2e [--data_root DIR --num_workers N]
 """
@@ -43,6 +47,8 @@ _MAPPED_IDS = (7, 8, 11, 12, 13, 17, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 31,
 SRC_DISK_WH = (1914, 1052)  # GTA5 native render size
 TGT_DISK_WH = (2048, 1024)  # Cityscapes native size
 N_PER_DOMAIN = 96
+# each leg's priming epoch: apart, so no two legs draw the same shuffle
+LEG_FIRST_EPOCH = {"cold": 0, "warm": 100, "prepared": 200, "prepared_raw": 300}
 
 
 def _synth_pair(rng: np.random.Generator, w: int, h: int):
@@ -191,6 +197,7 @@ def run_e2e(args) -> dict:
     ``blocks``, ``n_per_domain``, ``src_disk_wh``, ``tgt_disk_wh`` and the
     four base/crop sizes shrink the run (the CPU test)."""
     from maxsquareloss_torch.bench import device_report
+    from maxsquareloss_torch.data import hostops
     from maxsquareloss_torch.config import TrainConfig
     from maxsquareloss_torch.models.deeplabv2 import init_deeplabv2
     from maxsquareloss_torch.tools.prepare_dataset import prepare_split
@@ -230,23 +237,30 @@ def run_e2e(args) -> dict:
     epochs = max(1, int(getattr(args, "epochs", 3)))
     last = None  # the final batch triple: feeds the h2d and device-only legs
 
-    def timed_leg(data_root, cache_root, first_epoch):
+    host_calls = {}  # leg -> its calls through the host extension and images loaded
+
+    def timed_leg(leg, data_root, cache_root):
         """A priming epoch, then ``epochs`` timed ones: (rates, images an
         epoch, last loss)."""
         nonlocal last
+        before = hostops.calls()
         s_l, t_l = _make_loaders(data_root, cfg, cache_root, args.num_workers)
-        _timed_epoch(step, state, s_l, t_l, first_epoch, device)
-        rates, n_imgs, leg_loss = [], 0, float("nan")
+        first_epoch = LEG_FIRST_EPOCH[leg]
+        _, n_imgs, _, _ = _timed_epoch(step, state, s_l, t_l, first_epoch, device)
+        loaded, rates, leg_loss = n_imgs, [], float("nan")
         for e in range(first_epoch + 1, first_epoch + 1 + epochs):
             r, n_imgs, leg_loss, last = _timed_epoch(step, state, s_l, t_l, e, device)
             rates.append(r)
+            loaded += n_imgs
+        host_calls[leg] = {k: v - before[k] for k, v in hostops.calls().items()}
+        host_calls[leg]["images"] = loaded
         return rates, n_imgs, leg_loss
 
     # final_loss is the cold leg's; later legs keep training the same state
-    cold_rates, n_imgs, loss = timed_leg(root, None, 0)
-    warm_rates, _, _ = timed_leg(root, os.path.join(root, "_cache"), 100)
+    cold_rates, n_imgs, loss = timed_leg("cold", root, None)
+    warm_rates, _, _ = timed_leg("warm", root, os.path.join(root, "_cache"))
     prepared = {}
-    for leg, fmt, first_epoch in (("prepared", "png", 200), ("prepared_raw", "raw", 300)):
+    for leg, fmt in (("prepared", "png"), ("prepared_raw", "raw")):
         prep_root = root.rstrip("/") + "_" + leg
         if ddp.is_main():
             prepare_split("gta5", f"{root}/GTA5", f"{root}/GTA5/train.txt", f"{prep_root}/GTA5",
@@ -255,7 +269,7 @@ def run_e2e(args) -> dict:
                           f"{prep_root}/Cityscapes", tuple(cfg.target_base_size), "train",
                           num_workers=args.num_workers, fmt=fmt)
         ddp.barrier()
-        prepared[leg] = timed_leg(prep_root, None, first_epoch)[0]
+        prepared[leg] = timed_leg(leg, prep_root, None)[0]
 
     xs, ys, xt = last
     host = [a.cpu().numpy() for a in last]
@@ -289,6 +303,9 @@ def run_e2e(args) -> dict:
             "h2d_MB_per_sec": h2d_mbps,
             "h2d_MB_per_step": sum(a.nbytes for a in host) / 1e6,
             "device_normalize": bool(cfg.device_normalize),
+            "hostops": all(host_calls[leg]["decode"] == 2 * host_calls[leg]["images"]
+                           for leg in ("cold", "prepared")),
+            "hostops_calls": host_calls,
             "epoch_images": n_imgs,
             "num_workers": args.num_workers,
             "global_batch": args.batch,

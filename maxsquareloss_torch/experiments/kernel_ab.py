@@ -18,7 +18,9 @@ a turn may take TURN_SECONDS.
 It lives beside the port's other timing experiments, yet imports nothing of
 ``chip_smoke.py``: each turn is a child process in its own checkout, so the
 parent's turns run the parent's phases on the parent's kernels, which one
-process could not import beside the change's.
+process could not import beside the change's. ``run_turns`` is that loop
+for any turn; ``experiments/e2e_ab.py`` drives the bench's ``e2e`` legs
+through it.
 
 Prints one JSON line a turn, then one line with each checkout's mean over its
 turns: ms per forward (eval) or per train step (emit) of the four instances,
@@ -40,6 +42,9 @@ CHANGE = Path(__file__).resolve().parents[2]
 KINDS = ("fp32_eval", "fp32_emit", "bf16_eval", "bf16_emit")
 ORDER = ("parent", "change", "change", "parent")
 TURN_SECONDS = 900.0
+# leads the line of a turn's result; a turn's code holds it as a literal,
+# since it runs in the other checkout too
+MARK = "AB_RESULT "
 TURN = """
 import json, chip_smoke as c
 c.phase_environment()
@@ -48,7 +53,7 @@ _, fp32_eval = c.phase_kernels()
 _, fp32_emit = c.phase_train_block()
 _, (bf16_eval, bf16_emit) = c.phase_bf16_kernels()
 entries = dict(zip({kinds!r}, (fp32_eval, fp32_emit, bf16_eval, bf16_emit)))
-print("KERNEL_AB " + json.dumps({{k: {{"ms": e["ms"], "rows": [
+print({mark!r} + json.dumps({{k: {{"ms": e["ms"], "rows": [
     [r["layer"], r["shape"], r["ms"], r.get("tile", {{}}).get("route", "fma")]
     for r in e["shapes"]]}} for k, e in entries.items()}}))
 """
@@ -61,19 +66,29 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def run_turn(root: Path, log: Path) -> dict:
-    """One turn in ``root``: its kernel phases' times (KERNEL_AB line)."""
+def run_turn(root: Path, code: str, log: Path, timeout: float) -> dict:
+    """``python -c code`` in ``root``, that checkout first on the path: the
+    JSON of its last MARK line. Its whole output goes to ``log``."""
     env = {**os.environ, "PYTHONPATH": str(root)}
     with open(log, "w") as f:
-        proc = subprocess.run([sys.executable, "-c", TURN.format(kinds=KINDS)], cwd=root,
-                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True, timeout=TURN_SECONDS)
+        proc = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              timeout=timeout)
         f.write(proc.stdout)
-    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("KERNEL_AB ")]
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(MARK)]
     if proc.returncode != 0 or not lines:
         tail = "\n".join(proc.stdout.splitlines()[-20:])
         raise RuntimeError(f"turn in {root} failed ({proc.returncode}); see {log}:\n{tail}")
-    return json.loads(lines[-1][len("KERNEL_AB "):])
+    return json.loads(lines[-1][len(MARK):])
+
+
+def run_turns(roots: dict, order, code: str, log_dir: Path, stem: str, timeout: float):
+    """The turns of ``order`` (names of ``roots``), each ``run_turn`` of
+    ``code`` in its checkout: yields (turn, name, result, seconds)."""
+    for i, name in enumerate(order):
+        t0 = time.perf_counter()
+        got = run_turn(roots[name], code, log_dir / f"{stem}_{i}.log", timeout)
+        yield i, name, got, time.perf_counter() - t0
 
 
 def main(argv=None) -> int:
@@ -82,11 +97,11 @@ def main(argv=None) -> int:
     log_dir = Path(args.log_dir)
     log_dir.mkdir(parents=True, exist_ok=True)
     turns = {name: [] for name in roots}
-    for i, name in enumerate(ORDER):
-        t0 = time.perf_counter()
-        got = run_turn(roots[name], log_dir / f"kernel_ab_{i}.log")
+    code = TURN.format(kinds=KINDS, mark=MARK)
+    for i, name, got, seconds in run_turns(roots, ORDER, code, log_dir, "kernel_ab",
+                                           TURN_SECONDS):
         turns[name].append(got)
-        print(json.dumps({"turn": i, "checkout": name, "seconds": time.perf_counter() - t0,
+        print(json.dumps({"turn": i, "checkout": name, "seconds": seconds,
                           **{k: got[k]["ms"] for k in KINDS}}), flush=True)
     summary = {}
     for name, runs in turns.items():

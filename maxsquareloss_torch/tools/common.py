@@ -15,6 +15,7 @@ import torch
 from maxsquareloss_torch.config import TrainConfig, check_supported
 from maxsquareloss_torch.data.cityscapes import CityscapesDataset
 from maxsquareloss_torch.data.crosscity import CrossCityDataset
+from maxsquareloss_torch.data.grain_pipeline import GrainSegLoader
 from maxsquareloss_torch.data.gta5 import GTA5Dataset
 from maxsquareloss_torch.data.loader import SegDataLoader
 from maxsquareloss_torch.data.synthia import SynthiaDataset
@@ -62,7 +63,7 @@ def make_loader(
     split: str,
     target: bool = False,
     **dataset_kw,
-) -> SegDataLoader:
+) -> SegDataLoader | GrainSegLoader:
     if cfg.cache_dir:
         dataset_kw.setdefault("cache_dir", os.path.join(cfg.cache_dir, f"{dataset_name}_{split}"))
     ds = DATASET_CLS[dataset_name](
@@ -72,7 +73,8 @@ def make_loader(
     batch, flag = cfg.batch_size, "--batch_size"
     if split != "train" and cfg.eval_batch_size:
         batch, flag = cfg.eval_batch_size, "--eval_batch_size"
-    return SegDataLoader(
+    loader_cls = GrainSegLoader if cfg.loader == "grain" else SegDataLoader
+    return loader_cls(
         ds,
         batch_size=ddp.local_batch(batch, flag),
         shuffle=split == "train",

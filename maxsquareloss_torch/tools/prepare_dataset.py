@@ -27,28 +27,12 @@ from __future__ import annotations
 
 import argparse
 import os
-import struct
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from maxsquareloss_torch.data.cityscapes import _raw_path
+from maxsquareloss_torch.data.cityscapes import _peek_png, _raw_path
 from maxsquareloss_torch.data.transforms import TransformConfig
-
-_PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
-
-
-def _png_size(path: str) -> tuple[int, int] | None:
-    """(W, H) from the PNG IHDR header: 24 bytes read, no decode."""
-    try:
-        with open(path, "rb") as f:
-            head = f.read(24)
-    except OSError:
-        return None
-    if len(head) == 24 and head[:8] == _PNG_MAGIC and head[12:16] == b"IHDR":
-        w, h = struct.unpack(">II", head[16:24])
-        return (int(w), int(h))
-    return None
 
 
 def _raw_meta(path: str):
@@ -113,7 +97,8 @@ def prepare_split(
             want = (base_size[1], base_size[0]) + (() if is_label else (3,))
             ok = _raw_meta(out_path)[0] == want
         else:
-            ok = _png_size(out_path) == tuple(base_size)
+            hdr = _peek_png(out_path)
+            ok = hdr is not None and hdr.size == tuple(base_size)
         return ok and os.path.getmtime(out_path) >= os.path.getmtime(in_path)
 
     def one(item: str) -> None:

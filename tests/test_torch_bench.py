@@ -24,6 +24,7 @@ from PIL import Image
 sys.path.insert(0, ".")
 
 from maxsquareloss_torch import bench
+from maxsquareloss_torch.data import hostops
 from maxsquareloss_torch.experiments import bench_e2e
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -149,6 +150,16 @@ def test_e2e_legs(tmp_path):
     assert extra["device_only_imgs_per_sec"] > 0 and extra["timed_epochs_each"] == 1
     assert extra["h2d_MB_per_sec"] is None and extra["h2d_MB_per_step"] > 0
     assert extra["device_normalize"] is True and math.isfinite(extra["final_loss"])
+    assert extra["hostops"] is hostops.available()  # the loader decoded through it
+    # two PNG decodes a sample: every sample of the cold and prepared legs
+    # (priming epoch included), the warm leg's priming epoch (then its
+    # cache), none from raw sidecars; some blurs in every leg
+    calls, native = extra["hostops_calls"], hostops.available()
+    assert {leg: c["images"] for leg, c in calls.items()} == dict.fromkeys(
+        ("cold", "warm", "prepared", "prepared_raw"), 2 * 16)
+    assert [calls[leg]["decode"] for leg in ("cold", "warm", "prepared", "prepared_raw")] == (
+        [64, 32, 64, 0] if native else [0, 0, 0, 0])
+    assert all((c["blur"] > 0) is native for c in calls.values())
     assert result["value"] == extra["e2e_warm_imgs_per_sec"]
     json.dumps(result)
 

@@ -351,7 +351,7 @@ def test_debug_nans_leaves_a_finite_step_unchanged(weights):
 
 
 # keywords of the ROADMAP Queue 1 item that each unported option waits on
-UNPORTED_ITEM_WORDS = {"loader": "grain", "sp": "spatial"}
+UNPORTED_ITEM_WORDS = {"sp": "spatial"}
 
 
 def _roadmap_queue1_items() -> dict[int, str]:
@@ -362,7 +362,7 @@ def _roadmap_queue1_items() -> dict[int, str]:
     return {int(items[i]): items[i + 1] for i in range(1, len(items) - 1, 2)}
 
 
-@pytest.mark.parametrize("name,bad", [("loader", "grain"), ("sp", 2)])
+@pytest.mark.parametrize("name,bad", [("sp", 2)])
 def test_still_unported_options_raise_naming_their_roadmap_item(name, bad):
     assert {n for n, _, _ in _UNPORTED} == {*UNPORTED_ITEM_WORDS, "freeze_bn"}
     with pytest.raises(NotImplementedError, match="not ported") as err:

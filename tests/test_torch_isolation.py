@@ -72,9 +72,10 @@ def test_cuda_tensor_never_takes_the_plain_path():
 
 
 @pytest.mark.parametrize("module", ["kernels/fused_loss.py", "kernels/build.py",
-                                    "kernels/matmul_probe.py"])
+                                    "kernels/matmul_probe.py", "data/hostops.py"])
 def test_new_kernel_modules_swallow_no_error(module):
-    """No try/except in the kernel modules or the build helper."""
+    """No try/except in the kernel modules, the build helper or the host
+    extension's build and wrappers."""
     tree = ast.parse((ROOT / "maxsquareloss_torch" / module).read_text())
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
 

@@ -241,7 +241,7 @@ def test_synthia_protocol_reports_16_and_13(tmp_path):
 
 
 UNPORTED = [
-    ("--loader", "grain"), ("--sp", "2"),
+    ("--sp", "2"),
     ("--freeze_bn", "false"), ("--xla_options", "a=b"),
 ]
 
