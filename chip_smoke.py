@@ -175,6 +175,25 @@ Phases, one JSON object per line on stdout:
      Phases 12-16 record every kernel launch's shape; each shape no earlier
      phase checked is then held against the plain version (tolerances of
      phases 3 and 6);
+ 16b. sp: spatial partitioning (``--sp``) of the serving and evaluation
+     forward, two gloo ranks sharing the card as one space group, started
+     once by ``torchrun`` (this script with ``--ddp-worker sp``): in fp32
+     (TF32 off) and in bf16 from the same seeded R101 weights, each rank's
+     rows of the eval forward at 1024x512, batch 2, against the rows of the
+     one-process kernel-path forward (fp32 within 1e-4 of the largest
+     |logit|, bf16 within 1e-2 of it or within the one-process bf16
+     forward's own distance from fp32 where that is larger; argmax >= 99.9 %
+     and >= 99 %), ``evaluate``'s step over 2048x1024 labels (the matrices
+     summed over the ranks: every valid pixel, fp32 mIoU within 1e-4 of the
+     one process's) and predict at 2048x1024, batch 1, scales 0.75,1.0 +
+     flip (each rank's rows, and the rows rank 0 gathers); every rank's
+     eval-kernel launches equal to the identity blocks whose map it owns
+     rows of (29 a forward here), and every shard shape it launched at held
+     against the plain version afterwards (phase 3's tolerance; bf16 the
+     bf16 phase's). Each rank reports the halo bytes it sent and received,
+     its exchanges and their ms a forward, and its forward ms beside the
+     one-process forward's (informational: two ranks share one card and
+     exchange through the host);
  17. ddp: data parallelism, each rank a process started by ``torchrun``
      (this script with ``--ddp-worker``, or a CLI module). The emit and IW
      loss kernels are first held against their plain versions at the
@@ -186,16 +205,18 @@ Phases, one JSON object per line on stdout:
      rank's launch counts beside the one-process counts and no DDP
      warning about gradient strides; (b) ``torchrun --nproc_per_node``
      (the card count) with NCCL: ``solve_gta5`` for 2 iterations with a
-     validation and a checkpoint, its ``--continue_training`` resume to
-     iteration 4, ``tools.evaluate`` (the one-process mIoU within 1e-4),
-     and the UDATrainer at full width within 5 % of the bare step in the
-     same process (with one card this is world 1: no DDP wrapper and no
-     collective); (c) with two or more cards, (a) over them with NCCL and
-     the step rate at 4 + 4 images a card beside one card's; with one
-     card a line says it did not run. ``python3 chip_smoke.py
+     validation and a checkpoint (with one card this is world 1: no DDP
+     wrapper and no collective); (c) with two or more cards, (a) over them
+     with NCCL and the step rate at 4 + 4 images a card beside one card's;
+     with one card a line says it did not run. ``python3 chip_smoke.py
      --ddp-cards`` on a machine with several cards runs the build, the
      kernels at the ranks' shapes, the one-process steps and one card's
-     rate, then (c) and (b) over every card, and nothing else.
+     rate, then (c) and (b) over every card, (b) with what the default run
+     leaves out (the ``--continue_training`` resume to iteration 4,
+     ``tools.evaluate`` against the one-process mIoU within 1e-4, and the
+     UDATrainer at full width within 5 % of the bare step), then the sp
+     phase over the cards with NCCL (sp = the card count, and dp2 x sp2 on
+     four), and nothing else.
 All full-width phases run R101 (blocks 3,4,23,3), in fp32 with TF32 off
 unless they say bf16.
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
@@ -2758,6 +2779,275 @@ def _median_step_s(step, state, pairs) -> float:
     return statistics.median(secs)
 
 
+# the sp phase: --sp over ranks of one space group, each checked against the
+# one-process kernel path on the same weights. Two gloo ranks share the card
+# in the default run; --ddp-cards runs it over every card with NCCL (sp =
+# cards, and dp2 x sp2 on four)
+SP_SHARED_RANKS = 2
+SP_LABEL_HW = (1024, 2048)    # evaluate's step: 1024x512 images, 2048x1024 labels
+SP_PREDICT_HW = (1024, 2048)  # predict: the 2048x1024 full-resolution input, batch 1
+SP_MODEL_KW: dict = {}        # R101 (a dry run of the worker on the CPU shrinks it)
+# compute dtype: (max |logit difference| over the largest |logit|, argmax
+# agreement) against the one-process kernel path; fp32 also mIoU. In bf16
+# the bound is that, or the one-process bf16 path's own distance from the
+# fp32 path on the same weights where that is larger: a shard's convs (cuDNN
+# picks its algorithm by shape) and the heads' product (cuBLAS, by rows)
+# round some bf16 values the other way, and 33 blocks carry it on (read on
+# an H100: 1.2e-2 of the largest logit, 2.4 bf16 ulps of it)
+SP_LIMITS = {"float32": (1e-4, 0.999), "bfloat16": (1e-2, 0.99)}
+SP_MIOU_TOL = 1e-4
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _wall_ms(fn, dev: torch.device, reps: int = 3) -> float:
+    """The median wall ms of ``reps`` calls after one warm-up, each fenced
+    (an exchange over gloo waits on the host anyway)."""
+    fn()
+    secs = []
+    for _ in range(reps):
+        _sync(dev)
+        t0 = time.perf_counter()
+        fn()
+        _sync(dev)
+        secs.append(time.perf_counter() - t0)
+    return statistics.median(secs) * 1e3
+
+
+def _sp_expected_launches(model, in_hw, space) -> int:
+    """The eval kernel's launches in one forward on this rank: one for each
+    identity block whose map (os4 in layer1, os8 after) it owns rows of."""
+    from maxsquareloss_torch.models.deeplabv2 import _valid_sizes
+
+    sizes = _valid_sizes(in_hw)
+    n = 0
+    for i, layer in enumerate((model.layer1, model.layer2, model.layer3, model.layer4)):
+        o0, o1 = space.own(sizes["os4" if i == 0 else "os8"][0])
+        n += sum(b.fusable for b in layer) * (o1 > o0)
+    return n
+
+
+def _sp_case(dtype: str, space, dev: torch.device, data_group: int) -> tuple[dict, dict]:
+    """One compute dtype on this rank of ``space``: the eval forward at
+    1024x512, batch 2, evaluate's step over 2048x1024 labels, predict at
+    2048x1024, batch 1, 0.75,1.0 + flip; each against the one-process kernel
+    path on the same weights and inputs, its launches against the expected
+    count. Returns (the readings, the launch shapes)."""
+    from maxsquareloss_torch.metrics import Eval
+    from maxsquareloss_torch.parallel import ddp, spatial
+    from maxsquareloss_torch.train.evaluator import make_multiscale_eval_step
+
+    tol, agree_min = SP_LIMITS[dtype]
+    cfg = TrainConfig(compute_dtype=dtype, **SP_MODEL_KW)
+    model = init_deeplabv2(model_config(cfg, eval_mode=True), torch.Generator().manual_seed(0),
+                           device=dev)
+    x, y, _ = next(uint8_batches(SyntheticSegDataset(length=BATCH, hw=IMG_HW, seed=20 + data_group),
+                                 BATCH, label_hw=SP_LABEL_HW))
+    x, y = torch.from_numpy(x), torch.from_numpy(y)
+    h = IMG_HW[0]
+    (a, b), (c, d) = space.own(h), space.own(y.shape[1])
+    row = {"dtype": dtype}
+    seen = {}
+
+    def merge(shapes):
+        for k, v in shapes.items():
+            seen.setdefault(k, set()).update(v)
+
+    # the forward: this rank's rows (sliced on the host) against the rows of
+    # the one-process forward
+    with torch.inference_mode():
+        xn = _prepare_inputs(x.to(dev), None, cfg)[0]
+        xs = _prepare_inputs(x[:, a:b].to(dev), None, cfg)[0]
+
+        def one():
+            return model(xn, aux=False)[1]
+
+        def sharded():
+            return model(xs, aux=False, space=space, in_h=h)[1]
+
+        ref = one()
+        bf16_vs_fp32 = None
+        if dtype == "bfloat16":  # the same weights in fp32: bf16's own distance
+            fp32 = init_deeplabv2(model_config(dataclasses.replace(cfg, compute_dtype="float32"),
+                                               eval_mode=True), torch.Generator().manual_seed(0),
+                                  device=dev)
+            bf16_vs_fp32 = (ref - fp32(xn, aux=False)[1]).abs().max().item()
+            del fp32
+        _sync(dev)
+        zero_counts()
+        space.reset_stats()
+        with recorded_shapes() as shapes:
+            got = sharded()
+            _sync(dev)
+        merge(shapes)
+        launches = read_counts()["fused_bottleneck"]
+        halo = dict(space.stats)
+        ms_one, ms_sp = _wall_ms(one, dev), _wall_ms(sharded, dev)
+    o0, o1 = space.own(ref.shape[1])
+    want = ref[:, o0:o1]
+    scale = ref.abs().max().item()
+    check(got.shape == want.shape, f"sp {dtype}: logits {tuple(got.shape)}, rows {o0}:{o1} "
+                                   f"of {tuple(ref.shape)}")
+    check(bool(torch.isfinite(got).all()), f"sp {dtype}: non-finite logits")
+    err = (got - want).abs().max().item() if o1 > o0 else 0.0
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item() if o1 > o0 else 1.0
+    expected = _sp_expected_launches(model, IMG_HW, space)
+    limit = max(tol * scale, bf16_vs_fp32 or 0.0)
+    row["forward"] = {
+        "image_rows": [a, b], "logit_rows": [o0, o1], "max_abs_logit_diff": err,
+        "max_abs_logit": scale, "diff_over_max_logit": err / scale, "limit": limit,
+        "one_process_bf16_vs_fp32": bf16_vs_fp32, "argmax_agreement": agree,
+        "eval_launches": launches, "expected_launches": expected,
+        "halo_bytes_sent": halo["bytes_sent"], "halo_bytes_received": halo["bytes_received"],
+        "exchanges": halo["exchanges"], "exchange_ms": halo["seconds"] * 1e3,
+        "forward_ms_sp": ms_sp, "forward_ms_one_process": ms_one}
+    check(err <= limit, f"sp {dtype}: logits off by {err:.3g} (max |logit| {scale:.3g}, limit "
+                        f"{limit:.3g})")
+    check(agree >= agree_min, f"sp {dtype}: argmax agrees on {agree:.5f}")
+    check(launches == expected, f"sp {dtype}: {launches} eval launches, expected {expected}")
+    del ref, got, want
+
+    # evaluate's step: the matrices summed over every rank
+    step1 = make_multiscale_eval_step(cfg, model)
+    step_sp = make_multiscale_eval_step(cfg, model, space=space)
+    cm1, arg1 = step1(x.to(dev), y.to(dev))
+    zero_counts()
+    cm_sp, arg_sp = step_sp(x[:, a:b].to(dev), y[:, c:d].to(dev), (h, y.shape[1]))
+    _sync(dev)
+    step_launches = read_counts()["fused_bottleneck"]
+    step_agree = (arg_sp == arg1[:, c:d]).float().mean().item() if d > c else 1.0
+    cm_sp = ddp.all_reduce_sum(cm_sp).cpu()
+    cm1 = ddp.all_reduce_sum(cm1 if space.index == 0 else torch.zeros_like(cm1)).cpu()
+    ev_sp, ev1 = Eval(NUM_CLASSES), Eval(NUM_CLASSES)
+    ev_sp.add_confusion_matrix(cm_sp)
+    ev1.add_confusion_matrix(cm1)
+    miou_sp, miou1 = ev_sp.Mean_Intersection_over_Union(), ev1.Mean_Intersection_over_Union()
+    step_ms = _wall_ms(lambda: step_sp(x[:, a:b].to(dev), y[:, c:d].to(dev), (h, y.shape[1])),
+                       dev, reps=1)
+    row["evaluate_step"] = {
+        "label_rows": [c, d], "argmax_agreement": step_agree, "MIoU": miou_sp,
+        "MIoU_one_process": miou1, "MIoU_diff": abs(miou_sp - miou1),
+        "cm_total": int(cm_sp.sum()), "cm_total_one_process": int(cm1.sum()),
+        "eval_launches": step_launches, "step_ms_sp": step_ms}
+    check(int(cm_sp.sum()) == int(cm1.sum()), f"sp {dtype}: the matrices count "
+                                              f"{int(cm_sp.sum())} pixels, not {int(cm1.sum())}")
+    check(step_agree >= agree_min, f"sp {dtype}: evaluate's argmax agrees on {step_agree:.5f}")
+    check(dtype != "float32" or abs(miou_sp - miou1) <= SP_MIOU_TOL,
+          f"sp {dtype}: mIoU {miou_sp} against {miou1}")
+    check(step_launches == expected, f"sp {dtype}: {step_launches} launches in evaluate's step")
+    del cm1, arg1, cm_sp, arg_sp
+
+    # predict at the full-resolution input, batch 1; rank 0 gathers the rows
+    xp = torch.from_numpy(next(uint8_batches(
+        SyntheticSegDataset(length=1, hw=SP_PREDICT_HW, seed=30 + data_group), 1))[0])
+    hp = SP_PREDICT_HW[0]
+    pa, pb = space.own(hp)
+    pred1 = make_predict_fn(cfg, model, PREDICT_SCALES, True, SP_PREDICT_HW)(xp.to(dev))
+    fn_sp = make_predict_fn(cfg, model, PREDICT_SCALES, True, SP_PREDICT_HW, space)
+    zero_counts()
+    space.reset_stats()
+    with recorded_shapes() as shapes:
+        pred_sp = fn_sp(xp[:, pa:pb].to(dev), hp)
+        _sync(dev)
+    merge(shapes)
+    p_launches = read_counts()["fused_bottleneck"]
+    p_halo = dict(space.stats)
+    full = spatial.gather_rows(pred_sp, hp, space)
+    p_expected = sum(_sp_expected_launches(model, (max(1, round(hp * s)),
+                                                   max(1, round(SP_PREDICT_HW[1] * s))), space)
+                     for s in PREDICT_SCALES)
+    own_agree = (pred_sp == pred1[:, pa:pb]).float().mean().item() if pb > pa else 1.0
+    row["predict"] = {
+        "rows": [pa, pb], "own_rows_agreement": own_agree, "eval_launches": p_launches,
+        "expected_launches": p_expected, "halo_bytes_sent": p_halo["bytes_sent"],
+        "halo_bytes_received": p_halo["bytes_received"], "exchange_ms": p_halo["seconds"] * 1e3,
+        "predict_ms_sp": _wall_ms(lambda: fn_sp(xp[:, pa:pb].to(dev), hp), dev, reps=1),
+        "predict_ms_one_process": _wall_ms(
+            lambda: make_predict_fn(cfg, model, PREDICT_SCALES, True, SP_PREDICT_HW)(xp.to(dev)),
+            dev, reps=1)}
+    check(pred_sp.shape == (1, pb - pa, SP_PREDICT_HW[1]), f"sp predict {tuple(pred_sp.shape)}")
+    check(own_agree >= agree_min, f"sp {dtype}: predict agrees on {own_agree:.5f} of its rows")
+    check(p_launches == p_expected, f"sp {dtype}: {p_launches} predict launches, "
+                                    f"expected {p_expected}")
+    if space.index == 0:
+        gathered = (full == pred1).float().mean().item()
+        row["predict"]["gathered_agreement"] = gathered
+        check(full.shape == pred1.shape and gathered >= agree_min,
+              f"sp {dtype}: gathered trainIds agree on {gathered:.5f}")
+    del model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return row, seen
+
+
+def _sp_worker(out: str, backend: str, device: str, sp: int) -> dict:
+    """A rank of the sp phase: every case of ``SP_LIMITS``; writes
+    ``sp_rank<r>.json`` under ``out`` (its readings and launch shapes)."""
+    from maxsquareloss_torch.parallel import ddp, spatial
+
+    ddp.init_distributed(backend)
+    dev = resolve_device(None if device == "-" else device)
+    space = spatial.space_group(sp)
+    data_group, data_groups = spatial.data_groups(sp)
+    cases, seen = [], {}
+    for dtype in SP_LIMITS:
+        row, shapes = _sp_case(dtype, space, dev, data_group)
+        cases.append(row)
+        for k, v in shapes.items():
+            seen.setdefault(k, set()).update(v)
+    result = {"world": ddp.world(), "rank": ddp.rank(), "sp": sp, "space_index": space.index,
+              "data_group": data_group, "data_groups": data_groups, "backend": backend,
+              "device": str(dev), "cases": cases,
+              "launch_shapes": {k: sorted(v) for k, v in seen.items() if v}}
+    with open(os.path.join(out, f"sp_rank{ddp.rank()}.json"), "w") as f:
+        json.dump(result, f)
+    return result
+
+
+def phase_sp(checked: dict, cards: int | None = None) -> dict[str, list[int]]:
+    """Spatial partitioning (``--sp``) of the eval forward, evaluate's step
+    and predict, each rank a process started by ``torchrun``: two gloo ranks
+    on the one card, or (``cards``) NCCL over every card, sp = cards, and
+    dp2 x sp2 on four. Every shard shape a rank launched the eval kernel at
+    is then held against the plain version. Returns each kernel's launches
+    on the sp path by rank (the fp32 and bf16 forwards' counts)."""
+    me = os.path.abspath(__file__)
+    for kernel in ("fused_bottleneck", "fused_bottleneck_bf16", "fused_bottleneck_emit_bf16"):
+        checked.setdefault(kernel, set())  # a bf16 shape is held in both instances
+    if cards is None:
+        runs = [(SP_SHARED_RANKS, "gloo", "cuda:0", SP_SHARED_RANKS)]
+    else:
+        runs = [(cards, "nccl", "-", cards)] + ([(4, "nccl", "-", 2)] if cards == 4 else [])
+    launches = {"fused_bottleneck": [], "fused_bottleneck_bf16": []}
+    for nproc, backend, device, sp in runs:
+        work = tempfile.mkdtemp(prefix="chip_smoke_sp_")
+        try:
+            _torchrun(nproc, [me, "--ddp-worker", "sp", work, backend, device, str(sp)],
+                      f"sp {sp} over {nproc} {backend} ranks")
+            ranks = []
+            for r in range(nproc):
+                with open(os.path.join(work, f"sp_rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        seen = {}
+        for rank in ranks:
+            shapes = rank.pop("launch_shapes")
+            emit({"phase": "sp", **rank})
+            for k, v in shapes.items():
+                seen.setdefault(k, set()).update(tuple(s) for s in v)
+            for case in rank["cases"]:
+                key = "fused_bottleneck" + ("_bf16" if case["dtype"] == "bfloat16" else "")
+                launches[key].append(case["forward"]["eval_launches"])
+        emit({"phase": "sp_shapes", "sp": sp, "world": nproc,
+              "launch_shapes": {k: sorted(v) for k, v in seen.items()}})
+        hold_path_shapes("sp", seen, checked)
+    return launches
+
+
 def _ddp_worker(argv: list[str]) -> int:
     """A rank started by ``torchrun`` (``chip_smoke.py --ddp-worker KIND OUT
     ...``); rank 0 writes its results under OUT.
@@ -2768,7 +3058,8 @@ def _ddp_worker(argv: list[str]) -> int:
     trainer: the bare step (2 + REPS) and a UDATrainer over in-memory
         loaders (TRAINER_ITERS iterations, 4 + 4 images a rank, a
         validation), with NCCL;
-    cli MODULE ARGS...: MODULE's ``main(ARGS)``, counted."""
+    cli MODULE ARGS...: MODULE's ``main(ARGS)``, counted;
+    sp BACKEND DEVICE SP: the sp phase's rank (``_sp_worker``)."""
     import warnings
 
     from maxsquareloss_torch.parallel import ddp
@@ -2777,6 +3068,10 @@ def _ddp_worker(argv: list[str]) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     result = {"kind": kind}
+    if kind == "sp":
+        _sp_worker(out, argv[2], argv[3], int(argv[4]))
+        ddp.shutdown()
+        return 0
     if kind == "cli":
         module = importlib.import_module(argv[2])
         zero_counts()
@@ -2959,12 +3254,12 @@ def _ddp_several_cards(cards: int, p0: dict, ref: list, one_card_images_per_s: f
     _check_ddp_parity("ddp over cards", report)
 
 
-def _ddp_torchrun_runs(cards: int, work: str) -> None:
+def _ddp_torchrun_runs(cards: int, work: str, full: bool) -> None:
     """Case (b): ``torchrun --nproc_per_node cards`` with NCCL for
-    ``solve_gta5`` (2 iterations, validation, checkpoint), its
-    ``--continue_training`` resume to iteration 4, ``evaluate`` (the
-    one-process mIoU within 1e-4), and the UDATrainer within
-    DDP_TRAINER_GAP of the bare step of the same world."""
+    ``solve_gta5`` (2 iterations, validation, checkpoint); with ``full``
+    (``--ddp-cards``) also its ``--continue_training`` resume to iteration
+    4, ``evaluate`` (the one-process mIoU within 1e-4), and the UDATrainer
+    within DDP_TRAINER_GAP of the bare step of the same world."""
     from maxsquareloss_torch.data.synthetic import write_domain_shift_pair
 
     me = os.path.abspath(__file__)
@@ -2987,6 +3282,12 @@ def _ddp_torchrun_runs(cards: int, work: str) -> None:
     first = ckpt_lib.load_checkpoint(os.path.join(run, ckpt_lib.LATEST))
     check(first["iteration"] == 2, f"checkpoint at iteration {first['iteration']}")
     check(not any(k.startswith("module.") for k in first["state_dict"]), "module. prefix")
+    if not full:
+        emit({"phase": "ddp_cli", "nproc": cards, "backend": "nccl",
+              "solve_gta5_launch_counts_rank0": cli_counts,
+              "moved_to_ddp_cards": ["solve_gta5 --continue_training", "evaluate",
+                                     "UDATrainer"]})
+        return
     _torchrun(cards, ["-m", "maxsquareloss_torch.tools.solve_gta5", *cli, "--iter_stop", "4",
                       "--continue_training"], "torchrun solve_gta5 --continue_training")
     scal = _scalars(run)
@@ -3069,8 +3370,9 @@ def phase_ddp(bare_steps_per_s: float, checked: dict) -> None:
         _check_ddp_parity("ddp shared card", report)
         del steps
 
-        # (b) torchrun with NCCL over every card: the CLIs, then the trainer
-        _ddp_torchrun_runs(cards, work)
+        # (b) torchrun with NCCL over every card: solve_gta5 (the resume,
+        # evaluate and the trainer run in --ddp-cards, over several cards)
+        _ddp_torchrun_runs(cards, work, full=False)
 
         # (c) several cards
         if cards < 2:
@@ -3089,7 +3391,7 @@ def main_ddp_cards() -> int:
     """``--ddp-cards``: the ddp phase over several cards alone, for a
     machine with several: the build, the kernels at the ranks' shapes, the
     one-process parity steps and one card's step rate, then (c) and (b)
-    over every card."""
+    over every card, then the sp phase with NCCL over them."""
     cards = torch.cuda.device_count()
     check(cards >= 2 and TRAIN_BATCH % cards == 0,
           f"--ddp-cards needs 2 or more cards that share a global batch of {TRAIN_BATCH}; "
@@ -3108,10 +3410,15 @@ def main_ddp_cards() -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_ddp_")
     try:
         _ddp_several_cards(cards, p0, ref, 2 * TRAIN_BATCH / step_s, work)
-        _ddp_torchrun_runs(cards, work)
+        _ddp_torchrun_runs(cards, work, full=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    emit({"phase": "summary", "wall_seconds": time.perf_counter() - t_start})
+    t_sp = time.perf_counter()
+    launches = phase_sp({}, cards)
+    check(all(n > 0 for per_rank in launches.values() for n in per_rank),
+          f"a rank launched no eval kernel on the sp path: {launches}")
+    emit({"phase": "summary", "wall_seconds": time.perf_counter() - t_start,
+          "seconds_by_phase": {"sp": time.perf_counter() - t_sp}})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": cards}})
     return 0
@@ -3190,11 +3497,17 @@ def main() -> int:
             phase()
         hold_path_shapes(path, seen, checked_all)
         lap(path)
+    sp_launches = phase_sp(checked_all)
+    kernel["sp_launches_per_rank"] = sp_launches["fused_bottleneck"]
+    bf16_kernels[0]["sp_launches_per_rank"] = sp_launches["fused_bottleneck_bf16"]
+    lap("sp")
     phase_ddp(bare_steps_per_s, checked_all)
     lap("ddp")
     kernels = (kernel, *train_kernels, masked_kernel, *bf16_kernels, probe)
     for k in kernels:
         check(k["launches"] > 0, f"the main path launched no {k['name']}")
+        check(all(n > 0 for n in k.get("sp_launches_per_rank", [1])),
+              f"a rank of the sp path launched no {k['name']}")
     emit({"phase": "summary", "wall_seconds": time.perf_counter() - t_start,
           "seconds_by_phase": seconds})
     emit({"kernels": [{key: v for key, v in k.items() if key not in ("shapes", "checks")}

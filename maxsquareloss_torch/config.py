@@ -9,7 +9,10 @@ bfloat16; parameters, optimizer and checkpoints float32), one process per card
 (``parallel/``: ``torchrun``, or the JAX CLIs' ``--coordinator_address
 --num_processes --process_id``); batch sizes are global. A flag for
 something the port does not have yet raises in ``check_supported`` with the
-ROADMAP item it waits on, instead of being ignored.
+ROADMAP item it waits on, instead of being ignored. ``--sp N`` (spatial
+partitioning, ``parallel/spatial.py``) is ported for the serving CLIs
+(``evaluate``, ``predict``: ``check_supported(cfg, serving=True)``), not
+for the trainers.
 """
 
 from __future__ import annotations
@@ -95,7 +98,7 @@ class TrainConfig:
     # shard the global batch over the processes; false with several
     # processes raises (each would train a model of its own)
     data_parallel: bool = True
-    sp: int = 1                        # spatial partitioning (not ported)
+    sp: int = 1                        # spatial partitioning (evaluate, predict)
     # stream the eval upsample→softmax→argmax→CM tail over N output rows at
     # a time (exact: row-local interpolation); -1 = auto (256-row chunks
     # whenever the label height exceeds 512), 0 = off
@@ -128,24 +131,36 @@ class TrainConfig:
         return torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
 
 
-# (field, value that is fine, why not) for every option the port lacks
+# (field, value that is fine, why not) for every option the port lacks; the
+# serving CLIs skip the fields of _SERVING_PORTED
 _UNPORTED = (
-    ("sp", 1, "--sp > 1 waits on spatial partitioning (ROADMAP Queue 1 item 2, spatial "
-     "partitioning); data parallelism over processes is ported"),
+    ("sp", 1, "--sp > 1 in training waits on spatial partitioning's training half (ROADMAP "
+     "Queue 1 item 2, spatial partitioning, sub-step (b)); evaluate and predict take --sp"),
     ("freeze_bn", True, "--freeze_bn false: BN is always frozen (folded into buffers), "
      "as in the JAX package"),
 )
+_SERVING_PORTED = ("sp",)
 
 
-def check_supported(cfg: TrainConfig) -> None:
-    """Raise on an option the port does not have: never ignore it."""
+def check_supported(cfg: TrainConfig, serving: bool = False) -> None:
+    """Raise on an option the port does not have: never ignore it.
+    ``serving``: the checks of ``evaluate`` and ``predict``, which take
+    ``--sp`` (with several processes ``--sp`` must divide their number)."""
     for name, ok, why in _UNPORTED:
-        if getattr(cfg, name) != ok:
+        if getattr(cfg, name) != ok and not (serving and name in _SERVING_PORTED):
             raise NotImplementedError(f"{name}={getattr(cfg, name)!r} is not ported: {why}")
-    if not cfg.data_parallel:
-        from maxsquareloss_torch.parallel.ddp import world
+    from maxsquareloss_torch.parallel.ddp import world
+    from maxsquareloss_torch.parallel.multihost import launched_world
 
-        if world() > 1:
+    # before the group exists, the launcher's or the flags' count
+    procs = max(world(), launched_world(cfg.num_processes))
+    if serving and procs % cfg.sp:
+        raise ValueError(f"--sp {cfg.sp} does not divide the {procs} process(es): run a "
+                         f"multiple of {cfg.sp} processes (one space group each)")
+    if not cfg.data_parallel:
+        # --sp N with --data_parallel false is one space group: the JAX
+        # package's (1, sp) mesh
+        if world() > (cfg.sp if serving else 1):
             # the JAX package's processes then each jit a step of their own
             # on their shard and never sync: that trains world models, not one
             raise ValueError(f"--data_parallel false with {world()} processes would train "
@@ -266,8 +281,10 @@ def str2bool(v) -> bool:
     return str(v).lower() in ("1", "true", "yes", "y", "t")
 
 
-def config_from_args(args: argparse.Namespace) -> TrainConfig:
-    """The parsed namespace → a checked TrainConfig; makes the run dir."""
+def config_from_args(args: argparse.Namespace, serving: bool = False) -> TrainConfig:
+    """The parsed namespace → a checked TrainConfig; makes the run dir.
+    ``serving``: the checks of ``evaluate`` and ``predict``
+    (``check_supported``)."""
     fields = {f.name for f in dataclasses.fields(TrainConfig)}
     kv: dict[str, Any] = {}
     for k, v in vars(args).items():
@@ -295,6 +312,19 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         )
     if cfg.sp < 1:
         raise ValueError(f"--sp must be >= 1, got {cfg.sp}")
-    check_supported(cfg)
+    if cfg.sp > 1:
+        # the JAX package's checks, flag for flag: the heights it shards
+        # must split evenly over its 'space' axis, and its partitioner cannot
+        # pad int8 halos
+        for name in ("crop_size", "target_crop_size", "base_size"):
+            wh = getattr(cfg, name)
+            if wh and wh[1] % cfg.sp:
+                raise ValueError(f"--sp {cfg.sp} must divide the image height: {name} H = "
+                                 f"{wh[1]}")
+        if cfg.quantize:
+            raise ValueError(f"--quantize {cfg.quantize} does not compose with --sp {cfg.sp}, "
+                             "as in the JAX package: use --sp for float serving, or int8 with "
+                             "data parallelism")
+    check_supported(cfg, serving)
     os.makedirs(cfg.checkpoint_dir, exist_ok=True)
     return cfg

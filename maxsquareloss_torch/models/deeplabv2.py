@@ -60,6 +60,20 @@ returns conv2's and conv3's inputs, so the recorder sees each conv's
 input, as the JAX package's ``conv_site``, from the kernel the card
 serves. ``DeepLabV2.drop_fused_conv_weights`` frees the conv kernels that
 the identity blocks' packed copies replace (the serving export).
+
+Spatial partitioning (``forward(x, space=..., in_h=...)``, eval only; the
+serving half of the JAX package's ``--sp``): ``x`` holds this rank's rows
+of an input of ``in_h`` rows and every map is split by rows over the space
+group (``parallel/spatial.py``). Each op that reads H takes the window its
+own output rows read, fetched from the ranks that own it and padded only
+where it passes the global border, and runs with H padding 0: the stem's
+7x7/2 (``_sp_conv``), the ceil-mode pool (padded with -inf, ``_sp_pool``),
+the non-fusable blocks' convs (``Bottleneck.forward_sp``), and the heads
+(the eval form exchanges its 36 x nc tap products, not the input). An
+identity block runs the fused kernel on its input over ``[o0 - d, o1 +
+d)`` clipped to the image, so the kernel's own zero padding falls only on
+the global border, and keeps rows ``[o0, o1)``: the kernel is the same;
+the halo rows are computed twice. W stays whole.
 """
 
 from __future__ import annotations
@@ -88,10 +102,14 @@ from maxsquareloss_torch.models.layers import (
     FrozenBN,
     QConv2d,
     aspp_matmul_forward,
+    aspp_products,
+    aspp_tap_sum,
     classifier_normal_,
     kaiming_normal_,
     max_pool_ceil,
 )
+from maxsquareloss_torch.parallel import spatial
+from maxsquareloss_torch.parallel.spatial import SpaceGroup
 from maxsquareloss_torch.utils.device import resolve_device
 
 RESNET101_BLOCKS = (3, 4, 23, 3)
@@ -130,6 +148,55 @@ def _conv(cin: int, cout: int, k: int, stride: int = 1, padding: int = 0,
           dilation: int = 1, bias: bool = False) -> nn.Conv2d:
     return Conv2d(cin, cout, k, stride=stride, padding=padding,
                   dilation=dilation, bias=bias)
+
+
+def _nhwc(y: torch.Tensor) -> torch.Tensor:
+    return y.permute(0, 2, 3, 1)
+
+
+def _nchw(t: torch.Tensor) -> torch.Tensor:
+    """The channels_last NCHW view of a contiguous NHWC tensor."""
+    return t.permute(0, 3, 1, 2)
+
+
+def _sp_input(y: torch.Tensor, h_in: int, h_out: int, space: SpaceGroup, k: int, s: int = 1,
+              p: int = 0, d: int = 1, pad_value: float | None = 0.0) -> torch.Tensor:
+    """The rows an H-reading op (k, s, p, d along H) reads for this rank's
+    rows of its ``h_out``-row output, from ``y`` (this rank's rows of an
+    (N, C, h_in, W) map), padded with ``pad_value`` where the window passes
+    the border (None: clipped): channels_last NCHW. Collective."""
+    need = space.windows(h_out, k, s, p, d)
+    return _nchw(spatial.fetch_window(_nhwc(y), h_in, need, space, pad_value))
+
+
+def _no_rows(y: torch.Tensor, c: int, w: int) -> torch.Tensor:
+    """The output of a rank that owns no rows of a map: (N, c, 0, w)."""
+    return y.new_empty((y.shape[0], c, 0, w)).contiguous(memory_format=torch.channels_last)
+
+
+def _sp_conv(conv: Conv2d, y: torch.Tensor, h_in: int, space: SpaceGroup):
+    """``conv`` on this rank's rows of a map of ``h_in`` rows: (its rows of
+    the output, the output's height)."""
+    if not isinstance(conv, Conv2d):
+        raise NotImplementedError("--sp takes float convs; int8 does not compose with --sp")
+    (k, kw), (s, sw), (p, pw), (d, dw) = conv.kernel_size, conv.stride, conv.padding, conv.dilation
+    h_out = (h_in + 2 * p - d * (k - 1) - 1) // s + 1
+    win = _sp_input(y, h_in, h_out, space, k, s, p, d)
+    if win.shape[2] == 0:
+        w_out = (y.shape[3] + 2 * pw - dw * (kw - 1) - 1) // sw + 1
+        return _no_rows(y, conv.out_channels, w_out), h_out
+    return conv(win, pad_h=0), h_out
+
+
+def _sp_pool(y: torch.Tensor, h_in: int, space: SpaceGroup):
+    """The stem's ceil-mode 3x3/2 p1 maxpool on this rank's rows: the
+    window padded with -inf (the pool's own padding) where it passes the
+    border, the last window past the bottom edge included."""
+    h_out = math.ceil((h_in + 2 - 3) / 2) + 1
+    win = _sp_input(y, h_in, h_out, space, 3, 2, 1, 1, pad_value=-math.inf)
+    if win.shape[2] == 0:
+        return _no_rows(y, y.shape[1], math.ceil((y.shape[3] + 2 - 3) / 2) + 1), h_out
+    return F.max_pool2d(win, 3, stride=2, padding=(0, 1), ceil_mode=True), h_out
 
 
 class Bottleneck(nn.Module):
@@ -220,6 +287,30 @@ class Bottleneck(nn.Module):
         residual = x if self.downsample is None else self.downsample(x)
         return F.relu(y + residual)
 
+    def forward_sp(self, x: torch.Tensor, h: int, space: SpaceGroup, kernel, train_kernel):
+        """The block on this rank's rows of a map of ``h`` rows: (its rows of
+        the output, the output's height). An identity block runs ``forward``
+        (the fused kernel) on the rows [o0 - d, o1 + d) clipped to the map
+        and keeps [o0, o1); the others run their convs by ``_sp_conv``."""
+        if self.fusable and not self.quantized:
+            d = self.dilation
+            o0, o1 = space.own(h)
+            xw = _sp_input(x, h, h, space, 3, 1, d, d, pad_value=None)
+            if o1 <= o0:
+                return x, h
+            out = self.forward(xw, kernel, train_kernel)
+            a = max(o0 - d, 0)
+            return out[:, :, o0 - a: o1 - a], h
+        y, h_out = _sp_conv(self.conv1, x, h, space)
+        y = F.relu(self.bn1(y))
+        y = F.relu(self.bn2(_sp_conv(self.conv2, y, h_out, space)[0]))
+        y = self.bn3(_sp_conv(self.conv3, y, h_out, space)[0])
+        if self.downsample is None:
+            residual = x
+        else:
+            residual = self.downsample[1](_sp_conv(self.downsample[0], x, h, space)[0])
+        return F.relu(y + residual), h_out
+
 
 class Classifier(nn.Module):
     """V2-style ASPP: four parallel dilated 3x3 convs. The training form
@@ -246,6 +337,31 @@ class Classifier(nn.Module):
         out = None
         for conv in self.conv2d_list:
             y = conv(x)
+            out = y if out is None else out + y
+        return out
+
+    def forward_sp(self, x: torch.Tensor, h: int, space: SpaceGroup,
+                   aspp_matmul: bool = False) -> torch.Tensor:
+        """The head on this rank's rows of a map of ``h`` rows. The eval form
+        computes its tap products on its own rows and fetches theirs within
+        max(dilation) rows (36 x nc channels, not x's); the training form
+        fetches x's rows and runs each conv on its part of the window."""
+        pad = max(ASPP_DILATIONS)
+        n_own = space.own(h)[1] - space.own(h)[0]
+        convs = self.conv2d_list
+        if aspp_matmul:
+            z = aspp_products(x, [c.weight for c in convs])
+            zh = spatial.fetch_window(z, h, space.windows(h, 3, 1, pad, pad), space)
+            if n_own == 0:
+                return _no_rows(x, convs[0].out_channels, x.shape[3]).float()
+            zp = F.pad(zh, (0, 0, pad, pad))
+            return aspp_tap_sum(zp, [c.bias for c in convs], ASPP_DILATIONS, n_own)
+        xw = _sp_input(x, h, h, space, 3, 1, pad, pad)
+        if n_own == 0:
+            return _no_rows(x, convs[0].out_channels, x.shape[3])
+        out = None
+        for conv, d in zip(convs, ASPP_DILATIONS):
+            y = conv(xw[:, :, pad - d: pad + d + n_own], pad_h=0)
             out = y if out is None else out + y
         return out
 
@@ -331,14 +447,21 @@ class DeepLabV2(nn.Module):
                     conv.weight = None
 
     def forward(self, x: torch.Tensor, aux: bool = True,
-                masks: dict[str, CanvasMask] | None = None):
+                masks: dict[str, CanvasMask] | None = None,
+                space: SpaceGroup | None = None, in_h: int | None = None):
         """(N, H, W, 3) normalized images → (aux_or_None, main), each
         (N, H/8, W/8, num_classes) float32 in either compute dtype.
         ``aux=False`` skips the layer5 head (the eval/predict path reads only
         the main head); the heads' form is ``cfg.aspp_matmul``'s. ``masks``
         (``make_canvas_masks``): a canvas batch
         whose pad region is re-zeroed before the maxpool (``pool_in``), before every block's 3x3 (``os4``
-        in layer1, ``os8`` in layers 2-4) and before both heads (``os8``)."""
+        in layer1, ``os8`` in layers 2-4) and before both heads (``os8``).
+        ``space``: a spatially partitioned eval forward (the module
+        docstring): ``x`` is this rank's rows of an input of ``in_h`` rows,
+        and the logits are its rows of the global logits
+        (``valid_logits_hw``)."""
+        if space is not None:
+            return self._forward_sp(x, aux, masks, space, in_h)
         m = masks or {}
         aspp_matmul = self.cfg.aspp_matmul
         y = x.to(self.cfg.compute_dtype).permute(0, 3, 1, 2)
@@ -354,6 +477,38 @@ class DeepLabV2(nn.Module):
             self.layer5(y3, m.get("os8"), aspp_matmul) if aux and self.cfg.multi_level else None
         )
         main = self.layer6(self._stage(self.layer4, y3, m.get("os8")), m.get("os8"), aspp_matmul)
+
+        def nhwc(t):
+            return t.permute(0, 2, 3, 1).float()
+
+        return (None if aux_out is None else nhwc(aux_out)), nhwc(main)
+
+    def _forward_sp(self, x: torch.Tensor, aux: bool, masks, space: SpaceGroup,
+                    in_h: int | None):
+        if in_h is None:
+            raise ValueError("a spatially partitioned forward needs the input's height in_h")
+        if masks is not None or torch.is_grad_enabled():
+            raise NotImplementedError(
+                "--sp runs the eval forward only: a canvas or a training forward under --sp "
+                "waits on ROADMAP Queue 1 item 2 (spatial partitioning, sub-step (b))")
+        if self.quantized:
+            raise NotImplementedError("--quantize int8 does not compose with --sp")
+        aspp_matmul = self.cfg.aspp_matmul
+        y = x.to(self.cfg.compute_dtype).permute(0, 3, 1, 2)
+        y = y.contiguous(memory_format=torch.channels_last)
+        y, h = _sp_conv(self.conv1, y, in_h, space)
+        y, h = _sp_pool(F.relu(self.bn1(y)), h, space)
+
+        def stage(layer, y, h):
+            for block in layer:
+                y, h = block.forward_sp(y, h, space, self.block_fn, self.train_block_fn)
+            return y, h
+
+        y, h = stage(self.layer2, *stage(self.layer1, y, h))
+        y3, h = stage(self.layer3, y, h)
+        aux_out = (self.layer5.forward_sp(y3, h, space, aspp_matmul)
+                   if aux and self.cfg.multi_level else None)
+        main = self.layer6.forward_sp(stage(self.layer4, y3, h)[0], h, space, aspp_matmul)
 
         def nhwc(t):
             return t.permute(0, 2, 3, 1).float()

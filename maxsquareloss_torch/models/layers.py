@@ -46,12 +46,14 @@ _calib_recorder = None
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` in the activation's dtype (``conv2d`` of the JAX
     package): the weight cast to x's dtype, the bias cast and added after
-    the conv, as its own op."""
+    the conv, as its own op. ``pad_h`` replaces the H padding (a spatial
+    shard's window comes padded already: ``parallel/spatial.py``)."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pad_h: int | None = None) -> torch.Tensor:
         if _calib_recorder is not None:
             _calib_recorder(self, x)
-        y = F.conv2d(x, self.weight.to(x.dtype), None, self.stride, self.padding,
+        padding = self.padding if pad_h is None else (pad_h, self.padding[1])
+        y = F.conv2d(x, self.weight.to(x.dtype), None, self.stride, padding,
                      self.dilation, self.groups)
         return y if self.bias is None else y + self.bias.to(y.dtype).view(1, -1, 1, 1)
 
@@ -176,20 +178,35 @@ class QConv2d(nn.Module):
                        self.stride, self.padding, self.dilation)
 
 
+def aspp_products(x: torch.Tensor, weights) -> torch.Tensor:
+    """The eval form's one product: x (N, C, H, W) channels_last times the
+    36 taps' kernels concatenated tap by tap, dilation-major, in x's dtype;
+    (N, H, W, 36 * nc) NHWC. Per pixel: a spatial shard computes it on its
+    own rows and exchanges these 36 * nc channels, not x's."""
+    wflat = torch.cat([wt[:, :, a, b] for wt in weights for a in range(3) for b in range(3)])
+    return torch.matmul(x.permute(0, 2, 3, 1), wflat.to(x.dtype).t())
+
+
 def aspp_matmul_forward(x: torch.Tensor, weights, biases, dilations) -> torch.Tensor:
     """The summed ASPP head's eval form (``_aspp_matmul_forward`` of the JAX
-    package): x (N, C, H, W) channels_last times the 36 taps' kernels
-    concatenated tap by tap, dilation-major, in x's dtype (one product);
-    each tap's slice of a zero-padded result, shifted by its offset, widened
-    to float32 and summed as a pairwise tree; the biases added in float32.
+    package): ``aspp_products`` (one product in x's dtype); each tap's
+    slice of a zero-padded result, shifted by its offset, widened to
+    float32 and summed as a pairwise tree; the biases added in float32.
     ``weights``: OIHW 3x3 kernels. Returns (N, nc, H, W) float32, a view
     of an NHWC tensor."""
-    n, _, h, w = x.shape
-    nc = weights[0].shape[0]
-    wflat = torch.cat([wt[:, :, a, b] for wt in weights for a in range(3) for b in range(3)])
-    z = torch.matmul(x.permute(0, 2, 3, 1), wflat.to(x.dtype).t())
     pad = max(dilations)
-    zp = F.pad(z, (0, 0, pad, pad, pad, pad))
+    zp = F.pad(aspp_products(x, weights), (0, 0, pad, pad, pad, pad))
+    return aspp_tap_sum(zp, biases, dilations, x.shape[2])
+
+
+def aspp_tap_sum(zp: torch.Tensor, biases, dilations, h: int) -> torch.Tensor:
+    """The eval form's sum over ``zp``, the products padded by
+    max(dilations) zero rows and columns on each side (a spatial shard's
+    fetched window, padded where it passes the border): output rows
+    [0, h) of the padded frame's interior, (N, nc, h, W) float32."""
+    pad = max(dilations)
+    nc = biases[0].shape[0]
+    w = zp.shape[2] - 2 * pad
     taps = []
     for d in dilations:
         for a in range(3):

@@ -4,6 +4,9 @@
 The separable interpolation is two small dense matmuls, ``out = W_h @ x @
 W_w.T``, as in the JAX package: a block of output rows is then just a row
 slice of ``W_h``, so the ``h_rows`` streaming of the eval tail stays exact.
+A spatial shard (``--sp``) holds a window of the input's rows: ``in_h``
+and ``row0`` say which, ``input_rows`` which window a block of output rows
+reads, and the product takes those columns of the global ``W_h``.
 """
 
 from __future__ import annotations
@@ -45,25 +48,42 @@ def interp_matrix(
     )
 
 
+def input_rows(out_size: int, in_size: int, r0: int, r1: int) -> tuple[int, int]:
+    """The input rows [c0, c1) that output rows [r0, r1) of an align-corners
+    resize read (the nonzero columns of those rows of the matrix); (0, 0)
+    for no rows."""
+    if r1 <= r0:
+        return (0, 0)
+    cols = np.flatnonzero(_interp_matrix_np(out_size, in_size)[r0:r1].any(axis=0))
+    return int(cols[0]), int(cols[-1]) + 1
+
+
 def resize_bilinear_align_corners(
     x: torch.Tensor,
     out_hw: tuple[int, int],
     h_rows: tuple[int, int] | None = None,
+    in_h: int | None = None,
+    row0: int = 0,
 ) -> torch.Tensor:
     """Bilinear align_corners=True resize of (N, H, W, C) tensors.
 
     ``h_rows=(r0, r1)`` produces only output rows [r0, r1) of the full
     (H_out, W_out) result, exactly (the H interpolation is a matmul, so a
-    row block is its row slice).
+    row block is its row slice). ``in_h``: ``x`` holds rows [row0, row0 +
+    x.shape[1]) of an input of ``in_h`` rows (a spatial shard's window,
+    which must cover ``input_rows`` of the output rows); the product then
+    takes those columns of the global matrix.
     """
     h_out, w_out = int(out_hw[0]), int(out_hw[1])
     h_in, w_in = x.shape[-3], x.shape[-2]
-    if (h_in, w_in) == (h_out, w_out) and h_rows is None:
+    if (h_in, w_in) == (h_out, w_out) and h_rows is None and in_h is None:
         return x
     dtype = x.dtype if x.is_floating_point() else torch.float32
-    wh = interp_matrix(h_out, h_in, dtype, x.device)  # (Ho, Hi)
+    wh = interp_matrix(h_out, h_in if in_h is None else in_h, dtype, x.device)  # (Ho, Hi)
     if h_rows is not None:
         wh = wh[int(h_rows[0]) : int(h_rows[1])]
+    if in_h is not None:
+        wh = wh[:, row0: row0 + h_in]
     ww = interp_matrix(w_out, w_in, dtype, x.device)  # (Wo, Wi)
     n, c = x.shape[0], x.shape[-1]
     # two matmuls with contiguous NHWC results (the fused loss kernels and

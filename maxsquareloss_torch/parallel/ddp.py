@@ -13,7 +13,10 @@ With no process group (one process), ``rank()`` is 0, ``world()`` 1 and
 every collective below is the identity, so a one-process run is the run of
 a port without this module. Each collective runs on the group's backend:
 ``nccl`` takes tensors on the card, ``gloo`` takes CPU tensors (and CUDA
-tensors, through a host copy, which is how two ranks share one card).
+tensors, through a host copy, which is how two ranks share one card). The
+collectives take a ``group`` (default: every rank), such as a space group
+of ``parallel/spatial.py``; under ``--sp`` the data groups share a batch
+(``local_batch(..., sp=...)``).
 """
 
 from __future__ import annotations
@@ -50,42 +53,49 @@ def is_main() -> bool:
     return rank() == 0
 
 
-def local_batch(global_batch: int, flag: str = "--batch_size") -> int:
+def local_batch(global_batch: int, flag: str = "--batch_size", sp: int = 1) -> int:
     """This process's share of a global batch; raises when the processes
-    cannot share it equally (the JAX package's check)."""
-    procs = world()
+    cannot share it equally (the JAX package's check). Under ``--sp`` the
+    ``world // sp`` data groups share it: every rank of a space group loads
+    its group's share."""
+    procs = world() // max(sp, 1)
+    what = "processes" if sp <= 1 else f"data groups of --sp {sp}"
     if global_batch % procs:
-        raise ValueError(f"global batch {global_batch} not divisible by {procs} processes; "
+        raise ValueError(f"global batch {global_batch} not divisible by {procs} {what}; "
                          f"raise {flag} to a multiple of {procs}")
     return global_batch // procs
 
 
-def _comm_device(t: torch.Tensor) -> torch.device:
+def _comm_device(t: torch.Tensor, group=None) -> torch.device:
     """Where a collective over ``t`` runs: NCCL on the current card, gloo
     where ``t`` is."""
-    if dist.get_backend() == "nccl":
+    if dist.get_backend(group) == "nccl":
         return torch.device("cuda", torch.cuda.current_device())
     return t.device
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """The SUM of ``t`` over the ranks, on ``t``'s device (``t`` itself at
-    world 1)."""
-    if world() == 1:
+def _size(group) -> int:
+    return world() if group is None else dist.get_world_size(group)
+
+
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The SUM of ``t`` over the ranks of ``group`` (default: all), on
+    ``t``'s device (``t`` itself for one rank)."""
+    if world() == 1 or _size(group) == 1:
         return t
-    out = t.to(_comm_device(t), copy=True)
-    dist.all_reduce(out, op=dist.ReduceOp.SUM)
+    out = t.to(_comm_device(t, group), copy=True)
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out.to(t.device)
 
 
-def all_gather(t: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``t`` stacked along a new first axis, rank order
-    (``t[None]`` at world 1)."""
-    if world() == 1:
+def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's ``t`` (of ``group``, default all) stacked along a new
+    first axis, rank order (``t[None]`` for one rank)."""
+    if world() == 1 or _size(group) == 1:
         return t[None]
-    src = t.to(_comm_device(t))
-    parts = [torch.empty_like(src) for _ in range(world())]
-    dist.all_gather(parts, src.contiguous())
+    src = t.to(_comm_device(t, group))
+    parts = [torch.empty_like(src) for _ in range(_size(group))]
+    dist.all_gather(parts, src.contiguous(), group=group)
     return torch.stack(parts).to(t.device)
 
 

@@ -3,7 +3,9 @@
 datasets root, the transform config of a run, the loaders and the
 process group. Batch sizes are global: with several processes each loads
 a disjoint shard of ``batch / world`` images of every batch, the shard the
-JAX package's processes load.
+JAX package's processes load. Under ``--sp N`` the shards are the data
+groups' (``world / N`` of them, ``rank // N`` this rank's): every rank of a
+space group loads the same images and takes its rows of them later.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from maxsquareloss_torch.data.gta5 import GTA5Dataset
 from maxsquareloss_torch.data.loader import SegDataLoader
 from maxsquareloss_torch.data.synthia import SynthiaDataset
 from maxsquareloss_torch.data.transforms import TransformConfig
-from maxsquareloss_torch.parallel import ddp, multihost
+from maxsquareloss_torch.parallel import ddp, multihost, spatial
 
 DATASET_CLS = {
     "cityscapes": CityscapesDataset,
@@ -74,27 +76,31 @@ def make_loader(
     if split != "train" and cfg.eval_batch_size:
         batch, flag = cfg.eval_batch_size, "--eval_batch_size"
     loader_cls = GrainSegLoader if cfg.loader == "grain" else SegDataLoader
+    shard_index, shard_count = spatial.data_groups(cfg.sp)
     return loader_cls(
         ds,
-        batch_size=ddp.local_batch(batch, flag),
+        batch_size=ddp.local_batch(batch, flag, cfg.sp),
         shuffle=split == "train",
         num_workers=cfg.num_workers,
         seed=cfg.seed,
         drop_last=split == "train",
         pad_last=split != "train",
-        shard_index=ddp.rank(),
-        shard_count=ddp.world(),
+        shard_index=shard_index,
+        shard_count=shard_count,
     )
 
 
-def init_distributed(cfg: TrainConfig) -> int:
+def init_distributed(cfg: TrainConfig, serving: bool = False) -> int:
     """Join the process group that ``torchrun`` or the flags
     ``--coordinator_address/--num_processes/--process_id`` describe (none for
-    a process started alone) and check the run's options against it;
-    returns the world size."""
+    a process started alone) and check the run's options against it
+    (``serving``: the checks of ``evaluate`` and ``predict``, which take
+    ``--sp``, whose space groups are made here); returns the world size."""
     n = multihost.initialize_distributed(cfg.device, cfg.coordinator_address,
                                          cfg.num_processes, cfg.process_id)
-    check_supported(cfg)
+    check_supported(cfg, serving)
+    if serving:
+        spatial.space_group(cfg.sp)
     return n
 
 

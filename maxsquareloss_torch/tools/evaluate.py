@@ -12,6 +12,13 @@ plain PyTorch versions on the host. Under ``torchrun --nproc_per_node N``
 each process evaluates a shard of the split (``--batch_size`` is global)
 and rank 0 prints the metrics of the whole split.
 
+``--sp N`` partitions every image's rows over N processes (a space group;
+``torchrun --nproc_per_node N``, or dp x N ranks, whose data groups share
+the batches): each rank takes its rows of every image and label, the
+ranks exchange the halos each op reads (``parallel/spatial.py``), and the
+confusion matrices are summed over every rank, so the metrics are the
+one-process metrics. ``--device cpu`` runs it over gloo.
+
 ``--quantize int8`` evaluates the post-training int8 model
 (``models/quantize.py``): calibrated on the first ``--calib_batches``
 batches of the split (``--calib_mode``; with several processes each
@@ -24,7 +31,7 @@ from __future__ import annotations
 import argparse
 
 from maxsquareloss_torch.config import add_train_args, config_from_args, str2bool
-from maxsquareloss_torch.parallel import ddp
+from maxsquareloss_torch.parallel import ddp, spatial
 from maxsquareloss_torch.tools.common import (
     default_paths,
     init_distributed,
@@ -45,10 +52,10 @@ def main(argv=None) -> dict:
                         help="keep labels at native resolution; predictions are"
                              " upsampled to label size")
     args = parser.parse_args(argv)
-    cfg = config_from_args(args)
+    cfg = config_from_args(args, serving=True)
     if not cfg.pretrained_ckpt_file:
         parser.error("--pretrained_ckpt_file is required")
-    init_distributed(cfg)
+    init_distributed(cfg, serving=True)
     device = resolve_device(cfg.device)
     logger = setup_logger(cfg.checkpoint_dir, "evaluate", main=ddp.is_main())
     model = load_inference_model(cfg, device)
@@ -65,7 +72,7 @@ def main(argv=None) -> dict:
         model = quantize_from_loader(cfg, model, loader, logger)
     scales = tuple(float(s) for s in args.scales.split(","))
     out = evaluate(model, cfg, loader, scales=scales, flip=args.flip,
-                   synthia_protocol=cfg.class_16)
+                   synthia_protocol=cfg.class_16, space=spatial.space_group(cfg.sp))
     ev = out.pop("_eval")
     logger.info(" ".join(f"{k}={v:.4f}" for k, v in out.items()))
     if ddp.is_main():

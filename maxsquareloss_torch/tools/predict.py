@@ -13,9 +13,13 @@
 
 It runs on the card; ``--device cpu`` runs the plain PyTorch versions on
 the host. ``main`` returns the number of images written. It runs as one
-process: the JAX tool predicts one image at a time and scales out only by
-``--sp``, which is not ported; under ``torchrun`` with more than one
-process it raises. ``--quantize int8`` predicts with the post-training
+process, or with ``--sp N`` as exactly N processes, one space group (the
+JAX tool's (1, sp) mesh: it predicts one image at a time, so its only
+scale-out is the image's rows): each rank loads the image, takes its rows
+(``parallel/spatial.py``), and rank 0 gathers the trainIds' rows and
+writes the files; ``torchrun --nproc_per_node N -m
+maxsquareloss_torch.tools.predict --sp N ...`` (``--device cpu``: gloo).
+Any other number of processes raises. ``--quantize int8`` predicts with the post-training
 int8 model (``models/quantize.py``), calibrated on the first
 ``--calib_batches`` images of the list, one at a time through the
 transform the predictions use, as the JAX tool does.
@@ -32,9 +36,10 @@ import torch
 from maxsquareloss_torch.config import add_train_args, config_from_args, str2bool
 from maxsquareloss_torch.data.palette import decode_labels
 from maxsquareloss_torch.data.transforms import img_transform
+from maxsquareloss_torch.parallel import ddp, spatial
 from maxsquareloss_torch.parallel.multihost import launched_world
 from maxsquareloss_torch.predict import make_predict_fn
-from maxsquareloss_torch.tools.common import default_paths, load_inference_model
+from maxsquareloss_torch.tools.common import default_paths, init_distributed, load_inference_model
 from maxsquareloss_torch.utils.device import resolve_device
 from maxsquareloss_torch.utils.logging import setup_logger
 
@@ -49,17 +54,19 @@ def main(argv=None) -> int:
                         help="write predictions at each image's native size "
                              "(logits upsampled align-corners); false = base_size")
     args = parser.parse_args(argv)
-    cfg = config_from_args(args)
-    world = launched_world(cfg.num_processes)
-    if world > 1:
+    world = launched_world(args.num_processes)
+    if world > 1 and world != args.sp:
         raise NotImplementedError(
             f"predict runs as one process, not {world}: it predicts one image at a time, "
-            "and the JAX tool's only scale-out, --sp, is not ported (ROADMAP Queue 1 "
-            "item 2, spatial partitioning)")
+            "and its only scale-out is --sp N, as exactly N processes (one space group)")
+    cfg = config_from_args(args, serving=True)
     if not cfg.pretrained_ckpt_file:
         parser.error("--pretrained_ckpt_file is required")
+    init_distributed(cfg, serving=True)
+    space = spatial.space_group(cfg.sp)
+    main_rank = space is None or space.index == 0
     device = resolve_device(cfg.device)
-    logger = setup_logger(args.output_dir, "predict")
+    logger = setup_logger(args.output_dir, "predict", main=main_rank)
     model = load_inference_model(cfg, device)
 
     from PIL import Image
@@ -90,12 +97,20 @@ def main(argv=None) -> int:
     n = 0
     for rel in items:
         native_wh, x = load(rel)
-        x = torch.from_numpy(x).to(device)
         out_wh = native_wh if args.native_size_output else tuple(cfg.base_size)
         out_hw = (out_wh[1], out_wh[0])
         if out_hw not in fns:
-            fns[out_hw] = make_predict_fn(cfg, model, scales, args.flip, out_hw)
-        pred = fns[out_hw](x)[0].cpu().numpy()
+            fns[out_hw] = make_predict_fn(cfg, model, scales, args.flip, out_hw, space)
+        if space is None:
+            pred = fns[out_hw](torch.from_numpy(x).to(device))
+        else:
+            # this rank's rows, sliced on the host; rank 0 gathers the output
+            a, b = space.own(x.shape[1])
+            pred = fns[out_hw](torch.from_numpy(x[:, a:b]).to(device), x.shape[1])
+            pred = spatial.gather_rows(pred, out_hw[0], space)
+            if not main_rank:
+                continue
+        pred = pred[0].cpu().numpy()
 
         name = os.path.splitext(os.path.basename(rel))[0]
         ids = np.where(pred < 0, 255, pred).astype(np.uint8)
@@ -111,3 +126,4 @@ def main(argv=None) -> int:
 
 if __name__ == "__main__":
     main()
+    ddp.shutdown()

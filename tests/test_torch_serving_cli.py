@@ -13,8 +13,9 @@ both packages calibrate and quantize (the ranges over the first
 ``--calib_batches`` batches, amax or a percentile): the metrics agree
 within 1e-4 and the trainIds on at least 99.9 % of the pixels (an
 activation one float32 ulp off a rounding boundary of the int8 grid moves
-one input by one step). ``--sp 2`` raises, and without a card and without
-``--device cpu`` the CLIs raise.
+one input by one step). ``--sp 2`` in one process raises (a space group of
+2 needs 2 processes: ``tests/test_torch_spatial_cli.py`` runs them), and
+without a card and without ``--device cpu`` the CLIs raise.
 """
 
 from __future__ import annotations
@@ -177,7 +178,7 @@ def test_predict_int8_writes_the_jax_trainids(served, tmp_path):
 def test_sp_raises(served, tmp_path, cli):
     extra = ["--sp", "2", *PORT] + (["--output_dir", str(tmp_path / "out")] if cli == "predict"
                                     else [])
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="--sp 2 does not divide the 1 process"):
         {"evaluate": evaluate, "predict": predict}[cli].main(
             _argv(served, str(tmp_path / "run"), extra))
 
