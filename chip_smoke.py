@@ -167,7 +167,8 @@ Phases, one JSON object per line on stdout:
      (one step an epoch) for one epoch a leg, the host extension serving
      every decode of the cold and prepared legs (``hostops: true``, from
      its call counts), no decode on the raw leg and the blur on every leg;
-     each prints its JSON line;
+     then each mode but int8 and e2e again with ``--dtype float32``; each
+     prints its JSON line;
  16. efficacy: the adaptation-efficacy gate at ``tests/test_adaptation.py``'s
      protocol (seed 0, --blocks 1,1,2,1, 128x64, batch 8, 300 source and
      200 UDA iterations, lambda 64): IW_maxsquare must beat the
@@ -193,7 +194,19 @@ Phases, one JSON object per line on stdout:
      bf16 phase's). Each rank reports the halo bytes it sent and received,
      its exchanges and their ms a forward, and its forward ms beside the
      one-process forward's (informational: two ranks share one card and
-     exchange through the host);
+     exchange through the host). Then, in the same ranks, training under
+     ``--sp``: the UDA step (IW_maxsquare, ``--iw_hist argmax``) on the
+     train phase's global batch (4 + 4 images at 1280x640 and 1024x512),
+     fp32 and bf16, each rank its rows, against the one-process kernel-path
+     step from the same weights that this process runs first (fp32 the
+     n-rank limits, metrics rel 1e-4 and parameter changes 1e-3 relative
+     L2; bf16 the bf16 step's, thresholded metrics beyond the fp32 step's
+     distance), every rank's parameters equal, exact launches per rank (58
+     emit, one IW forward and backward a step), a warm-up and 2 timed
+     steps beside the one-process step's, halo bytes forward and backward,
+     peak memory; every emit and loss shard shape held afterwards; and
+     ``UDATrainer --sp`` for 2 iterations and a validation against the
+     one-process trainer (losses rel 1e-4, mIoU within 1e-4);
  17. ddp: data parallelism, each rank a process started by ``torchrun``
      (this script with ``--ddp-worker``, or a CLI module). The emit and IW
      loss kernels are first held against their plain versions at the
@@ -216,7 +229,9 @@ Phases, one JSON object per line on stdout:
      ``tools.evaluate`` against the one-process mIoU within 1e-4, and the
      UDATrainer at full width within 5 % of the bare step), then the sp
      phase over the cards with NCCL (sp = the card count, and dp2 x sp2 on
-     four), and nothing else.
+     four; its training legs too), then ``torchrun solve_gta5 --sp 2``
+     over every card (dp x sp) against the one-process run, and nothing
+     else.
 All full-width phases run R101 (blocks 3,4,23,3), in fp32 with TF32 off
 unless they say bf16.
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
@@ -1090,10 +1105,10 @@ def plain_losses():
         train_steps.fused_iw_max_square_loss, train_steps.fused_max_square_loss = saved
 
 
-def _train_pairs():
+def _train_pairs(dev="cuda"):
     def batches(hw, seed):
         ds = SyntheticSegDataset(length=2 * TRAIN_BATCH, hw=hw, seed=seed)
-        return [(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+        return [(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
                 for x, y, _ in uint8_batches(ds, TRAIN_BATCH)]
 
     return [(xs, ys, xt) for (xs, ys), (xt, _) in zip(batches(SRC_HW, 3), batches(TGT_HW, 4))]
@@ -1976,22 +1991,28 @@ def _scalars(run_dir: str) -> dict[str, dict[int, dict]]:
     return out
 
 
-def _trainer_loaders(cfg):
+def _trainer_loaders(cfg, val_groups: int | None = None):
     """In-memory synthetic source (1280x640), target (1024x512) and val
     (1024x512) loaders: one epoch of TRAINER_ITERS batch pairs, val 2
-    batches of VAL_BATCH a rank; with several processes, this rank's shard
-    (``cfg.batch_size`` is global)."""
-    from maxsquareloss_torch.parallel import ddp
+    batches of VAL_BATCH a data group (``val_groups`` of them: by default
+    the run's); with several processes, this rank's data group's shard
+    (``cfg.batch_size`` is global; under ``--sp`` every rank of a space
+    group reads its group's)."""
+    from maxsquareloss_torch.parallel import ddp, spatial
+
+    group, groups = spatial.data_groups(cfg.sp)
 
     def loader(hw, n, seed, batch, train):
         return SegDataLoader(SyntheticSegDataset(length=n, hw=hw, seed=seed), batch_size=batch,
                              shuffle=train, num_workers=cfg.num_workers, seed=cfg.seed,
-                             drop_last=train, pad_last=not train, shard_index=ddp.rank(),
-                             shard_count=ddp.world())
+                             drop_last=train, pad_last=not train, shard_index=group,
+                             shard_count=groups)
 
-    n, batch = TRAINER_ITERS * cfg.batch_size, ddp.local_batch(cfg.batch_size)
+    val_groups = val_groups or groups
+    n, batch = TRAINER_ITERS * cfg.batch_size, ddp.local_batch(cfg.batch_size, sp=cfg.sp)
     return (loader(SRC_HW, n, 3, batch, True), loader(TGT_HW, n, 4, batch, True),
-            loader(TGT_HW, 2 * VAL_BATCH * ddp.world(), 5, VAL_BATCH, False))
+            loader(TGT_HW, 2 * VAL_BATCH * val_groups, 5, VAL_BATCH * val_groups // groups,
+                   False))
 
 
 def phase_trainer(bare_steps_per_s: float) -> dict[str, int]:
@@ -2584,8 +2605,9 @@ def phase_bench() -> None:
     bench's default line: the bf16 step, bf16 inference and the fp32 parity
     leg (fp32, stage remat, batch 8: 116 fp32 emit launches a step); the
     fp32 lines run no parity leg and no remat. An int8 leg calibrates with
-    one emit launch a block (the ``uda`` lines carry one). Both e2e runs
-    read one synthesized dataset."""
+    one emit launch a block (the ``uda`` lines carry one). The e2e run is
+    bf16 only: its fp32 twin is not run, to keep the script in its time
+    limit."""
     from maxsquareloss_torch import bench
 
     root = tempfile.mkdtemp(prefix="chip_smoke_bench_")
@@ -2634,8 +2656,6 @@ def phase_bench() -> None:
         ("infer_fp32", ["--mode", "infer", *fp32], {"fused_bottleneck": 29 * calls}),
         ("infer_fullres_labels_fp32", ["--mode", "infer", "--label_hw", "1024,2048", *fp32],
          {"fused_bottleneck": 29 * calls}),
-        ("e2e_fp32", ["--mode", "e2e", "--dtype", "float32", *e2e],
-         {"fused_bottleneck_emit": 58 * e2e_steps, **{k: v * e2e_steps for k, v in losses.items()}}),
     )
     try:
         for name, argv, expect in runs:
@@ -2784,6 +2804,7 @@ def _median_step_s(step, state, pairs) -> float:
 # in the default run; --ddp-cards runs it over every card with NCCL (sp =
 # cards, and dp2 x sp2 on four)
 SP_SHARED_RANKS = 2
+SP_DEVICE = "cuda:0"  # the shared card, where this process runs the references
 SP_LABEL_HW = (1024, 2048)    # evaluate's step: 1024x512 images, 2048x1024 labels
 SP_PREDICT_HW = (1024, 2048)  # predict: the 2048x1024 full-resolution input, batch 1
 SP_MODEL_KW: dict = {}        # R101 (a dry run of the worker on the CPU shrinks it)
@@ -2796,6 +2817,24 @@ SP_MODEL_KW: dict = {}        # R101 (a dry run of the worker on the CPU shrinks
 # an H100: 1.2e-2 of the largest logit, 2.4 bf16 ulps of it)
 SP_LIMITS = {"float32": (1e-4, 0.999), "bfloat16": (1e-2, 0.99)}
 SP_MIOU_TOL = 1e-4
+# training under --sp: the UDA step (TRAIN_CFG) on the train phase's global
+# batch, each data group its images and each rank its rows, against the
+# one-process kernel-path step from the same weights (PERF.md section 2):
+# fp32 at the n-rank limits, bf16 at the bf16 step's (the thresholded
+# metrics beyond the fp32 step's distance from it); one parity step, a
+# warm-up and SP_TRAIN_TIMED timed steps. Then UDATrainer --sp for
+# SP_TRAINER_ITERS iterations and a validation against the one-process
+# trainer: losses rel SP_TRAINER_RTOL, validation mIoU within SP_MIOU_TOL
+SP_TRAIN_LIMITS = {"float32": (STEP_RTOL, STEP_PARAM_RTOL_L2), "bfloat16": BF16_LIMITS}
+SP_TRAIN_TIMED = 2
+SP_TRAINER_ITERS = 2
+SP_TRAINER_RTOL = 1e-4
+# solve_gta5 --sp 2 over the cards (dp2 x sp2): its data groups' convs run
+# at other batch sizes than the one process's, so a pixel within rounding of
+# the guidance threshold may flip: one flip among the few hundred
+# thresholded pixels of a 128x256 batch moves guidance_valid_frac and
+# loss_target_aux by up to a few 1e-3 (PERF.md section 2)
+SP_CLI_THRESHOLDED_RTOL = 1e-2
 
 
 def _sync(dev: torch.device) -> None:
@@ -2983,6 +3022,116 @@ def _sp_case(dtype: str, space, dev: torch.device, data_group: int) -> tuple[dic
     return row, seen
 
 
+def _sp_train_cfg(dtype: str, sp: int = 1, **kw) -> TrainConfig:
+    return dataclasses.replace(TRAIN_CFG, compute_dtype=dtype, sp=sp, **SP_MODEL_KW, **kw)
+
+
+def _sp_train_run(cfg: TrainConfig, dev: torch.device, images: slice, space=None) -> dict:
+    """The UDA step from the seeded weights on ``images`` of the train
+    phase's global batches (``space``: this rank's rows of them): one step,
+    counted, its shapes recorded, then a warm-up and SP_TRAIN_TIMED timed
+    steps. Returns its metrics and parameters after the first step, the
+    first step's launches and halo, the timed ms and the peak memory."""
+    model = init_deeplabv2(model_config(cfg), torch.Generator().manual_seed(0), device=dev)
+    state, step = make_train_state(model, cfg, space), make_uda_train_step(cfg, space)
+    pairs = [tuple(t[images] for t in p) for p in _train_pairs(dev)]
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    if space is not None:
+        space.reset_stats()
+    p0 = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+    with recorded_shapes() as shapes:
+        state, m = step(state, *pairs[0])
+        _sync(dev)
+    out = {"metrics": {k: v.item() for k, v in m.items()}, "launches": read_counts(), "p0": p0,
+           "halo": None if space is None else dict(space.stats), "shapes": shapes,
+           "params": {n: p.detach().cpu().clone() for n, p in model.named_parameters()}}
+    secs = []
+    for i in range(1 + SP_TRAIN_TIMED):
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, *pairs[(i + 1) % len(pairs)])
+        float(m["loss"])
+        _sync(dev)
+        if i:
+            secs.append(time.perf_counter() - t0)
+    out["step_ms"] = [t * 1e3 for t in secs]
+    out["peak_memory_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
+                              if dev.type == "cuda" else None)
+    out["expected_emit"] = (None if space is None else
+                            sum(_sp_expected_launches(model, hw, space) for hw in (SRC_HW, TGT_HW)))
+    del state, model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _sp_train_case(dtype: str, space, dev: torch.device, group: int, groups: int,
+                   out: str) -> tuple[dict, dict]:
+    """One compute dtype's SP step on this rank (``_sp_train_run`` on its
+    data group's images): exact launches, every rank's parameters equal
+    after it; rank 0 saves the metrics and parameters for the comparison.
+    Returns (the readings, the launch shapes)."""
+    from maxsquareloss_torch.parallel import ddp
+
+    per = TRAIN_BATCH // groups
+    run = _sp_train_run(_sp_train_cfg(dtype, space.sp), dev,
+                        slice(group * per, (group + 1) * per), space)
+    shapes, params = run.pop("shapes"), run.pop("params")
+    del run["p0"]
+    sums = torch.stack([p.double().sum() for p in params.values()])
+    run["replicas_equal"] = bool((ddp.all_gather(sums) == sums).all())
+    if ddp.is_main():
+        torch.save({"metrics": run["metrics"], "params": params},
+                   os.path.join(out, f"sp_train_{dtype}.pt"))
+    emits = run.pop("expected_emit")
+    want = {k: 0 for k in COUNTERS}
+    want.update({"fused_bottleneck_emit": emits, "fused_iw_max_square_loss": 1,
+                 "fused_iw_max_square_loss_backward": 1})
+    if dtype == "bfloat16":
+        want["fused_bottleneck_emit_bf16"] = emits
+    check(run["launches"] == want, f"sp train {dtype} rank {ddp.rank()}: launches "
+                                   f"{run['launches']}, expected {want}")
+    check(run["replicas_equal"], f"sp train {dtype}: the ranks' parameters differ")
+    return {"dtype": dtype, "images": [group * per, (group + 1) * per], **run}, shapes
+
+
+def _sp_trainer_cfg(out: str, sp: int = 1, **kw) -> TrainConfig:
+    return dataclasses.replace(
+        TRAIN_CFG, sp=sp, iter_stop=SP_TRAINER_ITERS, num_workers=4, tqdm=False,
+        show_num_images=0, checkpoint_dir=out, **SP_MODEL_KW, **kw)
+
+
+def _sp_trainer_case(space, dev: torch.device, out: str) -> dict:
+    """``UDATrainer --sp`` over the trainer phase's in-memory loaders (this
+    rank's data group's shard), SP_TRAINER_ITERS iterations and a
+    validation; rank 0 writes the scalars under ``out``. Exact launches."""
+    cfg = _sp_trainer_cfg(os.path.join(out, "sp_trainer"), space.sp, device=str(dev))
+    model = init_deeplabv2(model_config(cfg), torch.Generator().manual_seed(0), device=dev)
+    trainer = UDATrainer(cfg, *_trainer_loaders(cfg), model=model)
+    zero_counts()
+    space.reset_stats()
+    t0 = time.perf_counter()
+    trainer.train()
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    emits = sum(_sp_expected_launches(model, hw, space) for hw in (SRC_HW, TGT_HW))
+    want = {"fused_bottleneck_emit": emits * SP_TRAINER_ITERS,
+            "fused_bottleneck": 2 * _sp_expected_launches(model, TGT_HW, space),
+            "fused_iw_max_square_loss": SP_TRAINER_ITERS,
+            "fused_iw_max_square_loss_backward": SP_TRAINER_ITERS}
+    got = {k: counts[k] for k in want}
+    check(got == want, f"sp trainer: launches {got}, expected {want}")
+    check(trainer.state.iteration == SP_TRAINER_ITERS, f"sp trainer at {trainer.state.iteration}")
+    del trainer, model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"seconds": seconds, "launches": got, "halo": dict(space.stats)}
+
+
 def _sp_worker(out: str, backend: str, device: str, sp: int) -> dict:
     """A rank of the sp phase: every case of ``SP_LIMITS``; writes
     ``sp_rank<r>.json`` under ``out`` (its readings and launch shapes)."""
@@ -2992,37 +3141,115 @@ def _sp_worker(out: str, backend: str, device: str, sp: int) -> dict:
     dev = resolve_device(None if device == "-" else device)
     space = spatial.space_group(sp)
     data_group, data_groups = spatial.data_groups(sp)
-    cases, seen = [], {}
+    cases, train, seen = [], [], {}
     for dtype in SP_LIMITS:
         row, shapes = _sp_case(dtype, space, dev, data_group)
         cases.append(row)
         for k, v in shapes.items():
             seen.setdefault(k, set()).update(v)
+    for dtype in SP_TRAIN_LIMITS:
+        row, shapes = _sp_train_case(dtype, space, dev, data_group, data_groups, out)
+        train.append(row)
+        for k, v in shapes.items():
+            seen.setdefault(k, set()).update(v)
+    trainer = _sp_trainer_case(space, dev, out)
     result = {"world": ddp.world(), "rank": ddp.rank(), "sp": sp, "space_index": space.index,
               "data_group": data_group, "data_groups": data_groups, "backend": backend,
-              "device": str(dev), "cases": cases,
+              "device": str(dev), "cases": cases, "train": train, "trainer": trainer,
               "launch_shapes": {k: sorted(v) for k, v in seen.items() if v}}
     with open(os.path.join(out, f"sp_rank{ddp.rank()}.json"), "w") as f:
         json.dump(result, f)
     return result
 
 
+def _sp_train_parity(dtype: str, ref: dict, got: dict, p0: dict, m_fp32: dict) -> dict:
+    """The SP step's metrics and parameter changes against the one-process
+    step's (SP_TRAIN_LIMITS; in bf16 the BF16_THRESHOLDED metrics beyond the
+    one-process bf16 step's distance from the fp32 one, ``m_fp32``)."""
+    rtol, param_rtol = SP_TRAIN_LIMITS[dtype]
+    report = _ddp_parity(p0, [(ref["metrics"], ref["params"])],
+                         [(got["metrics"], got["params"])])[0]
+    m_ref = ref["metrics"]
+    allowed = {k: rtol + (abs(m_ref[k] - m_fp32[k]) / max(abs(m_ref[k]), 1e-30)
+                          if dtype == "bfloat16" and k in BF16_THRESHOLDED else 0.0)
+               for k in m_ref}
+    bad = {k: v for k, v in report["metric_rel_err"].items() if not v <= allowed[k]}
+    check(report["finite"] and not bad, f"sp train {dtype}: metrics off {bad}")
+    check(report["param_change_rel_l2_max"] <= param_rtol,
+          f"sp train {dtype}: {report['param_change_rel_l2_worst']} change off by "
+          f"{report['param_change_rel_l2_max']:.3g} (relative L2)")
+    return {**report, "metric_rel_allowed": allowed}
+
+
+def _sp_trainer_reference(groups: int, dev: torch.device) -> dict:
+    """The one-process UDATrainer over the same loaders (val images of
+    ``groups`` data groups): its scalars."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_sp_trainer_")
+    try:
+        cfg = _sp_trainer_cfg(root, device=str(dev))
+        model = init_deeplabv2(model_config(cfg), torch.Generator().manual_seed(0), device=dev)
+        trainer = UDATrainer(cfg, *_trainer_loaders(cfg, val_groups=groups), model=model)
+        trainer.train()
+        del trainer, model
+        return _scalars(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def _sp_trainer_parity(work: str, ref: dict) -> dict:
+    """Rank 0's scalars of ``UDATrainer --sp`` against the one-process
+    trainer's: every loss rel SP_TRAINER_RTOL, the validation mIoU within
+    SP_MIOU_TOL."""
+    got = _scalars(os.path.join(work, "sp_trainer"))
+    losses = {i: (got["train/loss"][i]["value"], r["value"])
+              for i, r in ref["train/loss"].items()}
+    check(sorted(got["train/loss"]) == sorted(ref["train/loss"]) == list(
+        range(1, SP_TRAINER_ITERS + 1)), f"sp trainer loss steps {sorted(got['train/loss'])}")
+    rel = {i: abs(a - b) / abs(b) for i, (a, b) in losses.items()}
+    miou = (got["val/MIoU"][SP_TRAINER_ITERS]["value"],
+            ref["val/MIoU"][SP_TRAINER_ITERS]["value"])
+    check(max(rel.values()) <= SP_TRAINER_RTOL, f"sp trainer losses off by {rel}")
+    check(abs(miou[0] - miou[1]) <= SP_MIOU_TOL, f"sp trainer mIoU {miou[0]} vs {miou[1]}")
+    return {"losses": losses, "loss_rel_err": rel, "val_MIoU": miou[0],
+            "val_MIoU_one_process": miou[1]}
+
+
 def phase_sp(checked: dict, cards: int | None = None) -> dict[str, list[int]]:
     """Spatial partitioning (``--sp``) of the eval forward, evaluate's step
-    and predict, each rank a process started by ``torchrun``: two gloo ranks
+    and predict, and training (the UDA step in both dtypes and the
+    trainer), each rank a process started by ``torchrun``: two gloo ranks
     on the one card, or (``cards``) NCCL over every card, sp = cards, and
-    dp2 x sp2 on four. Every shard shape a rank launched the eval kernel at
-    is then held against the plain version. Returns each kernel's launches
-    on the sp path by rank (the fp32 and bf16 forwards' counts)."""
+    dp2 x sp2 on four. The one-process references run here first, on the
+    same weights and global batches. Every shard shape a rank launched a
+    kernel at is then held against the plain version. Returns each kernel's
+    launches on the sp path by rank (the eval kernel's a forward, the
+    training kernels' a step)."""
     me = os.path.abspath(__file__)
-    for kernel in ("fused_bottleneck", "fused_bottleneck_bf16", "fused_bottleneck_emit_bf16"):
-        checked.setdefault(kernel, set())  # a bf16 shape is held in both instances
+    dev = torch.device(SP_DEVICE)
     if cards is None:
-        runs = [(SP_SHARED_RANKS, "gloo", "cuda:0", SP_SHARED_RANKS)]
+        runs = [(SP_SHARED_RANKS, "gloo", SP_DEVICE, SP_SHARED_RANKS)]
     else:
         runs = [(cards, "nccl", "-", cards)] + ([(4, "nccl", "-", 2)] if cards == 4 else [])
-    launches = {"fused_bottleneck": [], "fused_bottleneck_bf16": []}
+    refs = {}
+    for dtype in SP_TRAIN_LIMITS:
+        refs[dtype] = _sp_train_run(_sp_train_cfg(dtype), dev, slice(None))
+        del refs[dtype]["shapes"], refs[dtype]["expected_emit"], refs[dtype]["halo"]
+    p0 = refs["float32"].pop("p0")
+    del refs["bfloat16"]["p0"]  # the same seeded fp32 parameters
+    emit({"phase": "sp_train_one_process", "batch": TRAIN_BATCH,
+          "source_hw": list(SRC_HW), "target_hw": list(TGT_HW),
+          **{dtype: {k: v for k, v in r.items() if k != "params"} for dtype, r in refs.items()}})
+    trainer_refs = {}
+    launches = {k: [] for k in ("fused_bottleneck", "fused_bottleneck_bf16",
+                                "fused_bottleneck_emit", "fused_bottleneck_emit_bf16",
+                                "fused_iw_max_square_loss",
+                                "fused_iw_max_square_loss_backward")}
     for nproc, backend, device, sp in runs:
+        groups = nproc // sp
+        if groups not in trainer_refs:
+            trainer_refs[groups] = _sp_trainer_reference(groups, dev)
         work = tempfile.mkdtemp(prefix="chip_smoke_sp_")
         try:
             _torchrun(nproc, [me, "--ddp-worker", "sp", work, backend, device, str(sp)],
@@ -3031,6 +3258,10 @@ def phase_sp(checked: dict, cards: int | None = None) -> dict[str, list[int]]:
             for r in range(nproc):
                 with open(os.path.join(work, f"sp_rank{r}.json")) as f:
                     ranks.append(json.load(f))
+            parity = {dtype: _sp_train_parity(
+                dtype, refs[dtype], torch.load(os.path.join(work, f"sp_train_{dtype}.pt")), p0,
+                refs["float32"]["metrics"]) for dtype in SP_TRAIN_LIMITS}
+            trainer = _sp_trainer_parity(work, trainer_refs[groups])
         finally:
             shutil.rmtree(work, ignore_errors=True)
         seen = {}
@@ -3042,8 +3273,23 @@ def phase_sp(checked: dict, cards: int | None = None) -> dict[str, list[int]]:
             for case in rank["cases"]:
                 key = "fused_bottleneck" + ("_bf16" if case["dtype"] == "bfloat16" else "")
                 launches[key].append(case["forward"]["eval_launches"])
+            for case in rank["train"]:
+                for key in ("fused_iw_max_square_loss", "fused_iw_max_square_loss_backward",
+                            "fused_bottleneck_emit" + ("_bf16" if case["dtype"] == "bfloat16"
+                                                       else "")):
+                    launches[key].append(case["launches"][key])
+        emit({"phase": "sp_train", "sp": sp, "world": nproc, "backend": backend,
+              "limits": SP_TRAIN_LIMITS, "vs_one_process": parity,
+              "trainer_vs_one_process": trainer,
+              "step_ms_one_process": {d: r["step_ms"] for d, r in refs.items()},
+              "step_ms_per_rank": {c["dtype"]: [r["train"][i]["step_ms"] for r in ranks]
+                                   for i, c in enumerate(ranks[0]["train"])}})
         emit({"phase": "sp_shapes", "sp": sp, "world": nproc,
               "launch_shapes": {k: sorted(v) for k, v in seen.items()}})
+        for kernel in seen:  # a bf16 shape is held in both instances
+            checked.setdefault(kernel, set())
+        for kernel in ("fused_bottleneck_bf16", "fused_bottleneck_emit_bf16"):
+            checked.setdefault(kernel, set())
         hold_path_shapes("sp", seen, checked)
     return launches
 
@@ -3387,11 +3633,76 @@ def phase_ddp(bare_steps_per_s: float, checked: dict) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+def _sp_cli_run(cards: int, work: str) -> None:
+    """``torchrun --nproc_per_node cards`` of ``solve_gta5 --sp 2`` (dp
+    cards/2 x sp 2, NCCL): 2 iterations, a validation and a checkpoint on a
+    small on-disk pair, against ``solve_gta5`` in this process on the same
+    data from the same ``.pth``: losses rel SP_TRAINER_RTOL, the validation
+    mIoU within SP_MIOU_TOL, parameter changes STEP_PARAM_RTOL_L2 (the
+    metrics over the thresholded pseudo-label set and the IW weights'
+    maximum within SP_CLI_THRESHOLDED_RTOL); rank 0's launches exact."""
+    from maxsquareloss_torch.convert import reference_state_dict
+    from maxsquareloss_torch.data.synthetic import write_domain_shift_pair
+    from maxsquareloss_torch.tools import solve_gta5
+
+    groups = cards // 2
+    data = os.path.join(work, "sp_data")
+    write_domain_shift_pair(data, n_source=4 * groups, n_target_train=4 * groups,
+                            n_target_val=2 * groups, hw=(128, 256))
+    start = init_deeplabv2(model_config(TRAIN_CFG), torch.Generator().manual_seed(0),
+                           device="cpu")
+    init = os.path.join(work, "sp_init.pth")
+    torch.save({"state_dict": reference_state_dict(start)}, init)
+    cli = ["--data_root_path", data, *CLI_SIZE, "--target_base_size", "256,128",
+           "--target_crop_size", "256,128", "--batch_size", str(2 * groups), "--num_workers",
+           "4", "--tqdm", "false", "--iw_hist", "argmax", "--iter_stop", "2",
+           "--pretrained_ckpt_file", init]
+    run = os.path.join(work, "sp_run")
+    _torchrun(cards, [os.path.abspath(__file__), "--ddp-worker", "cli", work,
+                      "maxsquareloss_torch.tools.solve_gta5", *cli, "--sp", "2",
+                      "--checkpoint_dir", run], f"torchrun solve_gta5 --sp 2 over {cards} cards")
+    with open(os.path.join(work, "cli.json")) as f:
+        counts = json.load(f)["launch_counts"]
+    check(counts["fused_bottleneck_emit"] == 2 * 58 and counts["fused_bottleneck"] == 29
+          and counts["fused_iw_max_square_loss"] == 2,
+          f"torchrun solve_gta5 --sp 2 launches on rank 0: {counts}")
+    one = solve_gta5.main([*cli, "--checkpoint_dir", os.path.join(work, "sp_one")])
+    got, want = _scalars(run), _scalars(os.path.join(work, "sp_one"))
+    check(sorted(got["train/loss"]) == sorted(want["train/loss"]) == [1, 2],
+          f"solve_gta5 --sp 2 loss steps {sorted(got['train/loss'])}")
+    rel = {tag: max(abs(got[tag][i]["value"] - r["value"]) / max(abs(r["value"]), 1e-30)
+                    for i, r in want[tag].items())
+           for tag in want if tag.startswith("train/") and tag != "train/images_per_sec"}
+    miou = (got["val/MIoU"][2]["value"], want["val/MIoU"][2]["value"])
+    allowed = {t: SP_CLI_THRESHOLDED_RTOL if t[len("train/"):] in BF16_THRESHOLDED
+               else SP_TRAINER_RTOL for t in rel}
+    check(all(rel[t] <= allowed[t] for t in rel), f"solve_gta5 --sp 2 scalars off by {rel}")
+    check(abs(miou[0] - miou[1]) <= SP_MIOU_TOL, f"solve_gta5 --sp 2 mIoU {miou}")
+    blob = ckpt_lib.load_checkpoint(os.path.join(run, ckpt_lib.LATEST))
+    check(blob["iteration"] == 2, f"solve_gta5 --sp 2 checkpoint at {blob['iteration']}")
+    p0 = {n: p.detach() for n, p in start.named_parameters()}
+    ref = {n: p.detach().cpu().clone() for n, p in one.model.named_parameters()}
+    ckpt_lib.load_weights(one.model, blob, TRAIN_CFG.num_classes)
+    report = _ddp_parity(p0, [({}, ref)], [({}, {n: p.detach().cpu() for n, p
+                                                   in one.model.named_parameters()})])[0]
+    check(report["param_change_rel_l2_max"] <= STEP_PARAM_RTOL_L2,
+          f"solve_gta5 --sp 2: {report['param_change_rel_l2_worst']} change off by "
+          f"{report['param_change_rel_l2_max']:.3g}")
+    emit({"phase": "sp_cli", "nproc": cards, "sp": 2, "backend": "nccl",
+          "launch_counts_rank0": counts, "scalar_rel_err_max": rel, "val_MIoU": miou[0],
+          "val_MIoU_one_process": miou[1],
+          "param_change_rel_l2_max": report["param_change_rel_l2_max"],
+          "param_change_rel_l2_worst": report["param_change_rel_l2_worst"]})
+    del one
+    torch.cuda.empty_cache()
+
+
 def main_ddp_cards() -> int:
     """``--ddp-cards``: the ddp phase over several cards alone, for a
     machine with several: the build, the kernels at the ranks' shapes, the
     one-process parity steps and one card's step rate, then (c) and (b)
-    over every card, then the sp phase with NCCL over them."""
+    over every card, then the sp phase with NCCL over them (its training
+    legs too), then ``solve_gta5 --sp 2`` over them."""
     cards = torch.cuda.device_count()
     check(cards >= 2 and TRAIN_BATCH % cards == 0,
           f"--ddp-cards needs 2 or more cards that share a global batch of {TRAIN_BATCH}; "
@@ -3416,7 +3727,12 @@ def main_ddp_cards() -> int:
     t_sp = time.perf_counter()
     launches = phase_sp({}, cards)
     check(all(n > 0 for per_rank in launches.values() for n in per_rank),
-          f"a rank launched no eval kernel on the sp path: {launches}")
+          f"a rank launched no kernel of the sp path: {launches}")
+    work = tempfile.mkdtemp(prefix="chip_smoke_sp_cli_")
+    try:
+        _sp_cli_run(cards, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     emit({"phase": "summary", "wall_seconds": time.perf_counter() - t_start,
           "seconds_by_phase": {"sp": time.perf_counter() - t_sp}})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3500,13 +3816,18 @@ def main() -> int:
     sp_launches = phase_sp(checked_all)
     kernel["sp_launches_per_rank"] = sp_launches["fused_bottleneck"]
     bf16_kernels[0]["sp_launches_per_rank"] = sp_launches["fused_bottleneck_bf16"]
+    # the training path under --sp: each rank's launches in one UDA step
+    for k in (*train_kernels, bf16_kernels[1]):
+        if k["name"] in sp_launches:
+            k["sp_train_launches_per_rank_per_step"] = sp_launches[k["name"]]
     lap("sp")
     phase_ddp(bare_steps_per_s, checked_all)
     lap("ddp")
     kernels = (kernel, *train_kernels, masked_kernel, *bf16_kernels, probe)
     for k in kernels:
         check(k["launches"] > 0, f"the main path launched no {k['name']}")
-        check(all(n > 0 for n in k.get("sp_launches_per_rank", [1])),
+        check(all(n > 0 for n in k.get("sp_launches_per_rank", [1])
+                  + k.get("sp_train_launches_per_rank_per_step", [1])),
               f"a rank of the sp path launched no {k['name']}")
     emit({"phase": "summary", "wall_seconds": time.perf_counter() - t_start,
           "seconds_by_phase": seconds})

@@ -10,9 +10,9 @@ bfloat16; parameters, optimizer and checkpoints float32), one process per card
 --num_processes --process_id``); batch sizes are global. A flag for
 something the port does not have yet raises in ``check_supported`` with the
 ROADMAP item it waits on, instead of being ignored. ``--sp N`` (spatial
-partitioning, ``parallel/spatial.py``) is ported for the serving CLIs
-(``evaluate``, ``predict``: ``check_supported(cfg, serving=True)``), not
-for the trainers.
+partitioning, ``parallel/spatial.py``) is ported for the serving CLIs and
+the trainers; with ``--concat_batches true`` or ``--remat stages`` the
+trainers raise (ROADMAP Queue 1 item 2, sub-step (d)).
 """
 
 from __future__ import annotations
@@ -98,7 +98,7 @@ class TrainConfig:
     # shard the global batch over the processes; false with several
     # processes raises (each would train a model of its own)
     data_parallel: bool = True
-    sp: int = 1                        # spatial partitioning (evaluate, predict)
+    sp: int = 1                        # spatial partitioning: ranks a space group
     # stream the eval upsample→softmax→argmax→CM tail over N output rows at
     # a time (exact: row-local interpolation); -1 = auto (256-row chunks
     # whenever the label height exceeds 512), 0 = off
@@ -131,36 +131,42 @@ class TrainConfig:
         return torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
 
 
-# (field, value that is fine, why not) for every option the port lacks; the
-# serving CLIs skip the fields of _SERVING_PORTED
+# (field, value that is fine, why not) for every option the port lacks
 _UNPORTED = (
-    ("sp", 1, "--sp > 1 in training waits on spatial partitioning's training half (ROADMAP "
-     "Queue 1 item 2, spatial partitioning, sub-step (b)); evaluate and predict take --sp"),
     ("freeze_bn", True, "--freeze_bn false: BN is always frozen (folded into buffers), "
      "as in the JAX package"),
 )
-_SERVING_PORTED = ("sp",)
+# the same for the trainers' options that do not compose with --sp > 1 yet
+# (the JAX package has both through GSPMD)
+_UNPORTED_WITH_SP = (
+    ("concat_batches", False, "--concat_batches under --sp (spatial partitioning) waits on "
+     "ROADMAP Queue 1 item 2, sub-step (d): the masked canvas on row shards"),
+    ("remat", "", "--remat under --sp (spatial partitioning) waits on ROADMAP Queue 1 item 2, "
+     "sub-step (d): the halo exchanges re-run inside a recompute"),
+)
 
 
 def check_supported(cfg: TrainConfig, serving: bool = False) -> None:
     """Raise on an option the port does not have: never ignore it.
-    ``serving``: the checks of ``evaluate`` and ``predict``, which take
-    ``--sp`` (with several processes ``--sp`` must divide their number)."""
-    for name, ok, why in _UNPORTED:
-        if getattr(cfg, name) != ok and not (serving and name in _SERVING_PORTED):
-            raise NotImplementedError(f"{name}={getattr(cfg, name)!r} is not ported: {why}")
+    ``serving``: the checks of ``evaluate`` and ``predict``, which read no
+    training option. With several processes ``--sp`` must divide their
+    number."""
+    for name, ok, why in _UNPORTED + (() if serving or cfg.sp <= 1 else _UNPORTED_WITH_SP):
+        if getattr(cfg, name) != ok:
+            what = f"{name}={getattr(cfg, name)!r}" + (f" with sp={cfg.sp}" if cfg.sp > 1 else "")
+            raise NotImplementedError(f"{what} is not ported: {why}")
     from maxsquareloss_torch.parallel.ddp import world
     from maxsquareloss_torch.parallel.multihost import launched_world
 
     # before the group exists, the launcher's or the flags' count
     procs = max(world(), launched_world(cfg.num_processes))
-    if serving and procs % cfg.sp:
+    if procs % cfg.sp:
         raise ValueError(f"--sp {cfg.sp} does not divide the {procs} process(es): run a "
                          f"multiple of {cfg.sp} processes (one space group each)")
     if not cfg.data_parallel:
         # --sp N with --data_parallel false is one space group: the JAX
         # package's (1, sp) mesh
-        if world() > (cfg.sp if serving else 1):
+        if world() > cfg.sp:
             # the JAX package's processes then each jit a step of their own
             # on their shard and never sync: that trains world models, not one
             raise ValueError(f"--data_parallel false with {world()} processes would train "

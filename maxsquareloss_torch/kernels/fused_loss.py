@@ -30,18 +30,23 @@ THREADS = 256           # kThreads in the .cu: pixels per tile
 PX_PER_BLOCK = 8 * THREADS  # pixels per block: the forward's partial granularity
 
 
-def fused_iw_max_square_loss_reference(logits: torch.Tensor, weights: torch.Tensor):
-    """The plain version: ``-sum(p^2 * w[n, argmax p]) / (N * C)``."""
+def fused_iw_max_square_loss_reference(logits: torch.Tensor, weights: torch.Tensor,
+                                       normalizer: float | None = None):
+    """The plain version: ``-sum(p^2 * w[n, argmax p]) / (N * C)``
+    (``normalizer`` in place of N * C)."""
     n, _, _, c = logits.shape
     p = torch.softmax(logits, dim=-1)
     amax = p.detach().argmax(dim=-1)  # the first max, as the kernel
     w_pix = weights.detach().gather(1, amax.reshape(n, -1)).reshape(amax.shape)
-    return -(p.square() * w_pix.unsqueeze(-1)).sum() / (n * c)
+    return -(p.square() * w_pix.unsqueeze(-1)).sum() / (n * c if normalizer is None
+                                                        else normalizer)
 
 
-def fused_max_square_loss_reference(logits: torch.Tensor):
-    """The plain version: ``-mean(softmax(logits)^2) / 2``."""
-    return -torch.softmax(logits, dim=-1).square().mean() / 2.0
+def fused_max_square_loss_reference(logits: torch.Tensor, normalizer: float | None = None):
+    """The plain version: ``-mean(softmax(logits)^2) / 2`` (the sum over
+    ``normalizer`` in place of the mean)."""
+    sq = torch.softmax(logits, dim=-1).square()
+    return -(sq.mean() if normalizer is None else sq.sum() / normalizer) / 2.0
 
 
 def _library() -> ctypes.CDLL:
@@ -140,30 +145,35 @@ class _FusedMaxSquareFn(torch.autograd.Function):
         return dx, None, None, None
 
 
-def fused_iw_max_square_loss(logits: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+def fused_iw_max_square_loss(logits: torch.Tensor, weights: torch.Tensor,
+                             normalizer: float | None = None) -> torch.Tensor:
     """IW max-squares from NHWC logits and detached per-image class weights:
     ``-sum(p^2 * weights[n, argmax_c p]) / (N * C)``, p = softmax over C
-    (``ops.losses.iw_max_square_loss`` of the softmax). Returns a 0-d
-    float32 tensor; ``weights`` gets no gradient."""
+    (``ops.losses.iw_max_square_loss`` of the softmax). ``normalizer``
+    replaces N * C: a spatial shard's sum takes the global batch's
+    (``train/steps.py``). Returns a 0-d float32 tensor; ``weights`` gets no
+    gradient."""
     _check(logits, weights, "fused IW max-square loss")
     if logits.device.type == "cpu":
-        return fused_iw_max_square_loss_reference(logits, weights)
+        return fused_iw_max_square_loss_reference(logits, weights, normalizer)
     if logits.device.type != "cuda":
         raise ValueError(f"fused IW max-square loss: no kernel for device {logits.device}")
     n, _, _, c = logits.shape
-    return _FusedMaxSquareFn.apply(logits, weights, -1.0 / (n * c), -2.0 / (n * c))
+    norm = n * c if normalizer is None else normalizer
+    return _FusedMaxSquareFn.apply(logits, weights, -1.0 / norm, -2.0 / norm)
 
 
-def fused_max_square_loss(logits: torch.Tensor) -> torch.Tensor:
+def fused_max_square_loss(logits: torch.Tensor, normalizer: float | None = None) -> torch.Tensor:
     """Max-squares from NHWC logits: ``-mean(softmax(logits)^2) / 2``
-    (``ops.losses.max_square_loss`` of the softmax). Returns a 0-d float32
-    tensor."""
+    (``ops.losses.max_square_loss`` of the softmax). ``normalizer``
+    replaces the mean's count N*H*W*C (a spatial shard's: the global
+    batch's). Returns a 0-d float32 tensor."""
     _check(logits, None, "fused max-square loss")
     if logits.device.type == "cpu":
-        return fused_max_square_loss_reference(logits)
+        return fused_max_square_loss_reference(logits, normalizer)
     if logits.device.type != "cuda":
         raise ValueError(f"fused max-square loss: no kernel for device {logits.device}")
-    m = logits.numel()
+    m = logits.numel() if normalizer is None else normalizer
     return _FusedMaxSquareFn.apply(logits, None, -1.0 / (2.0 * m), -1.0 / m)
 
 

@@ -61,10 +61,10 @@ input, as the JAX package's ``conv_site``, from the kernel the card
 serves. ``DeepLabV2.drop_fused_conv_weights`` frees the conv kernels that
 the identity blocks' packed copies replace (the serving export).
 
-Spatial partitioning (``forward(x, space=..., in_h=...)``, eval only; the
-serving half of the JAX package's ``--sp``): ``x`` holds this rank's rows
-of an input of ``in_h`` rows and every map is split by rows over the space
-group (``parallel/spatial.py``). Each op that reads H takes the window its
+Spatial partitioning (``forward(x, space=..., in_h=...)``; the JAX
+package's ``--sp``): ``x`` holds this rank's rows of an input of ``in_h``
+rows and every map is split by rows over the space group
+(``parallel/spatial.py``). Each op that reads H takes the window its
 own output rows read, fetched from the ranks that own it and padded only
 where it passes the global border, and runs with H padding 0: the stem's
 7x7/2 (``_sp_conv``), the ceil-mode pool (padded with -inf, ``_sp_pool``),
@@ -73,7 +73,14 @@ the non-fusable blocks' convs (``Bottleneck.forward_sp``), and the heads
 identity block runs the fused kernel on its input over ``[o0 - d, o1 +
 d)`` clipped to the image, so the kernel's own zero padding falls only on
 the global border, and keeps rows ``[o0, o1)``: the kernel is the same;
-the halo rows are computed twice. W stays whole.
+the halo rows are computed twice. W stays whole. With grad (a train step
+inside ``spatial.training``) the same forward trains: the fetches carry
+their gradients back to the rows' owners, an identity block runs
+``FusedBottleneckFn`` (the emit kernel and ``bottleneck_backward``) on
+its window, whose discarded halo rows get a zero gradient, and each weight
+gradient is this rank's rows' share. A rank that owns no rows of a map
+launches nothing for it (``spatial.no_rows``). Canvas masks
+(``--concat_batches``), stage remat and int8 do not compose with it.
 """
 
 from __future__ import annotations
@@ -169,11 +176,6 @@ def _sp_input(y: torch.Tensor, h_in: int, h_out: int, space: SpaceGroup, k: int,
     return _nchw(spatial.fetch_window(_nhwc(y), h_in, need, space, pad_value))
 
 
-def _no_rows(y: torch.Tensor, c: int, w: int) -> torch.Tensor:
-    """The output of a rank that owns no rows of a map: (N, c, 0, w)."""
-    return y.new_empty((y.shape[0], c, 0, w)).contiguous(memory_format=torch.channels_last)
-
-
 def _sp_conv(conv: Conv2d, y: torch.Tensor, h_in: int, space: SpaceGroup):
     """``conv`` on this rank's rows of a map of ``h_in`` rows: (its rows of
     the output, the output's height)."""
@@ -184,7 +186,8 @@ def _sp_conv(conv: Conv2d, y: torch.Tensor, h_in: int, space: SpaceGroup):
     win = _sp_input(y, h_in, h_out, space, k, s, p, d)
     if win.shape[2] == 0:
         w_out = (y.shape[3] + 2 * pw - dw * (kw - 1) - 1) // sw + 1
-        return _no_rows(y, conv.out_channels, w_out), h_out
+        return spatial.no_rows((y.shape[0], conv.out_channels, 0, w_out), y, y, conv.weight,
+                               conv.bias), h_out
     return conv(win, pad_h=0), h_out
 
 
@@ -195,7 +198,8 @@ def _sp_pool(y: torch.Tensor, h_in: int, space: SpaceGroup):
     h_out = math.ceil((h_in + 2 - 3) / 2) + 1
     win = _sp_input(y, h_in, h_out, space, 3, 2, 1, 1, pad_value=-math.inf)
     if win.shape[2] == 0:
-        return _no_rows(y, y.shape[1], math.ceil((y.shape[3] + 2 - 3) / 2) + 1), h_out
+        w_out = math.ceil((y.shape[3] + 2 - 3) / 2) + 1
+        return spatial.no_rows((y.shape[0], y.shape[1], 0, w_out), y, y), h_out
     return F.max_pool2d(win, 3, stride=2, padding=(0, 1), ceil_mode=True), h_out
 
 
@@ -297,7 +301,8 @@ class Bottleneck(nn.Module):
             o0, o1 = space.own(h)
             xw = _sp_input(x, h, h, space, 3, 1, d, d, pad_value=None)
             if o1 <= o0:
-                return x, h
+                return spatial.no_rows(tuple(x.shape), x, x, self.conv1.weight,
+                                       self.conv2.weight, self.conv3.weight), h
             out = self.forward(xw, kernel, train_kernel)
             a = max(o0 - d, 0)
             return out[:, :, o0 - a: o1 - a], h
@@ -353,12 +358,14 @@ class Classifier(nn.Module):
             z = aspp_products(x, [c.weight for c in convs])
             zh = spatial.fetch_window(z, h, space.windows(h, 3, 1, pad, pad), space)
             if n_own == 0:
-                return _no_rows(x, convs[0].out_channels, x.shape[3]).float()
+                return spatial.no_rows((x.shape[0], convs[0].out_channels, 0, x.shape[3]),
+                                       x, z).float()
             zp = F.pad(zh, (0, 0, pad, pad))
             return aspp_tap_sum(zp, [c.bias for c in convs], ASPP_DILATIONS, n_own)
         xw = _sp_input(x, h, h, space, 3, 1, pad, pad)
         if n_own == 0:
-            return _no_rows(x, convs[0].out_channels, x.shape[3])
+            return spatial.no_rows((x.shape[0], convs[0].out_channels, 0, x.shape[3]), x, x,
+                                   *(p for c in convs for p in (c.weight, c.bias)))
         out = None
         for conv, d in zip(convs, ASPP_DILATIONS):
             y = conv(xw[:, :, pad - d: pad + d + n_own], pad_h=0)
@@ -456,10 +463,10 @@ class DeepLabV2(nn.Module):
         (``make_canvas_masks``): a canvas batch
         whose pad region is re-zeroed before the maxpool (``pool_in``), before every block's 3x3 (``os4``
         in layer1, ``os8`` in layers 2-4) and before both heads (``os8``).
-        ``space``: a spatially partitioned eval forward (the module
-        docstring): ``x`` is this rank's rows of an input of ``in_h`` rows,
-        and the logits are its rows of the global logits
-        (``valid_logits_hw``)."""
+        ``space``: a spatially partitioned forward, eval or (inside
+        ``spatial.training``) training (the module docstring): ``x`` is
+        this rank's rows of an input of ``in_h`` rows, and the logits are
+        its rows of the global logits (``valid_logits_hw``)."""
         if space is not None:
             return self._forward_sp(x, aux, masks, space, in_h)
         m = masks or {}
@@ -487,10 +494,14 @@ class DeepLabV2(nn.Module):
                     in_h: int | None):
         if in_h is None:
             raise ValueError("a spatially partitioned forward needs the input's height in_h")
-        if masks is not None or torch.is_grad_enabled():
+        if masks is not None:
             raise NotImplementedError(
-                "--sp runs the eval forward only: a canvas or a training forward under --sp "
-                "waits on ROADMAP Queue 1 item 2 (spatial partitioning, sub-step (b))")
+                "--concat_batches (a masked canvas) under --sp is not ported: it waits on ROADMAP "
+                "Queue 1 item 2 (spatial partitioning, sub-step (d))")
+        if self.cfg.remat and torch.is_grad_enabled():
+            raise NotImplementedError(
+                f"--remat {self.cfg.remat} under --sp is not ported: it waits on ROADMAP Queue 1 "
+                "item 2 (spatial partitioning, sub-step (d))")
         if self.quantized:
             raise NotImplementedError("--quantize int8 does not compose with --sp")
         aspp_matmul = self.cfg.aspp_matmul

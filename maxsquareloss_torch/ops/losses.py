@@ -7,6 +7,12 @@ host. The fused max-square kernels (``kernels/fused_loss.py``) compute
 ``max_square_loss`` and ``iw_max_square_loss`` of the softmax straight
 from the logits; the functions here are the plain forms the other target
 modes and the tests use.
+
+Spatial partitioning (``--sp``): a rank holds its rows of each image.
+The IW weights come from each image's histogram summed over the space
+group (``iw_pixel_weights(..., space=)``, one all-reduce), and the means
+take ``count``, the number of terms a rank's sum divides by under the
+train steps' scaling rule (``train/steps.py``), in place of their own.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import math
 import torch
 
 from maxsquareloss_torch.ops.histogram import class_histogram, iw_class_weights
+from maxsquareloss_torch.parallel import ddp
 
 IGNORE_INDEX = -1
 
@@ -43,23 +50,31 @@ def soft_cross_entropy(logits: torch.Tensor, target_prob: torch.Tensor) -> torch
     return -(target_prob * torch.log_softmax(logits, dim=-1)).sum(dim=-1).mean()
 
 
-def max_square_loss(prob: torch.Tensor) -> torch.Tensor:
+def _mean(t: torch.Tensor, count: float | None) -> torch.Tensor:
+    return t.mean() if count is None else t.sum() / count
+
+
+def max_square_loss(prob: torch.Tensor, count: float | None = None) -> torch.Tensor:
     """``-mean(p^2) / 2`` (the reference's ignore mask never fires on
-    probabilities)."""
-    return -prob.square().mean() / 2.0
+    probabilities); ``count`` replaces the mean's N*H*W*C."""
+    return -_mean(prob.square(), count) / 2.0
 
 
 @torch.no_grad()
 def iw_pixel_weights(prob: torch.Tensor, label: torch.Tensor | None,
-                     num_classes: int, ratio: float):
+                     num_classes: int, ratio: float, space=None):
     """Detached IW weights: (per-image class weights (N, C), per-pixel
     weights (N, H, W) gathered at the first argmax of ``prob``). The
-    histogram counts ``label`` where given, else the argmax."""
+    histogram counts ``label`` where given, else the argmax; with a space
+    group (``parallel/spatial.py``) each rank counts its rows and the
+    counts are summed over the group, so the weights are the whole
+    image's."""
     n = prob.shape[0]
     argpred = prob.argmax(dim=-1)
-    w = iw_class_weights(
-        class_histogram(argpred if label is None else label, num_classes), ratio
-    )
+    hist = class_histogram(argpred if label is None else label, num_classes)
+    if space is not None:
+        hist = ddp.all_reduce_sum(hist, space.group)
+    w = iw_class_weights(hist, ratio)
     pixel_w = w.gather(1, argpred.reshape(n, -1)).reshape(argpred.shape)
     return w, pixel_w
 
@@ -76,18 +91,21 @@ def _entropy(prob: torch.Tensor) -> torch.Tensor:
     return -(prob * torch.log(prob + 1e-30)).sum(dim=-1)
 
 
-def entropy_loss(prob: torch.Tensor) -> torch.Tensor:
-    """Mean per-pixel Shannon entropy over log(C) (the normalised entropy)."""
-    return _entropy(prob).mean() / math.log(prob.shape[-1])
+def entropy_loss(prob: torch.Tensor, count: float | None = None) -> torch.Tensor:
+    """Mean per-pixel Shannon entropy over log(C) (the normalised entropy);
+    ``count`` replaces the mean's pixel count."""
+    return _mean(_entropy(prob), count) / math.log(prob.shape[-1])
 
 
 def iw_entropy_loss(prob: torch.Tensor, label: torch.Tensor | None = None,
-                    num_classes: int | None = None, ratio: float = 0.2) -> torch.Tensor:
+                    num_classes: int | None = None, ratio: float = 0.2,
+                    count: float | None = None, space=None) -> torch.Tensor:
     """Image-wise class-balanced entropy: mean of ``entropy * w_pix`` over
-    log(C)."""
+    log(C); ``count`` and ``space`` as in ``entropy_loss`` and
+    ``iw_pixel_weights``."""
     c = num_classes or prob.shape[-1]
-    _, pixel_w = iw_pixel_weights(prob, label, c, ratio)
-    return (_entropy(prob) * pixel_w).mean() / math.log(c)
+    _, pixel_w = iw_pixel_weights(prob, label, c, ratio, space)
+    return _mean(_entropy(prob) * pixel_w, count) / math.log(c)
 
 
 @torch.no_grad()

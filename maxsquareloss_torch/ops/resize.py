@@ -6,7 +6,9 @@ W_w.T``, as in the JAX package: a block of output rows is then just a row
 slice of ``W_h``, so the ``h_rows`` streaming of the eval tail stays exact.
 A spatial shard (``--sp``) holds a window of the input's rows: ``in_h``
 and ``row0`` say which, ``input_rows`` which window a block of output rows
-reads, and the product takes those columns of the global ``W_h``.
+reads, and the product takes those columns of the global ``W_h``;
+``resize_shard`` fetches that window from the rows' owners (with grad in
+training: the fetch carries the gradient back).
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import functools
 
 import numpy as np
 import torch
+
+from maxsquareloss_torch.parallel import spatial
 
 
 @functools.lru_cache(maxsize=64)
@@ -95,3 +99,14 @@ def resize_bilinear_align_corners(
 def upsample_logits(logits: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """Upsample NHWC logits to label resolution (align_corners=True)."""
     return resize_bilinear_align_corners(logits, out_hw)
+
+
+def resize_shard(x: torch.Tensor, in_h: int, out_hw: tuple[int, int], space) -> torch.Tensor:
+    """This rank's rows of the align-corners resize to ``out_hw`` of a map of
+    ``in_h`` rows split over ``space`` (``x``: its rows): the global
+    matrix's rows over the input rows they read, fetched from their owners
+    (``spatial.fetch_rows``). Collective over the space group."""
+    need = [input_rows(out_hw[0], in_h, *o) for o in space.split(out_hw[0])]
+    win = spatial.fetch_rows(x, space.split(in_h), need, space)
+    return resize_bilinear_align_corners(win, out_hw, h_rows=space.own(out_hw[0]), in_h=in_h,
+                                         row0=need[space.index][0])

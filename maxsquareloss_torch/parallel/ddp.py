@@ -17,6 +17,13 @@ tensors, through a host copy, which is how two ranks share one card). The
 collectives take a ``group`` (default: every rank), such as a space group
 of ``parallel/spatial.py``; under ``--sp`` the data groups share a batch
 (``local_batch(..., sp=...)``).
+
+Training under ``--sp`` takes no DDP wrapper: its backward exchanges halo
+gradients between the ranks of a space group, and DDP's bucket
+all-reduces, fired from inside that backward, would interleave with them
+in an order that differs between ranks. It starts from rank 0's
+parameters (``broadcast_module``) and averages the gradients over the
+world in one all-reduce after ``backward()`` (``average_gradients``).
 """
 
 from __future__ import annotations
@@ -97,6 +104,53 @@ def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
     parts = [torch.empty_like(src) for _ in range(_size(group))]
     dist.all_gather(parts, src.contiguous(), group=group)
     return torch.stack(parts).to(t.device)
+
+
+def _flat_collective(tensors: list[torch.Tensor], fn) -> None:
+    """``fn(flat)`` on one flat copy of ``tensors`` (one dtype) on the
+    collective's device, copied back into them in place."""
+    flat = torch.cat([t.reshape(-1) for t in tensors]).to(_comm_device(tensors[0]))
+    fn(flat)
+    flat = flat.to(tensors[0].device)
+    offset = 0
+    for t in tensors:
+        t.copy_(flat[offset: offset + t.numel()].view_as(t))
+        offset += t.numel()
+
+
+@torch.no_grad()
+def broadcast_module(module: torch.nn.Module, src: int = 0) -> None:
+    """Every parameter and persistent buffer of ``module`` from rank
+    ``src`` (a broadcast a dtype), as DDP's wrapper does at its start."""
+    if world() == 1:
+        return
+    tensors = [*module.parameters(), *module.state_dict().values()]
+    seen, by_dtype = set(), {}
+    for t in tensors:
+        if t.data_ptr() not in seen and t.is_floating_point():
+            seen.add(t.data_ptr())
+            by_dtype.setdefault(t.dtype, []).append(t.data)
+    for group in by_dtype.values():
+        _flat_collective(group, lambda flat: dist.broadcast(flat, src))
+
+
+@torch.no_grad()
+def average_gradients(params: list[torch.Tensor]) -> None:
+    """Each gradient replaced by its mean over the world's ranks, in one
+    all-reduce (the mean DDP takes); a parameter without one takes zeros,
+    so every rank's buffer has every parameter."""
+    if world() == 1:
+        return
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    grads = [p.grad for p in params]
+
+    def mean(flat):
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+        flat.div_(world())
+
+    _flat_collective(grads, mean)
 
 
 def any_flag(flag: bool) -> bool:

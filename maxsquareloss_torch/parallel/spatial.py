@@ -1,5 +1,6 @@
-"""Spatial partitioning of the eval forward (``--sp``): the port's
-counterpart of the ``'space'`` axis of ``maxsquareloss_tpu/parallel/mesh.py``.
+"""Spatial partitioning (``--sp``): the port's counterpart of the
+``'space'`` axis of ``maxsquareloss_tpu/parallel/mesh.py``, for the eval
+forward and for training.
 
 The JAX package shards the image height over a mesh axis and GSPMD
 inserts the halo exchanges. Here each rank is a process of its own and the
@@ -8,7 +9,8 @@ exchanges are explicit:
 - **Groups.** The world is dp x sp ranks and a space group is ``sp``
   consecutive ranks (``devices.reshape(len // sp, sp)`` in JAX).
   ``space_group`` makes them: every rank creates every subgroup, in the same
-  order; at ``sp == world`` the space group is the world group.
+  order, each a process group of its own (at ``sp == world`` too), so the
+  exchanges never share a communicator with the world's collectives.
 - **Ownership.** Every map of global height H splits the same way: rank
   ``s`` of its group owns rows ``[s*H//sp, (s+1)*H//sp)`` (``split``). A
   map's height comes from the global input height, never from a shard,
@@ -28,15 +30,32 @@ an explicit host copy (as ``parallel/ddp.py``'s collectives do), which is
 how two ranks share one card and how the CPU tests run. An exchange that
 fails raises: no path falls back to one process.
 
-The exchange is written to be reversed: the backward of ``fetch_rows``
-is the same plan with sends and receives swapped and the halo gradients
-added to the owner's rows (not built yet; the trainers refuse ``--sp``).
+**The backward** (training). Under grad a fetch that moves rows is an
+``autograd.Function`` whose backward runs the same plan reversed: each
+rank sends back the gradient of the rows it fetched from a peer, and the
+owner adds the halo gradients to the gradient of its own rows, every
+contribution in rank order (deterministic, whatever the requests'
+overlaps). Padding past the border gets no gradient (``F.pad``'s
+adjoint), and the -inf of the ceil-mode pool never wins a max against a
+real row. The exchanges of a backward must pair up on every rank in the
+same order, while autograd orders ready nodes by what each rank's graph
+holds: so every such fetch also takes and returns a 0-d *token*, chained
+from one fetch to the next in forward order and joined to the loss
+(``join``); the backward then runs the exchanges in exactly the reverse
+order on every rank, and runs each on a rank whose own rows of the map
+reach no loss. A training forward under ``--sp`` runs inside
+``training(space)``. A map that a rank owns no rows of is an empty tensor
+tied to the op's inputs and parameters (``no_rows``), so its
+``requires_grad`` is every rank's and each parameter gets a gradient
+(zero) on every rank.
+
 A group's ``stats`` count the bytes this rank sent and received, the
-exchanges and their wall seconds.
+exchanges and their wall seconds, forward and (``backward_*``) backward.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
@@ -80,27 +99,33 @@ def _overlap(a: Rows, b: Rows) -> Rows:
     return (lo, hi) if hi > lo else (lo, lo)
 
 
+_STATS = ("bytes_sent", "bytes_received", "exchanges", "seconds")
+
+
 @dataclasses.dataclass(frozen=True)
 class SpaceGroup:
     """A rank's space group: ``sp`` ranks that split every map's rows.
     ``index``: this rank's place in it; ``ranks``: the group's global
-    ranks in order; ``group``: its process group (None: the world's);
-    ``stats``: this rank's exchanges since ``reset_stats``: bytes sent and
-    received, exchanges with a send or a receive, and their wall seconds
-    (over gloo the transfer's; over NCCL the host's, which does not wait
-    for the card)."""
+    ranks in order; ``group``: its process group; ``stats``: this rank's
+    exchanges since ``reset_stats``: bytes sent and received, exchanges
+    with a send or a receive, and their wall seconds (over gloo the
+    transfer's; over NCCL the host's, which does not wait for the card),
+    forward and, as ``backward_<key>``, backward; ``chain``: the token
+    chain of the training forward in flight (``training``)."""
 
     sp: int
     index: int
     ranks: tuple[int, ...]
     group: object | None = None
     stats: dict = dataclasses.field(default_factory=dict, compare=False)
+    chain: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     def __post_init__(self):
         self.reset_stats()
 
     def reset_stats(self) -> None:
-        self.stats.update(bytes_sent=0, bytes_received=0, exchanges=0, seconds=0.0)
+        self.stats.update({k: 0 for k in _STATS}, seconds=0.0)
+        self.stats.update({f"backward_{k}": 0 for k in _STATS}, backward_seconds=0.0)
 
     def own(self, h: int) -> Rows:
         return rows(h, self.sp, self.index)
@@ -122,9 +147,10 @@ _groups: dict[int, SpaceGroup] = {}
 
 def space_group(sp: int) -> SpaceGroup | None:
     """This rank's space group for ``--sp sp`` (None for 1): the world's
-    ranks in consecutive blocks of ``sp``. The first call for an ``sp``
-    creates every block's process group, in the same order on every rank
-    (``dist.new_group`` is collective); later calls return it."""
+    ranks in consecutive blocks of ``sp``, each block a process group of its
+    own. The first call for an ``sp`` creates every block's group, in the
+    same order on every rank (``dist.new_group`` is collective); later calls
+    return it."""
     if sp <= 1:
         return None
     if sp in _groups:
@@ -133,14 +159,11 @@ def space_group(sp: int) -> SpaceGroup | None:
     if world % sp:
         raise ValueError(f"--sp {sp} does not divide the {world} process(es)")
     mine = None
-    if sp == world:
-        mine = SpaceGroup(sp, rank, tuple(range(world)))
-    else:
-        for g in range(world // sp):
-            ranks = tuple(range(g * sp, (g + 1) * sp))
-            pg = dist.new_group(list(ranks))
-            if rank in ranks:
-                mine = SpaceGroup(sp, rank - ranks[0], ranks, pg)
+    for g in range(world // sp):
+        ranks = tuple(range(g * sp, (g + 1) * sp))
+        pg = dist.new_group(list(ranks))
+        if rank in ranks:
+            mine = SpaceGroup(sp, rank - ranks[0], ranks, pg)
     # form the group's communicator with every rank in it (NCCL wants its
     # first call on a group to include all of the group's ranks)
     ddp.all_reduce_sum(torch.zeros(1), mine.group)
@@ -155,6 +178,139 @@ def data_groups(sp: int) -> tuple[int, int]:
     return ddp.rank() // max(sp, 1), ddp.world() // max(sp, 1)
 
 
+def _p2p(space: SpaceGroup, like: torch.Tensor, sends: dict, recvs: dict,
+         backward: bool) -> dict:
+    """One exchange: ``sends[peer]`` goes to each peer, a tensor of shape
+    ``recvs[peer]`` (``like``'s dtype) comes from each; returns the received
+    tensors on ``like``'s device, by peer."""
+    gloo = space.backend() == "gloo"
+    comm = torch.device("cpu") if like.device.type == "cuda" and gloo else like.device
+    stats, pre = space.stats, "backward_" if backward else ""
+    ops, got = [], {}
+    for peer in range(space.sp):
+        if peer in recvs:
+            got[peer] = torch.empty(recvs[peer], dtype=like.dtype, device=comm)
+            ops.append(dist.P2POp(dist.irecv, _wire(got[peer], gloo), space.ranks[peer],
+                                  space.group))
+        if peer in sends:
+            out = sends[peer].to(comm, copy=True).contiguous()
+            ops.append(dist.P2POp(dist.isend, _wire(out, gloo), space.ranks[peer],
+                                  space.group))
+            stats[pre + "bytes_sent"] += out.numel() * out.element_size()
+    if ops:
+        t0 = time.perf_counter()
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        stats[pre + "exchanges"] += 1
+        stats[pre + "seconds"] += time.perf_counter() - t0
+        stats[pre + "bytes_received"] += sum(b.numel() * b.element_size() for b in got.values())
+    return {peer: b.to(like.device) for peer, b in got.items()}
+
+
+def _wire(t: torch.Tensor, gloo: bool) -> torch.Tensor:
+    """``t`` as the backend moves it: over gloo 2-byte floats as int16 (the
+    same bytes); NCCL moves bfloat16 itself and has no int16."""
+    return t.view(torch.int16) if gloo and t.dtype in (torch.bfloat16, torch.float16) else t
+
+
+def _rows_of(t: torch.Tensor, r: Rows, first: int) -> torch.Tensor:
+    """Rows ``r`` of a map of which ``t`` holds rows from ``first`` on."""
+    return t.narrow(1, r[0] - first, r[1] - r[0])
+
+
+def _plan(own: list[Rows], want: list[Rows], me: int) -> tuple[dict, dict]:
+    """(the rows of its window that each peer owns, the rows of its own that
+    each peer wants), by peer in rank order, empty overlaps left out."""
+    gets = {p: _overlap(o, want[me]) for p, o in enumerate(own)}
+    gives = {p: _overlap(own[me], w) for p, w in enumerate(want)}
+    return ({p: r for p, r in gets.items() if r[1] > r[0]},
+            {p: r for p, r in gives.items() if r[1] > r[0]})
+
+
+def _shape(t: torch.Tensor, r: Rows) -> tuple:
+    return (t.shape[0], r[1] - r[0], *t.shape[2:])
+
+
+def _fetch(x: torch.Tensor, own: list[Rows], want: list[Rows], space: SpaceGroup):
+    me = space.index
+    gets, gives = _plan(own, want, me)
+    got = _p2p(space, x, {p: _rows_of(x, r, own[me][0]) for p, r in gives.items() if p != me},
+               {p: _shape(x, r) for p, r in gets.items() if p != me}, backward=False)
+    # in row order: peers own rows in rank order
+    pieces = [_rows_of(x, r, own[me][0]) if p == me else got[p] for p, r in gets.items()]
+    if not pieces:
+        return x.new_empty((x.shape[0], 0, *x.shape[2:]))
+    return torch.cat(pieces, dim=1) if len(pieces) > 1 else pieces[0].contiguous()
+
+
+def _fetch_backward(g: torch.Tensor, x_rows: int, own: list[Rows], want: list[Rows],
+                    space: SpaceGroup) -> torch.Tensor:
+    """The adjoint of ``_fetch``: the gradient of this rank's ``x_rows``
+    rows from the gradient ``g`` of its fetched rows, each peer's halo
+    gradient added to the rows it fetched, in rank order."""
+    me = space.index
+    gets, gives = _plan(own, want, me)
+    got = _p2p(space, g, {p: _rows_of(g, r, want[me][0]) for p, r in gets.items() if p != me},
+               {p: _shape(g, r) for p, r in gives.items() if p != me}, backward=True)
+    dx = g.new_zeros((g.shape[0], x_rows, *g.shape[2:]))
+    for p, r in gives.items():
+        _rows_of(dx, r, own[me][0]).add_(_rows_of(g, r, want[me][0]) if p == me else got[p])
+    return dx
+
+
+class _FetchRows(torch.autograd.Function):
+    """``_fetch`` with its adjoint; ``token`` in, the next token out (the
+    order of the backward's exchanges, module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, token, own, want, space):
+        ctx.plan = (x.shape[1], own, want, space)
+        out = _fetch(x, own, want, space)
+        if out.untyped_storage().data_ptr() == x.untyped_storage().data_ptr():
+            out = out.clone()  # a Function's output is no view of its input
+        return out, token.new_zeros(())
+
+    @staticmethod
+    def backward(ctx, g, g_token):
+        x_rows, own, want, space = ctx.plan
+        return _fetch_backward(g.contiguous(), x_rows, own, want, space), g_token, None, None, None
+
+
+class _Join(torch.autograd.Function):
+    """``loss`` itself, with the token chain behind it."""
+
+    @staticmethod
+    def forward(ctx, loss, token):
+        return loss.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, torch.zeros((), dtype=g.dtype, device=g.device)
+
+
+@contextlib.contextmanager
+def training(space: SpaceGroup | None):
+    """The scope of one training forward and backward under ``space`` (a
+    no-op for None): its fetches chain their tokens, and ``join`` ties the
+    chain to the loss."""
+    if space is None:
+        yield
+        return
+    space.chain.clear()
+    space.chain["open"] = True
+    try:
+        yield
+    finally:
+        space.chain.clear()
+
+
+def join(loss: torch.Tensor, space: SpaceGroup | None) -> torch.Tensor:
+    """``loss`` with this forward's token chain joined to it, so that its
+    backward runs every exchange of the forward in reverse order."""
+    token = None if space is None else space.chain.get("token")
+    return loss if token is None else _Join.apply(loss, token)
+
+
 def fetch_rows(x: torch.Tensor, own: list[Rows], need: list[Rows],
                space: SpaceGroup) -> torch.Tensor:
     """Rows ``need[index]`` of the global map, clipped to ``[0, H)``, as one
@@ -163,56 +319,26 @@ def fetch_rows(x: torch.Tensor, own: list[Rows], need: list[Rows],
     the map, ``need`` every rank's request (H = ``own[-1][1]``). Collective
     over the space group: every rank calls it with the same ``own`` and
     ``need``, and sends each peer the rows of its own that the peer needs.
-    Moves only those rows."""
+    Moves only those rows. Differentiable in ``x`` (module docstring)."""
     me, h = space.index, own[-1][1]
     if x.shape[1] != own[me][1] - own[me][0]:
         raise ValueError(f"fetch_rows: rank {me} holds {x.shape[1]} rows, owns {own[me]}")
     want = [clip(r, h) for r in need]
-    gloo = space.backend() == "gloo"
-    via_host = x.device.type == "cuda" and gloo
-    comm = torch.device("cpu") if via_host else x.device
-
-    def local(r: Rows) -> torch.Tensor:
-        return x.narrow(1, r[0] - own[me][0], r[1] - r[0])
-
-    ops, pieces, received = [], [], []
-    for peer in range(space.sp):
-        # what this rank receives from peer (in row order: peers own rows in
-        # rank order), and what it sends peer
-        got = _overlap(own[peer], want[me])
-        if got[1] > got[0]:
-            if peer == me:
-                pieces.append(local(got))
-            else:
-                buf = torch.empty((x.shape[0], got[1] - got[0], *x.shape[2:]), dtype=x.dtype,
-                                  device=comm)
-                ops.append(dist.P2POp(dist.irecv, _wire(buf, gloo), space.ranks[peer],
-                                      space.group))
-                pieces.append(buf)
-                received.append(buf)
-        give = _overlap(own[me], want[peer])
-        if peer != me and give[1] > give[0]:
-            out = local(give).to(comm, copy=True).contiguous()
-            ops.append(dist.P2POp(dist.isend, _wire(out, gloo), space.ranks[peer],
-                                  space.group))
-            space.stats["bytes_sent"] += out.numel() * out.element_size()
-    if ops:
-        t0 = time.perf_counter()
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        space.stats["exchanges"] += 1
-        space.stats["seconds"] += time.perf_counter() - t0
-        space.stats["bytes_received"] += sum(b.numel() * b.element_size() for b in received)
-    pieces = [p.to(x.device) for p in pieces]
-    if not pieces:
-        return x.new_empty((x.shape[0], 0, *x.shape[2:]))
-    return torch.cat(pieces, dim=1) if len(pieces) > 1 else pieces[0].contiguous()
-
-
-def _wire(t: torch.Tensor, gloo: bool) -> torch.Tensor:
-    """``t`` as the backend moves it: over gloo 2-byte floats as int16 (the
-    same bytes); NCCL moves bfloat16 itself and has no int16."""
-    return t.view(torch.int16) if gloo and t.dtype in (torch.bfloat16, torch.float16) else t
+    moves = any(p != q for q in range(space.sp) for p in _plan(own, want, q)[0])
+    if not (moves and torch.is_grad_enabled() and x.requires_grad):
+        if not moves:  # every window inside its own rows, on every rank: a slice
+            a, b = _overlap(own[me], want[me])
+            return x.narrow(1, a - own[me][0], b - a) if b > a else x[:, :0]
+        with torch.no_grad():
+            return _fetch(x, own, want, space)
+    if not space.chain.get("open"):
+        raise RuntimeError("a forward with grad under --sp runs inside spatial.training(space), "
+                           "whose loss goes through spatial.join (train/steps.py)")
+    token = space.chain.get("token")
+    if token is None:
+        token = torch.zeros((), device=x.device, requires_grad=True)
+    out, space.chain["token"] = _FetchRows.apply(x, token, own, want, space)
+    return out
 
 
 def fetch_window(x: torch.Tensor, h: int, need: list[Rows], space: SpaceGroup,
@@ -235,3 +361,30 @@ def gather_rows(x: torch.Tensor, h: int, space: SpaceGroup, root: int = 0) -> to
     (the others get a map of no rows): ``fetch_rows`` with one request."""
     need = [(0, h) if s == root else (0, 0) for s in range(space.sp)]
     return fetch_rows(x, space.split(h), need, space)
+
+
+class _NoRows(torch.autograd.Function):
+    """An empty map that depends on ``tensors``: their gradient through it
+    is zero."""
+
+    @staticmethod
+    def forward(ctx, empty, *tensors):
+        ctx.specs = [(t.shape, t.dtype, t.device) for t in tensors]
+        return empty.clone(memory_format=torch.channels_last)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, *(torch.zeros(s, dtype=d, device=dev) for s, d, dev in ctx.specs)
+
+
+def no_rows(shape: tuple, like: torch.Tensor, *inputs: torch.Tensor | None) -> torch.Tensor:
+    """The output of a rank that owns no rows of a map: an empty
+    channels_last NCHW map of ``shape`` (H 0) in ``like``'s dtype, which
+    under grad depends on ``inputs`` (the op's input map and parameters), so
+    it requires grad where the other ranks' rows do and each parameter gets
+    a zero gradient here."""
+    empty = like.new_empty(shape).contiguous(memory_format=torch.channels_last)
+    tied = [t for t in inputs if t is not None and t.requires_grad]
+    if not (torch.is_grad_enabled() and tied):
+        return empty
+    return _NoRows.apply(empty, *tied)

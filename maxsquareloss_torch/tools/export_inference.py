@@ -42,8 +42,8 @@ casts them to the activation's dtype at their one use, so the outputs are
 bitwise those of float32 storage; the int8 scales, the fused kernel's BN
 vectors (which it applies in float32) and the heads' biases (which the
 eval form adds in float32) stay float32. ``--sp > 1`` raises: a sharded
-artifact waits on ROADMAP Queue 1 item 2, sub-step (c) (``tools.evaluate``
-and ``tools.predict`` take ``--sp``).
+artifact waits on ROADMAP Queue 1 item 2, sub-step (c) (``tools.evaluate``,
+``tools.predict`` and the trainers take ``--sp``).
 """
 
 from __future__ import annotations
@@ -265,14 +265,14 @@ def main(argv=None):
                    help="glob of calibration images for --quantize int8 (resized to --hw; "
                         "the first 16 matches)")
     p.add_argument("--sp", type=int, default=1,
-                   help="spatial partitioning of the artifact (not ported; evaluate and "
-                        "predict take --sp)")
+                   help="spatial partitioning of the artifact (not ported; evaluate, "
+                        "predict and the trainers take --sp)")
     args = p.parse_args(argv)
     if args.sp > 1:
         raise NotImplementedError(
             f"--sp {args.sp} is not ported for the export: a sharded artifact waits on ROADMAP "
-            "Queue 1 item 2 (spatial partitioning, sub-step (c)); tools.evaluate and "
-            "tools.predict take --sp")
+            "Queue 1 item 2 (spatial partitioning, sub-step (c)); tools.evaluate, "
+            "tools.predict and the trainers take --sp")
     if args.load:
         if not args.selftest:
             meta = json.load(open(args.load + ".json"))

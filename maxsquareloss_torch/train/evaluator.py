@@ -33,7 +33,7 @@ import torch
 from maxsquareloss_torch.config import TrainConfig
 from maxsquareloss_torch.metrics import Eval, confusion_matrix_update
 from maxsquareloss_torch.models.deeplabv2 import eval_form, valid_logits_hw
-from maxsquareloss_torch.ops.resize import input_rows, resize_bilinear_align_corners
+from maxsquareloss_torch.ops.resize import input_rows, resize_bilinear_align_corners, resize_shard
 from maxsquareloss_torch.parallel import ddp, spatial
 from maxsquareloss_torch.parallel.spatial import SpaceGroup
 from maxsquareloss_torch.train.steps import _prepare_inputs
@@ -45,17 +45,6 @@ def resolve_h_chunk(h_chunk: int, out_h: int) -> int:
     if h_chunk < 0:
         return 256 if out_h > 512 else 0
     return h_chunk
-
-
-def _sp_resize(x: torch.Tensor, in_h: int, out_hw, space: SpaceGroup) -> torch.Tensor:
-    """This rank's rows of the align-corners resize of an image of ``in_h``
-    rows split over ``space`` (``x``: its rows): the global matrix's rows
-    over the input rows they read, fetched from their owners."""
-    own = space.own(out_hw[0])
-    need = [input_rows(out_hw[0], in_h, *o) for o in space.split(out_hw[0])]
-    win = spatial.fetch_rows(x, space.split(in_h), need, space)
-    return resize_bilinear_align_corners(win, out_hw, h_rows=own, in_h=in_h,
-                                         row0=need[space.index][0])
 
 
 def tta_prob_rows(model, x: torch.Tensor, scales, flip: bool, out_hw,
@@ -82,7 +71,7 @@ def tta_prob_rows(model, x: torch.Tensor, scales, flip: bool, out_hw,
         elif space is None:
             img = resize_bilinear_align_corners(x, (sh, sw))
         else:
-            img = _sp_resize(x, h, (sh, sw), space)
+            img = resize_shard(x, h, (sh, sw), space)
         sp_args = {} if space is None else {"space": space, "in_h": sh}
         lh, row0 = valid_logits_hw((sh, sw))[0], 0
         if flip:

@@ -24,6 +24,23 @@ are means over equal per-rank shares, which average right as they are.
 The returned metrics are the global batch's (one all-gather a step). In
 one process none of this runs: the step is the one-card step.
 
+Spatial partitioning (``--sp``, ``parallel/spatial.py``): every rank of a
+space group gets its data group's images and takes its rows of them and of
+the labels (``--sp`` must divide each height, so every rank's share of
+the labels is equal). The model runs its spatially partitioned forward
+inside ``spatial.training``, each head's logits are upsampled to the
+rank's label rows from the rows they read (``resize_shard``), the
+guidance is per pixel, and the IW histograms are summed over the space
+group. **One scaling rule for every loss on every rank:** this rank's sum
+of the global loss's terms times the world size over the global
+normalizer (the CEs' valid counts, the pixel counts of the means, N*C of
+the IW loss, N*H*W*C of max-squares), so that the mean over the world is
+the global batch's loss and gradient; the data-parallel forms above are
+its case sp = 1. The gradients are averaged over the world in one
+all-reduce after the backward, not by DDP (``parallel/ddp.py``), after the
+token chain has run every exchange's backward in order
+(``spatial.join``).
+
 ``--concat_batches``: the UDA step runs source and target as one forward
 over a canvas batch (zero-padded at the bottom and right to the larger
 crop, the pad region re-zeroed by the model's canvas masks), then slices
@@ -34,6 +51,7 @@ forwards do.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -58,9 +76,10 @@ from maxsquareloss_torch.ops.losses import (
     iw_pixel_weights,
     self_produced_guidance,
 )
-from maxsquareloss_torch.ops.resize import upsample_logits
+from maxsquareloss_torch.ops.resize import resize_shard, upsample_logits
 from maxsquareloss_torch.optim import make_sgd, poly_lr, set_lr
-from maxsquareloss_torch.parallel import ddp
+from maxsquareloss_torch.parallel import ddp, spatial
+from maxsquareloss_torch.parallel.spatial import SpaceGroup
 from maxsquareloss_torch.utils.debug import anomaly_mode
 
 
@@ -117,27 +136,39 @@ class _StepLoss(nn.Module):
 class TrainState:
     """The model, its optimizer and the global iteration (drives the poly
     LR). A step updates the model and optimizer in place. ``ddp_loss``: the
-    DDP wrapper of ``_StepLoss(model)`` when there are several processes."""
+    DDP wrapper of ``_StepLoss(model)`` when there are several processes;
+    ``average_grads``: under ``--sp`` (no wrapper), average the gradients
+    over the world after each backward."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     iteration: int = 0
     ddp_loss: torch.nn.Module | None = None
+    average_grads: bool = False
 
 
-def make_train_state(model: torch.nn.Module, cfg: TrainConfig) -> TrainState:
+def make_train_state(model: torch.nn.Module, cfg: TrainConfig,
+                     space: SpaceGroup | None = None) -> TrainState:
     """A fresh optimizer over ``model``; with several processes, DDP over
     the step's loss (which makes every rank start from rank 0's
-    parameters). Build it once per model and process. An int8 model
-    (``models/quantize.py``) raises: int8 is for evaluation and serving."""
+    parameters), or under ``--sp`` (``space``, by default
+    ``spatial.space_group(cfg.sp)``) rank 0's parameters broadcast and the
+    gradients averaged after each backward. Build it once per model and
+    process. An int8 model (``models/quantize.py``) raises: int8 is for
+    evaluation and serving."""
     if getattr(model, "quantized", False):
         raise ValueError("an int8 model does not train: --quantize int8 is for evaluation "
                          "and serving, and training keeps the float32 weights")
+    space = space or spatial.space_group(cfg.sp)
     wrapped = None
     if ddp.world() > 1:
-        wrapped = ddp.wrap(_StepLoss(model))
+        if space is None:
+            wrapped = ddp.wrap(_StepLoss(model))
+        else:
+            ddp.broadcast_module(model)
         model.pack_weights()  # the parameters are rank 0's now
-    return TrainState(model=model, optimizer=make_sgd(model, cfg), ddp_loss=wrapped)
+    return TrainState(model=model, optimizer=make_sgd(model, cfg), ddp_loss=wrapped,
+                      average_grads=space is not None)
 
 
 def _step_loss(state: TrainState, loss_fn, *args):
@@ -168,13 +199,35 @@ def _global_metrics(metrics: dict) -> dict:
             for i, k in enumerate(metrics)}
 
 
-def _forward_upsampled(model, x, out_hw):
-    """Forward + align-corners upsample of both heads to ``out_hw``."""
-    aux, main = model(x)
-    main = upsample_logits(main, out_hw)
+def _forward_upsampled(model, x, out_hw, space: SpaceGroup | None = None,
+                       in_h: int | None = None):
+    """Forward + align-corners upsample of both heads to ``out_hw``. With
+    ``space``: ``x`` is this rank's rows of images of ``in_h`` rows, and
+    the result its rows of ``out_hw``."""
+    if space is None:
+        aux, main = model(x)
+        up = functools.partial(upsample_logits, out_hw=out_hw)
+    else:
+        aux, main = model(x, space=space, in_h=in_h)
+        up = functools.partial(resize_shard, in_h=valid_logits_hw((in_h, x.shape[2]))[0],
+                               out_hw=out_hw, space=space)
+    main = up(main)
     if aux is not None:
-        aux = upsample_logits(aux, out_hw)
+        aux = up(aux)
     return aux, main
+
+
+def _own_rows(space: SpaceGroup | None, *ts: torch.Tensor) -> tuple:
+    """Each NHWC image or (N, H, W) label batch as this rank's rows of it
+    (all of it without ``space``); ``--sp`` must divide each height, so
+    that the ranks' shares are equal."""
+    if space is None:
+        return ts
+    for t in ts:
+        if t.shape[1] % space.sp:
+            raise ValueError(f"--sp {space.sp} must divide the image height: a batch of "
+                             f"height {t.shape[1]}")
+    return tuple(t[:, slice(*space.own(t.shape[1]))] for t in ts)
 
 
 def _concat_forward_upsampled(model, xs, out_hw_s, xt):
@@ -234,26 +287,34 @@ def target_guidance(logits_main: torch.Tensor, logits_aux: torch.Tensor | None,
 
 
 def target_loss_fn(logits_main: torch.Tensor, prob_main: torch.Tensor,
-                   label: torch.Tensor | None, cfg: TrainConfig, divisor):
+                   label: torch.Tensor | None, cfg: TrainConfig, divisor,
+                   space: SpaceGroup | None = None, out_h: int | None = None):
     """Mode-dispatched target loss from the upsampled target logits, their
     softmax and label (``target_guidance``). ``divisor``: the ``hard``
-    CE's (``_ce_divisors``). Returns (target_loss, metrics)."""
-    c = logits_main.shape[-1]
+    CE's (``_ce_divisors``). ``space``: the logits are this rank's rows of
+    target maps of ``out_h`` rows; each loss divides its sum by the global
+    normalizer over the world (the module docstring). Returns
+    (target_loss, metrics)."""
+    n, _, w, c = logits_main.shape
     mode = cfg.target_mode
     iw = mode in ("IW_maxsquare", "IW_entropy")
+    images = pixels = None  # the global batch's counts over the world
+    if space is not None:
+        images, pixels = n / space.sp, n * out_h * w / space.sp
     with torch.no_grad():
         hist_label = label if cfg.iw_hist == "guidance" else None
         if iw:
-            weights, pixel_w = iw_pixel_weights(prob_main, hist_label, c, cfg.ratio)
+            weights, pixel_w = iw_pixel_weights(prob_main, hist_label, c, cfg.ratio, space)
     if mode == "maxsquare":
-        loss = fused_max_square_loss(logits_main)
+        loss = fused_max_square_loss(logits_main, None if pixels is None else pixels * c)
     elif mode == "IW_maxsquare":
-        loss = fused_iw_max_square_loss(logits_main, weights)
+        loss = fused_iw_max_square_loss(logits_main, weights,
+                                        None if images is None else images * c)
     elif mode == "entropy":
-        loss = entropy_loss(torch.softmax(logits_main, dim=-1))
+        loss = entropy_loss(torch.softmax(logits_main, dim=-1), pixels)
     elif mode == "IW_entropy":
         loss = iw_entropy_loss(torch.softmax(logits_main, dim=-1), hist_label,
-                               num_classes=c, ratio=cfg.ratio)
+                               num_classes=c, ratio=cfg.ratio, count=pixels, space=space)
     elif mode == "hard":
         # hard pseudo-label CE on the main head's log-probabilities
         logp = torch.log(torch.softmax(logits_main, dim=-1).clamp(1e-30, 1.0))
@@ -286,6 +347,8 @@ def _apply_update(state: TrainState, loss: torch.Tensor, cfg: TrainConfig) -> fl
     set_lr(state.optimizer, lr)
     state.optimizer.zero_grad(set_to_none=False)
     loss.backward()
+    if state.average_grads:
+        ddp.average_gradients([p for p in state.model.parameters() if p.requires_grad])
     state.optimizer.step()
     state.model.pack_weights()
     state.iteration += 1
@@ -299,44 +362,60 @@ def _finish_metrics(metrics: dict, loss: torch.Tensor, lr: float) -> dict:
     return metrics
 
 
-def make_supervised_train_step(cfg: TrainConfig):
+def make_supervised_train_step(cfg: TrainConfig, space: SpaceGroup | None = None):
     """Source-only supervised step: ``step(state, x, y) → (state, metrics)``
-    for NHWC images and (N, H, W) labels on the model's device. With
+    for NHWC images and (N, H, W) labels on the model's device. ``space``
+    (default ``spatial.space_group(cfg.sp)``): ``x`` and ``y`` are the
+    data group's whole batch, and the step takes this rank's rows. With
     ``--debug_nans`` the step runs in autograd's anomaly mode."""
+    space = space or spatial.space_group(cfg.sp)
 
-    def loss_fn(model, x, y):
+    def loss_fn(model, x, y, in_h, out_hw):
         (divisor,) = _ce_divisors(y)
-        return _source_metrics(*_forward_upsampled(model, x, y.shape[-2:]), y, cfg, divisor)
+        out = _source_metrics(*_forward_upsampled(model, x, out_hw, space, in_h), y, cfg,
+                              divisor)
+        return spatial.join(out[0], space), out[1]
 
     def step(state: TrainState, x: torch.Tensor, y: torch.Tensor):
+        in_h, out_hw = x.shape[1], tuple(y.shape[-2:])
+        x, y = _own_rows(space, x, y)
         x, y = _prepare_inputs(x, y, cfg)
-        with anomaly_mode(cfg.debug_nans):
-            loss, metrics = _step_loss(state, loss_fn, x, y)
+        with anomaly_mode(cfg.debug_nans), spatial.training(space):
+            loss, metrics = _step_loss(state, loss_fn, x, y, in_h, out_hw)
             lr = _apply_update(state, loss, cfg)
         return state, _finish_metrics(metrics, loss, lr)
 
     return step
 
 
-def make_uda_train_step(cfg: TrainConfig):
+def make_uda_train_step(cfg: TrainConfig, space: SpaceGroup | None = None):
     """UDA step over a (source, target) batch pair: ``step(state, xs, ys,
     xt) → (state, metrics)``. Source CE (+ ``lambda_seg`` aux CE) +
     ``lambda_target`` x target loss (+ ``lambda_target * lambda_seg`` x the
     aux head's guidance CE), one backward, one SGD step. Source and target
     run as two forwards, or as one canvas forward with
-    ``--concat_batches`` (the JAX step's two branches). With
+    ``--concat_batches`` (the JAX step's two branches). ``space`` (default
+    ``spatial.space_group(cfg.sp)``; two forwards only): the batches are the
+    data group's, and the step takes this rank's rows. With
     ``--debug_nans`` the step runs in autograd's anomaly mode."""
+    space = space or spatial.space_group(cfg.sp)
+    if space is not None and cfg.concat_batches:
+        raise NotImplementedError(
+            "--concat_batches under --sp is not ported: it waits on ROADMAP Queue 1 item 2 "
+            "(spatial partitioning, sub-step (d))")
 
-    def loss_fn(model, xs, ys, xt):
+    def loss_fn(model, xs, ys, xt, heights):
+        src_h, label_hw, tgt_hw = heights
         if cfg.concat_batches:
-            src, (aux_t, main_t) = _concat_forward_upsampled(model, xs, ys.shape[-2:], xt)
+            src, (aux_t, main_t) = _concat_forward_upsampled(model, xs, label_hw, xt)
         else:
-            src = _forward_upsampled(model, xs, ys.shape[-2:])
-            aux_t, main_t = _forward_upsampled(model, xt, (xt.shape[1], xt.shape[2]))
+            src = _forward_upsampled(model, xs, label_hw, space, src_h)
+            aux_t, main_t = _forward_upsampled(model, xt, tgt_hw, space, tgt_hw[0])
         prob_main, label = target_guidance(main_t, aux_t, cfg)
         src_divisor, label_divisor = _ce_divisors(ys, label)
         src_loss, metrics = _source_metrics(*src, ys, cfg, src_divisor)
-        tgt_loss, tmetrics = target_loss_fn(main_t, prob_main, label, cfg, label_divisor)
+        tgt_loss, tmetrics = target_loss_fn(main_t, prob_main, label, cfg, label_divisor,
+                                            space, tgt_hw[0])
         metrics.update(tmetrics)
         total = src_loss + cfg.lambda_target * tgt_loss
         if aux_t is not None and label is not None:
@@ -346,24 +425,28 @@ def make_uda_train_step(cfg: TrainConfig):
             metrics["loss_target_aux"] = loss_aux_t.detach()
             total = total + cfg.lambda_target * cfg.lambda_seg * loss_aux_t
         metrics["loss_target"] = (cfg.lambda_target * tgt_loss).detach()
-        return total, metrics
+        return spatial.join(total, space), metrics
 
     def step(state: TrainState, xs: torch.Tensor, ys: torch.Tensor, xt: torch.Tensor):
+        heights = (xs.shape[1], tuple(ys.shape[-2:]), (xt.shape[1], xt.shape[2]))
+        xs, ys, xt = _own_rows(space, xs, ys, xt)
         xs, ys = _prepare_inputs(xs, ys, cfg)
         xt, _ = _prepare_inputs(xt, None, cfg)
-        with anomaly_mode(cfg.debug_nans):
-            total, metrics = _step_loss(state, loss_fn, xs, ys, xt)
+        with anomaly_mode(cfg.debug_nans), spatial.training(space):
+            total, metrics = _step_loss(state, loss_fn, xs, ys, xt, heights)
             lr = _apply_update(state, total, cfg)
         return state, _finish_metrics(metrics, total, lr)
 
     return step
 
 
-def make_eval_step(cfg: TrainConfig, model, num_eval_classes: int | None = None):
+def make_eval_step(cfg: TrainConfig, model, num_eval_classes: int | None = None,
+                   space: SpaceGroup | None = None):
     """Validation step: forward → upsample to label size → argmax → CM
-    partial; the multi-scale evaluator with the single scale-1.0 head."""
+    partial; the multi-scale evaluator with the single scale-1.0 head
+    (``space``: its step over this rank's rows, ``step(x, y, heights)``)."""
     from maxsquareloss_torch.train.evaluator import make_multiscale_eval_step
 
     return make_multiscale_eval_step(
-        cfg, model, scales=(1.0,), flip=False, num_eval_classes=num_eval_classes
+        cfg, model, scales=(1.0,), flip=False, num_eval_classes=num_eval_classes, space=space
     )

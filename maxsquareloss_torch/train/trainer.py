@@ -26,6 +26,11 @@ and a SIGTERM on any rank stops every rank at the same
 ``--preempt_sync_steps`` boundary. Rank 0 alone writes checkpoints (the
 other ranks wait for it), scalars, images, the trace and the log file; the
 others log warnings only. Every rank resumes from the same file.
+
+Under ``--sp N`` (``parallel/spatial.py``) the ranks of a space group read
+the same batches; the steps take each rank's rows, and validation runs the
+spatially partitioned eval step on each rank's rows of every image and
+label (rank 0's preview images gathered from its group).
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ from maxsquareloss_torch.data.palette import decode_labels, inv_preprocess
 from maxsquareloss_torch.metrics import Eval
 from maxsquareloss_torch.models.deeplabv2 import init_deeplabv2
 from maxsquareloss_torch.optim import make_sgd
-from maxsquareloss_torch.parallel import ddp
+from maxsquareloss_torch.parallel import ddp, spatial
 from maxsquareloss_torch.train import checkpoint as ckpt_lib
 from maxsquareloss_torch.train.steps import (
     TrainState,
@@ -87,6 +92,7 @@ class Trainer:
         self.cfg = cfg
         self.train_loader = train_loader
         self.val_loader = val_loader
+        self.space = spatial.space_group(cfg.sp)
         self._check_sharded(train_loader, val_loader)
         self.device = resolve_device(cfg.device)
         self.is_main = ddp.is_main()
@@ -103,9 +109,9 @@ class Trainer:
         else:
             model = model.to(device=self.device, memory_format=torch.channels_last).eval()
         self.model = model
-        self.state: TrainState = make_train_state(model, cfg)
+        self.state: TrainState = make_train_state(model, cfg, self.space)
         self.train_step = self._make_train_step()
-        self.eval_step = make_eval_step(cfg, model, self.num_eval_classes)
+        self.eval_step = make_eval_step(cfg, model, self.num_eval_classes, self.space)
 
         self.current_epoch = 0
         self.best_miou = 0.0
@@ -116,20 +122,22 @@ class Trainer:
         self.profiler = StepProfiler(cfg.checkpoint_dir, cfg.profile and self.is_main,
                                      self.device)
 
-    @staticmethod
-    def _check_sharded(*loaders):
-        """With several processes every loader must read this rank's shard:
-        an unsharded one would give each rank the same images."""
+    def _check_sharded(self, *loaders):
+        """With several processes every loader must read this rank's data
+        group's shard: an unsharded one would give each group the same
+        images."""
+        groups = ddp.world() // max(self.cfg.sp, 1)
         for loader in loaders:
-            if loader is not None and getattr(loader, "shard_count", 1) != ddp.world():
+            if loader is not None and getattr(loader, "shard_count", 1) != groups:
                 raise ValueError(f"a loader reads {getattr(loader, 'shard_count', 1)} "
-                                 f"shard(s), but there are {ddp.world()} processes "
-                                 "(tools/common.make_loader shards by rank)")
+                                 f"shard(s), but there are {groups} data groups of "
+                                 f"{ddp.world()} processes (tools/common.make_loader shards "
+                                 "by data group)")
 
     # hooks for UDATrainer -------------------------------------------------
 
     def _make_train_step(self):
-        return make_supervised_train_step(self.cfg)
+        return make_supervised_train_step(self.cfg, self.space)
 
     def _consume_resume_skip(self, *loaders):
         """Mid-epoch resume: the next epoch starts at the saved batch offset
@@ -339,9 +347,18 @@ class Trainer:
         shown = 0
         it = self.state.iteration
         cm_sum = torch.zeros((self.num_eval_classes,) * 2, dtype=torch.int64, device=self.device)
+        space = self.space
         for xs, ys, _ in device_prefetch(iter(self.val_loader), self.device):
-            cm, argpred = self.eval_step(xs, ys)
+            if space is None:
+                cm, argpred = self.eval_step(xs, ys)
+            else:
+                heights = (xs.shape[1], ys.shape[1])
+                (a, b), (c, d) = space.own(heights[0]), space.own(heights[1])
+                cm, argpred = self.eval_step(xs[:, a:b], ys[:, c:d], heights)
             cm_sum += cm
+            if space is not None and shown < self.cfg.show_num_images:
+                with torch.inference_mode():  # every rank of the group: collective
+                    argpred = spatial.gather_rows(argpred, ys.shape[1], space)
             if self.is_main and shown < self.cfg.show_num_images:
                 self.writer.add_image(f"val/pred_{shown}",
                                       decode_labels(argpred[0].cpu().numpy())[0] / 255.0, it)
@@ -350,7 +367,7 @@ class Trainer:
                 self.writer.add_image(f"val/image_{shown}",
                                       val_preview_image(xs[0].cpu().numpy(),
                                                         self.cfg.numpy_transform), it)
-                shown += 1
+            shown += 1
         # this rank's shard (pad slots are all-ignore) summed over the ranks:
         # the one-process matrix exactly
         ev.add_confusion_matrix(ddp.all_reduce_sum(cm_sum))

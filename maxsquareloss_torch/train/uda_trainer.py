@@ -7,7 +7,8 @@ unlabeled target batch (Cityscapes) and takes one optimizer step of
 ``train/steps.make_uda_train_step``. The epoch is ``zip(source, target)``,
 so it ends with the shorter loader; both loaders have their epoch pinned and
 both skip the saved batch offset on a mid-epoch resume. With several
-processes both loaders read the rank's shard of every global batch.
+processes both loaders read the rank's data group's shard of every global
+batch.
 """
 
 from __future__ import annotations
@@ -29,11 +30,11 @@ class UDATrainer(Trainer):
         **kw,
     ):
         self.target_loader = target_loader
-        self._check_sharded(target_loader)
         super().__init__(cfg, train_loader=source_loader, val_loader=val_loader, **kw)
+        self._check_sharded(target_loader)
 
     def _make_train_step(self):
-        return make_uda_train_step(self.cfg)
+        return make_uda_train_step(self.cfg, self.space)
 
     def _epoch_batches(self):
         for loader in (self.train_loader, self.target_loader):

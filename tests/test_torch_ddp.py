@@ -486,15 +486,26 @@ def test_torchrun_environment_reaches_init_process_group(monkeypatch):
     assert multihost.backend_for(None) == multihost.backend_for("cuda:1") == "nccl"
 
 
-@pytest.mark.parametrize("field,value,error", [
-    ("sp", 2, NotImplementedError), ("data_parallel", False, ValueError)])
-def test_what_has_no_meaning_over_several_processes_raises(monkeypatch, field, value, error):
+# (field, value, error, the fields that make it raise at world 2)
+NO_MEANING = [("sp", 2, NotImplementedError, {"sp": 2, "concat_batches": True}),
+              ("data_parallel", False, ValueError, {"data_parallel": False})]
+
+
+@pytest.mark.parametrize("field,value,error,fields", NO_MEANING,
+                         ids=["-".join(map(str, c[:2])) + f"-{c[2].__name__}" for c in NO_MEANING])
+def test_what_has_no_meaning_over_several_processes_raises(monkeypatch, field, value, error,
+                                                           fields):
+    """Over two processes: ``--data_parallel false`` would train two
+    models; ``--sp 2`` trains (one space group), but not with
+    ``--concat_batches`` yet (ROADMAP Queue 1 item 2, sub-step (d))."""
     from maxsquareloss_torch.config import check_supported
 
     check_supported(TrainConfig(data_parallel=False))  # one process: the one card
     monkeypatch.setattr(ddp, "world", lambda: 2)
+    if field == "sp":
+        check_supported(TrainConfig(sp=value))
     with pytest.raises(error, match="not ported|unrelated models"):
-        check_supported(TrainConfig(**{field: value}))
+        check_supported(TrainConfig(**fields))
 
 
 def test_predict_raises_under_several_processes(tmp_path, monkeypatch):

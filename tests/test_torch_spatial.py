@@ -37,6 +37,7 @@ argmax agreement >= 98.7 %).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 import sys
@@ -178,8 +179,8 @@ def _shard_heights(img_hw, sp):
     return sorted(out)
 
 
-PLAN_CASES = [(hw, sp) for hw in ((512, 1024), (384, 768), (1024, 2048), (768, 1536))
-              for sp in (2, 4)]
+PLAN_CASES = [(hw, sp) for hw in ((512, 1024), (384, 768), (1024, 2048), (768, 1536),
+                                  (640, 1280)) for sp in (2, 4)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -187,12 +188,15 @@ PLAN_CASES = [(hw, sp) for hw in ((512, 1024), (384, 768), (1024, 2048), (768, 1
 def test_plan_tiles_at_shard_heights(hw, sp, dtype):
     """The planner at every shard height of the protocol's sizes (1024x512
     and predict's 0.75 scale of it, the 2048x1024 serving input and its 0.75
-    scale): the whole-map plan's tile (it depends on W, the widths and d,
-    not on H), shared memory within a block's, and chains whose segments
-    cover every row of the shard once (the kernel skips a block whose
-    segment starts past the last row)."""
+    scale, and the training crops 1280x640 and 1024x512, whose identity
+    blocks run the emit kernel: one plan serves both, bf16 on the tc route)
+    at the batches of a rank (1, 2, and the training batch 4): the
+    whole-map plan's tile (it depends on W, the widths and d, not on H),
+    shared memory within a block's, and chains whose segments cover every
+    row of the shard once (the kernel skips a block whose segment starts
+    past the last row)."""
     for h, w, cin, cmid, d in _shard_heights(hw, sp):
-        for n in (1, 2):
+        for n in (1, 2, 4):
             plan = fused_block.plan_tiles(n, h, w, cin, cmid, d, 132, dtype)
             whole = fused_block.plan_tiles(n, _valid_sizes(hw)["os8"][0], w, cin, cmid, d, 132,
                                            dtype)
@@ -201,6 +205,8 @@ def test_plan_tiles_at_shard_heights(hw, sp, dtype):
             chain = math.ceil(h / d)
             assert plan.rs * plan.segs >= chain > plan.rs * (plan.segs - 1)
             assert plan.tw * math.ceil(w / plan.tw) >= w
+            if dtype == torch.bfloat16:  # conv1 and conv3 on wgmma at every shard height
+                assert plan.conv_routes() == {"conv1": "wgmma", "conv2": "fma", "conv3": "wgmma"}
 
 
 # -- gloo ranks ---------------------------------------------------------------
@@ -604,9 +610,11 @@ def test_serving_config_takes_sp_under_its_world(tmp_path, monkeypatch):
     check_supported(TrainConfig(sp=4, data_parallel=False), serving=True)
     with pytest.raises(ValueError, match="unrelated models"):
         check_supported(TrainConfig(sp=2, data_parallel=False), serving=True)
-    # the trainers' check still refuses it, naming the ROADMAP item
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 2.*\(b\)"):
-        check_supported(cfg)
+    # the trainers' check takes it too, and refuses it only with what does
+    # not compose with it yet, naming the ROADMAP item's sub-step
+    check_supported(cfg)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 2.*\(d\)"):
+        check_supported(dataclasses.replace(cfg, concat_batches=True))
 
 
 def test_space_groups_need_sp_to_divide_the_world(monkeypatch):

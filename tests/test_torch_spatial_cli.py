@@ -11,12 +11,18 @@ the one-process runs go meanwhile in this process.
 - predict: the same TTA at the files' native size: the trainId PNGs equal
   on >= 99.9 % of the pixels (the reading is every pixel), the colour PNGs
   written by rank 0 alone;
-- the trainers and the export with ``--sp 2`` still raise, naming ROADMAP
-  Queue 1 item 2.
+- ``solve_gta5 --sp 2`` as two gloo processes (``torchrun``): 2 iterations,
+  a validation and a checkpoint, its losses and its parameters against the
+  one-process run on the same ``.pth`` and data (the step tolerance of
+  ``tests/test_torch_ddp.py``: losses rtol 1e-5, parameter changes 1e-4
+  relative L2);
+- what still raises, naming ROADMAP Queue 1 item 2: the trainers' ``--sp``
+  with ``--concat_batches`` (sub-step (d)), the export's ``--sp`` ((c)).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import re
 import subprocess
@@ -137,7 +143,10 @@ def test_predict_sp_writes_the_one_process_trainids(runs):
 
 
 @pytest.mark.parametrize("cli", ["train_source", "solve_gta5", "export_inference"])
-def test_trainers_and_the_export_still_refuse_sp(tmp_path, served, cli):
+def test_trainers_and_the_export_still_refuse_sp(tmp_path, served, cli, monkeypatch):
+    """The export's ``--sp`` waits on sub-step (c); the trainers take
+    ``--sp`` (``test_solve_gta5_sp2_matches_one_process``) but not with
+    ``--concat_batches`` yet, sub-step (d)."""
     import importlib
 
     module = importlib.import_module(f"maxsquareloss_torch.tools.{cli}")
@@ -145,8 +154,79 @@ def test_trainers_and_the_export_still_refuse_sp(tmp_path, served, cli):
         argv = ["--pretrained_ckpt_file", served[1], "--output", str(tmp_path / "m"),
                 "--blocks", BLOCKS, "--device", "cpu", "--hw", "32,64", "--sp", "2"]
     else:
+        monkeypatch.setenv("WORLD_SIZE", "2")  # a space group of 2 is two processes
         argv = ["--data_root_path", served[0], "--checkpoint_dir", str(tmp_path),
-                "--device", "cpu", "--blocks", BLOCKS, "--sp", "2"]
+                "--device", "cpu", "--blocks", BLOCKS, "--sp", "2", "--concat_batches", "true"]
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2") as err:
         module.main(argv)
-    assert ("(c)" if cli == "export_inference" else "(b)") in str(err.value)
+    assert ("(c)" if cli == "export_inference" else "(d)") in str(err.value)
+
+
+def _rel_l2_changes(got: dict, want: dict, start: dict) -> dict:
+    out = {}
+    for name, w in want.items():
+        change = w.detach().double() - start[name].detach().double()
+        out[name] = float(((got[name].detach().double() - start[name].detach().double())
+                           - change).norm() / change.norm())
+    return out
+
+
+def test_solve_gta5_sp2_matches_one_process(tmp_path):
+    """``torchrun --nproc_per_node 2 -m maxsquareloss_torch.tools.solve_gta5
+    --sp 2 --device cpu``: one space group of two gloo ranks, 2 iterations
+    of global batch 2, a validation (the SP eval step) and a checkpoint by
+    rank 0; its losses and weights within the step tolerance of the
+    one-process run from the same ``.pth``."""
+    from maxsquareloss_torch.convert import reference_state_dict
+    from maxsquareloss_torch.models.deeplabv2 import DeepLabV2Config
+    from maxsquareloss_torch.tools import solve_gta5
+
+    data = str(tmp_path / "data")
+    write_domain_shift_pair(data, n_source=4, n_target_train=4, n_target_val=3, hw=(32, 64))
+    blocks = tuple(int(b) for b in BLOCKS.split(","))
+    start = init_deeplabv2(DeepLabV2Config(blocks=blocks), torch.Generator().manual_seed(0),
+                           device="cpu")
+    torch.save({"state_dict": reference_state_dict(start)}, tmp_path / "init.pth")
+    size = ["--base_size", "64,32", "--crop_size", "64,32", "--target_base_size", "64,32",
+            "--target_crop_size", "64,32"]
+    common = ["--data_root_path", data, "--device", "cpu", "--blocks", BLOCKS,
+              "--batch_size", "2", "--num_workers", "1", "--iter_max", "100",
+              "--iter_stop", "2", "--tqdm", "false", "--iw_hist", "argmax",
+              "--pretrained_ckpt_file", str(tmp_path / "init.pth"), *size]
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": REPO}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
+         "-m", "maxsquareloss_torch.tools.solve_gta5", *common, "--sp", "2",
+         "--checkpoint_dir", str(tmp_path / "sp2")],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        one = solve_gta5.main([*common, "--checkpoint_dir", str(tmp_path / "one")])
+        out = proc.communicate(timeout=300)[0]
+    finally:
+        torch.set_num_threads(threads)
+        proc.kill()
+    assert proc.returncode == 0, out[-6000:]
+
+    def scalars(run):
+        with open(tmp_path / run / "scalars.jsonl") as f:
+            return [json.loads(line) for line in f]
+
+    sp_s, one_s = scalars("sp2"), scalars("one")
+    assert [(r["tag"], r["step"]) for r in sp_s] == [(r["tag"], r["step"]) for r in one_s]
+    assert {"train/loss", "val/MIoU"} <= {r["tag"] for r in sp_s}
+    for a, b in zip(sp_s, one_s):
+        if a["tag"].startswith("train/") and a["tag"] != "train/images_per_sec":
+            np.testing.assert_allclose(a["value"], b["value"], rtol=1e-5, atol=1e-7,
+                                       err_msg=a["tag"])
+        elif a["tag"].startswith("val/"):
+            assert abs(a["value"] - b["value"]) <= 1e-4, (a["tag"], a["value"], b["value"])
+    sp2 = ckpt_lib.load_checkpoint(str(tmp_path / "sp2" / ckpt_lib.LATEST))
+    assert sp2["iteration"] == 2
+    one_params = {n: p.detach().clone() for n, p in one.model.named_parameters()}
+    ckpt_lib.load_weights(one.model, sp2, 19)
+    errs = _rel_l2_changes(dict(one.model.named_parameters()), one_params,
+                           dict(start.named_parameters()))
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= 1e-4, f"{worst}: change off by {errs[worst]:.3g} (relative L2)"

@@ -240,30 +240,37 @@ def test_synthia_protocol_reports_16_and_13(tmp_path):
     assert {"val/MIoU_16", "val/MIoU_13"} <= tags
 
 
+# (flag, its values): --sp trains, but not with --remat stages yet (ROADMAP
+# Queue 1 item 2, sub-step (d))
 UNPORTED = [
-    ("--sp", "2"),
-    ("--freeze_bn", "false"), ("--xla_options", "a=b"),
+    ("--sp", ["2", "--remat", "stages"]),
+    ("--freeze_bn", ["false"]), ("--xla_options", ["a=b"]),
 ]
 
 
-@pytest.mark.parametrize("flag,value", UNPORTED, ids=[f for f, _ in UNPORTED])
-def test_unported_flags_raise(tmp_path, flag, value):
+@pytest.mark.parametrize("flag,values", UNPORTED, ids=[f for f, _ in UNPORTED])
+def test_unported_flags_raise(tmp_path, flag, values):
     import argparse
 
     p = argparse.ArgumentParser()
     add_uda_train_args(add_train_args(p))
-    argv = ["--checkpoint_dir", str(tmp_path), flag] + ([value] if value is not None else [])
+    argv = ["--checkpoint_dir", str(tmp_path), flag, *values]
     with pytest.raises(NotImplementedError, match="not ported|XLA"):
         config_from_args(p.parse_args(argv))
 
 
-def test_unported_field_raises_in_the_trainer(tmp_path):
+def test_unported_field_raises_in_the_trainer(tmp_path, monkeypatch):
     """An option the trainers do not take raises in the trainer itself:
-    ``--sp 2`` (not ported) and ``--quantize int8`` (evaluation and serving
-    only; the JAX trainers never read it)."""
-    cfg = dataclasses.replace(_cfg(tmp_path), sp=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    ``--sp 2`` with ``--remat stages`` (not ported together) and
+    ``--quantize int8`` (evaluation and serving only; the JAX trainers never
+    read it)."""
+    from maxsquareloss_torch.parallel import ddp
+
+    monkeypatch.setattr(ddp, "world", lambda: 2)
+    cfg = dataclasses.replace(_cfg(tmp_path), sp=2, remat="stages")
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.*\(d\)"):
         Trainer(cfg, _loader(), None)
+    monkeypatch.undo()
     cfg = dataclasses.replace(_cfg(tmp_path), quantize="int8")
     with pytest.raises(ValueError, match="evaluation and serving"):
         Trainer(cfg, _loader(), None)
