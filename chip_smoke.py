@@ -167,8 +167,9 @@ Phases, one JSON object per line on stdout:
      (one step an epoch) for one epoch a leg, the host extension serving
      every decode of the cold and prepared legs (``hostops: true``, from
      its call counts), no decode on the raw leg and the blur on every leg;
-     then each mode but int8 and e2e again with ``--dtype float32``; each
-     prints its JSON line;
+     then uda and infer (both label sizes) again with ``--dtype float32``
+     (uda with --concat, source, int8 and e2e only in bf16); each prints
+     its JSON line;
  16. efficacy: the adaptation-efficacy gate at ``tests/test_adaptation.py``'s
      protocol (seed 0, --blocks 1,1,2,1, 128x64, batch 8, 300 source and
      200 UDA iterations, lambda 64): IW_maxsquare must beat the
@@ -204,9 +205,21 @@ Phases, one JSON object per line on stdout:
      distance), every rank's parameters equal, exact launches per rank (58
      emit, one IW forward and backward a step), a warm-up and 2 timed
      steps beside the one-process step's, halo bytes forward and backward,
-     peak memory; every emit and loss shard shape held afterwards; and
-     ``UDATrainer --sp`` for 2 iterations and a validation against the
-     one-process trainer (losses rel 1e-4, mIoU within 1e-4);
+     peak memory; the fp32 step with ``--concat_batches true`` (the masked
+     canvas on row shards: 29 masked emit launches a step a rank) and with
+     ``--remat stages`` (116 emit launches a step a rank, the exchanges and
+     halo bytes exactly the step's without remat), each against its
+     one-process step at the fp32 limits; every emit (masked too) and loss
+     shard shape held afterwards; ``UDATrainer --sp`` for 2 iterations and
+     a validation against the one-process trainer (losses rel 1e-4, mIoU
+     within 1e-4); and, where the ranks are one space group, the sharded
+     serving export: ``tools.export_inference --sp`` of a seeded R101
+     ``.pth`` in bf16 at batch 1, 1024x2048 (one graph a rank), ``--load
+     --selftest`` on every rank (exact against the live ``--sp`` graph, 29
+     eval launches a forward a rank), the whole map every rank returns >=
+     99.9 % equal to the one-process bf16 artifact's that this process
+     exports first, the halo bytes of a forward, and the artifact's
+     images/s beside its live graph's;
  17. ddp: data parallelism, each rank a process started by ``torchrun``
      (this script with ``--ddp-worker``, or a CLI module). The emit and IW
      loss kernels are first held against their plain versions at the
@@ -2399,18 +2412,25 @@ def recorded_shapes():
     seen = {f"{kernel}{suffix}": set() for kernel in ("fused_bottleneck", "fused_bottleneck_emit")
             for suffix in ("", "_bf16")}
     seen.update({name: set() for name in LOSSES})
+    seen["fused_bottleneck_emit_masked"] = set()
     forward = Bottleneck.forward
 
     def recording_forward(self, x, kernel, train_kernel, mask=None):
         # int8 blocks run their convs one by one: no launch; calibration runs
         # the emit kernel
         if self.fusable and not self.quantized and kernel is fused_bottleneck:
-            check(mask is None, "a masked launch on a path whose shapes are held unmasked")
             n, cin, h, w = x.shape
             emits = torch.is_grad_enabled() or model_layers._calib_recorder is not None
             key = "fused_bottleneck_emit" if emits else "fused_bottleneck"
             key += "_bf16" if x.dtype == BF16 else ""
-            seen[key].add((n, h, w, cin, self.conv1.out_channels, self.dilation))
+            shape = (n, h, w, cin, self.conv1.out_channels, self.dilation)
+            if mask is None:
+                seen[key].add(shape)
+            else:  # the sp concat leg's windows: held with their valid extents
+                check(key == "fused_bottleneck_emit",
+                      f"a masked {key} launch on a path whose shapes are held unmasked")
+                seen["fused_bottleneck_emit_masked"].add(
+                    (*shape, tuple(mask.valid.flatten().tolist())))
         return forward(self, x, kernel, train_kernel, mask)
 
     def recording_loss(name, fn):
@@ -2436,7 +2456,7 @@ def hold_path_shapes(path: str, seen: dict, checked: dict) -> None:
     launched it at that no phase has checked yet; adds them to ``checked``."""
     gen = torch.Generator().manual_seed(5)
     for kernel, shapes in seen.items():
-        for shape in sorted(shapes - checked[kernel]):
+        for shape in sorted(shapes - checked.setdefault(kernel, set())):
             if kernel.endswith("_bf16"):  # both bf16 instances at once
                 row = _hold_bf16(gen, path, *shape)
                 args = None
@@ -2446,6 +2466,10 @@ def hold_path_shapes(path: str, seen: dict, checked: dict) -> None:
                 args, row = _hold_block(gen, path, *shape)
             elif kernel == "fused_bottleneck_emit":
                 args, _, row = _hold_emit(gen, path, *shape)
+            elif kernel == "fused_bottleneck_emit_masked":
+                valid = torch.tensor(shape[6], dtype=torch.int32, device="cuda").view(-1, 2)
+                args, _, row = _hold_emit(gen, path, *shape[:6], valid)
+                row["valid_extents"] = valid.tolist()
             else:
                 args = _loss_inputs(gen, *shape)
                 fn, plain = LOSSES[kernel]
@@ -2605,9 +2629,9 @@ def phase_bench() -> None:
     bench's default line: the bf16 step, bf16 inference and the fp32 parity
     leg (fp32, stage remat, batch 8: 116 fp32 emit launches a step); the
     fp32 lines run no parity leg and no remat. An int8 leg calibrates with
-    one emit launch a block (the ``uda`` lines carry one). The e2e run is
-    bf16 only: its fp32 twin is not run, to keep the script in its time
-    limit."""
+    one emit launch a block (the ``uda`` lines carry one). The e2e, ``uda
+    --concat`` and ``source`` runs are bf16 only: their fp32 twins are not
+    run, to keep the script in its time limit."""
     from maxsquareloss_torch import bench
 
     root = tempfile.mkdtemp(prefix="chip_smoke_bench_")
@@ -2649,10 +2673,6 @@ def phase_bench() -> None:
         ("uda_fp32", ["--mode", "uda", *fp32],
          {"fused_bottleneck_emit": 58 * calls + 29, "fused_bottleneck": 29 * calls,
           **{k: v * calls for k, v in losses.items()}}),
-        ("uda_concat_fp32", ["--mode", "uda", "--concat", *fp32],
-         {"fused_bottleneck_emit": 29 * calls + 29, "fused_bottleneck": 29 * calls,
-          **{k: v * calls for k, v in losses.items()}}),
-        ("source_fp32", ["--mode", "source", *fp32], {"fused_bottleneck_emit": 29 * calls}),
         ("infer_fp32", ["--mode", "infer", *fp32], {"fused_bottleneck": 29 * calls}),
         ("infer_fullres_labels_fp32", ["--mode", "infer", "--label_hw", "1024,2048", *fp32],
          {"fused_bottleneck": 29 * calls}),
@@ -2827,6 +2847,22 @@ SP_MIOU_TOL = 1e-4
 # trainer: losses rel SP_TRAINER_RTOL, validation mIoU within SP_MIOU_TOL
 SP_TRAIN_LIMITS = {"float32": (STEP_RTOL, STEP_PARAM_RTOL_L2), "bfloat16": BF16_LIMITS}
 SP_TRAIN_TIMED = 2
+# the training legs: name -> (compute dtype, config fields, timed steps). The
+# fp32 step with --concat_batches (the masked canvas on row shards) and with
+# --remat stages (whose exchanges must be exactly the fp32 step's) against
+# their one-process steps at the fp32 limits
+SP_TRAIN_LEGS = {"float32": ("float32", {}, SP_TRAIN_TIMED),
+                 "bfloat16": ("bfloat16", {}, SP_TRAIN_TIMED),
+                 "concat_float32": ("float32", {"concat_batches": True}, 1),
+                 "remat_float32": ("float32", {"remat": "stages"}, 1)}
+# the sharded serving export where the ranks are one space group: bf16 (the
+# tool's default) at the JAX tool's --sp case, batch-1 full-resolution
+# requests; each rank's artifact exact against its live --sp graph, the
+# gathered map against the one-process bf16 artifact's at the bf16 --sp
+# argmax limit (a shard's cuDNN algorithm rounds some bf16 values the other
+# way: PERF.md section 2)
+SP_EXPORT_HW = (1024, 2048)
+SP_EXPORT_AGREE = SP_LIMITS["bfloat16"][1]
 SP_TRAINER_ITERS = 2
 SP_TRAINER_RTOL = 1e-4
 # solve_gta5 --sp 2 over the cards (dp2 x sp2): its data groups' convs run
@@ -3026,12 +3062,13 @@ def _sp_train_cfg(dtype: str, sp: int = 1, **kw) -> TrainConfig:
     return dataclasses.replace(TRAIN_CFG, compute_dtype=dtype, sp=sp, **SP_MODEL_KW, **kw)
 
 
-def _sp_train_run(cfg: TrainConfig, dev: torch.device, images: slice, space=None) -> dict:
+def _sp_train_run(cfg: TrainConfig, dev: torch.device, images: slice, space=None,
+                  timed: int = SP_TRAIN_TIMED) -> dict:
     """The UDA step from the seeded weights on ``images`` of the train
     phase's global batches (``space``: this rank's rows of them): one step,
-    counted, its shapes recorded, then a warm-up and SP_TRAIN_TIMED timed
-    steps. Returns its metrics and parameters after the first step, the
-    first step's launches and halo, the timed ms and the peak memory."""
+    counted, its shapes recorded, then a warm-up and ``timed`` timed steps.
+    Returns its metrics and parameters after the first step, the first
+    step's launches and halo, the timed ms and the peak memory."""
     model = init_deeplabv2(model_config(cfg), torch.Generator().manual_seed(0), device=dev)
     state, step = make_train_state(model, cfg, space), make_uda_train_step(cfg, space)
     pairs = [tuple(t[images] for t in p) for p in _train_pairs(dev)]
@@ -3049,7 +3086,7 @@ def _sp_train_run(cfg: TrainConfig, dev: torch.device, images: slice, space=None
            "halo": None if space is None else dict(space.stats), "shapes": shapes,
            "params": {n: p.detach().cpu().clone() for n, p in model.named_parameters()}}
     secs = []
-    for i in range(1 + SP_TRAIN_TIMED):
+    for i in range(1 + timed):
         _sync(dev)
         t0 = time.perf_counter()
         state, m = step(state, *pairs[(i + 1) % len(pairs)])
@@ -3060,42 +3097,50 @@ def _sp_train_run(cfg: TrainConfig, dev: torch.device, images: slice, space=None
     out["step_ms"] = [t * 1e3 for t in secs]
     out["peak_memory_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
                               if dev.type == "cuda" else None)
-    out["expected_emit"] = (None if space is None else
-                            sum(_sp_expected_launches(model, hw, space) for hw in (SRC_HW, TGT_HW)))
+    if space is None:
+        out["expected_emit"] = None
+    elif cfg.concat_batches:  # one forward over the canvas
+        out["expected_emit"] = _sp_expected_launches(model, CANVAS_HW, space)
+    else:  # a forward of each batch, and under remat each again in the backward
+        out["expected_emit"] = (1 + (cfg.remat == "stages")) * sum(
+            _sp_expected_launches(model, hw, space) for hw in (SRC_HW, TGT_HW))
     del state, model
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return out
 
 
-def _sp_train_case(dtype: str, space, dev: torch.device, group: int, groups: int,
+def _sp_train_case(leg: str, space, dev: torch.device, group: int, groups: int,
                    out: str) -> tuple[dict, dict]:
-    """One compute dtype's SP step on this rank (``_sp_train_run`` on its
+    """One training leg's SP step on this rank (``_sp_train_run`` on its
     data group's images): exact launches, every rank's parameters equal
     after it; rank 0 saves the metrics and parameters for the comparison.
     Returns (the readings, the launch shapes)."""
     from maxsquareloss_torch.parallel import ddp
 
+    dtype, fields, timed = SP_TRAIN_LEGS[leg]
     per = TRAIN_BATCH // groups
-    run = _sp_train_run(_sp_train_cfg(dtype, space.sp), dev,
-                        slice(group * per, (group + 1) * per), space)
+    run = _sp_train_run(_sp_train_cfg(dtype, space.sp, **fields), dev,
+                        slice(group * per, (group + 1) * per), space, timed)
     shapes, params = run.pop("shapes"), run.pop("params")
     del run["p0"]
     sums = torch.stack([p.double().sum() for p in params.values()])
     run["replicas_equal"] = bool((ddp.all_gather(sums) == sums).all())
     if ddp.is_main():
         torch.save({"metrics": run["metrics"], "params": params},
-                   os.path.join(out, f"sp_train_{dtype}.pt"))
+                   os.path.join(out, f"sp_train_{leg}.pt"))
     emits = run.pop("expected_emit")
     want = {k: 0 for k in COUNTERS}
     want.update({"fused_bottleneck_emit": emits, "fused_iw_max_square_loss": 1,
                  "fused_iw_max_square_loss_backward": 1})
     if dtype == "bfloat16":
         want["fused_bottleneck_emit_bf16"] = emits
-    check(run["launches"] == want, f"sp train {dtype} rank {ddp.rank()}: launches "
+    if fields.get("concat_batches"):  # unequal crops: every canvas launch is masked
+        want["fused_bottleneck_emit_masked"] = emits
+    check(run["launches"] == want, f"sp train {leg} rank {ddp.rank()}: launches "
                                    f"{run['launches']}, expected {want}")
-    check(run["replicas_equal"], f"sp train {dtype}: the ranks' parameters differ")
-    return {"dtype": dtype, "images": [group * per, (group + 1) * per], **run}, shapes
+    check(run["replicas_equal"], f"sp train {leg}: the ranks' parameters differ")
+    return {"leg": leg, "dtype": dtype, "images": [group * per, (group + 1) * per], **run}, shapes
 
 
 def _sp_trainer_cfg(out: str, sp: int = 1, **kw) -> TrainConfig:
@@ -3132,8 +3177,85 @@ def _sp_trainer_case(space, dev: torch.device, out: str) -> dict:
     return {"seconds": seconds, "launches": got, "halo": dict(space.stats)}
 
 
+def _sp_export_input() -> torch.Tensor:
+    """The selftest's seeded uint8 batch at SP_EXPORT_HW (batch 1)."""
+    return torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, size=(1, *SP_EXPORT_HW, 3)).astype(np.uint8))
+
+
+def _sp_export_argv(ckpt: str, base: str) -> list[str]:
+    blocks = TrainConfig(**SP_MODEL_KW).blocks
+    return ["--pretrained_ckpt_file", ckpt, "--output", base, "--hw",
+            ",".join(map(str, SP_EXPORT_HW)), "--batch_size", "1", "--blocks",
+            ",".join(map(str, blocks))]
+
+
+def _sp_export_case(space, dev: torch.device, device: str, out: str) -> tuple[dict, dict]:
+    """The sharded serving export on this rank (the ranks are one space
+    group): ``tools.export_inference --sp`` of the seeded ``.pth`` that
+    phase_sp wrote under ``out``, bf16; ``--load --selftest`` (exact, 29
+    eval launches a forward on every rank); then this rank's artifact on
+    its rows of the selftest's batch: the whole map (rank 0 saves it for
+    the comparison with the one-process artifact), the halo bytes of that
+    forward, and the artifact's ms beside its live graph's. Returns (the
+    readings, the launch shapes)."""
+    from maxsquareloss_torch.kernels.fused_block import fused_bottleneck
+    from maxsquareloss_torch.tools import export_inference
+
+    ckpt, base = os.path.join(out, "export_ckpt.pth"), os.path.join(out, "serve_sp")
+    argv = _sp_export_argv(ckpt, base) + ["--sp", str(space.sp)] + (
+        [] if device == "-" else ["--device", device])
+    t0 = time.perf_counter()
+    meta = export_inference.main(argv)
+    export_s = time.perf_counter() - t0
+    zero_counts()
+    t0 = time.perf_counter()
+    report = export_inference.main(["--load", base, "--selftest", "--pretrained_ckpt_file",
+                                    ckpt])
+    selftest_s = time.perf_counter() - t0
+    art = torch.export.load(os.path.join(out, meta["files"][space.index])).module()
+    cfg = export_inference._cfg({**meta, "numpy_transform": True, "pretrained_ckpt_file": ckpt,
+                                 "device": str(dev)})
+    model = export_inference._model(cfg, dev)
+    expected = _sp_expected_launches(model, SP_EXPORT_HW, space)
+    check(report["selftest"] == "OK" and report["rank_artifact_kernel_launches"] == [
+        expected] * space.sp, f"sp export: selftest {report}, expected {expected} launches "
+                              "a forward on every rank")
+    check(read_counts()["fused_bottleneck_bf16"] == 2 * expected,
+          f"sp export: {read_counts()['fused_bottleneck_bf16']} bf16 eval launches in the "
+          f"selftest's two forwards, expected {2 * expected}")
+    model.drop_fused_conv_weights()
+    live = export_inference.make_serving_fn(cfg, model, (1.0,), False, SP_EXPORT_HW, space,
+                                            SP_EXPORT_HW[0])
+    x = _sp_export_input()[:, slice(*meta["input_rows"][space.index])].to(dev)
+    with torch.no_grad(), recorded_shapes() as shapes:
+        space.reset_stats()
+        got = art(x)
+        _sync(dev)
+        halo = dict(space.stats)
+        check(torch.equal(got, live(x)), "sp export: the artifact differs from its live graph")
+        check(tuple(got.shape) == (1, *SP_EXPORT_HW), f"sp export: output {tuple(got.shape)}")
+        ms_art, ms_live = _wall_ms(lambda: art(x), dev), _wall_ms(lambda: live(x), dev)
+    if space.index == 0:
+        torch.save(got.cpu(), os.path.join(out, "sp_export_trainids.pt"))
+    row = {"hw": list(SP_EXPORT_HW), "batch": 1, "sp": space.sp, "rank_rows":
+           meta["input_rows"][space.index], "embed_dtype": meta["embed_dtype"],
+           "export_seconds": export_s, "selftest_seconds": selftest_s,
+           "artifact_mb": os.path.getsize(os.path.join(out, meta["files"][space.index])) / 1e6,
+           "selftest": report, "eval_launches": report["artifact_kernel_launches"],
+           "halo_bytes_sent": halo["bytes_sent"], "halo_bytes_received": halo["bytes_received"],
+           "exchanges": halo["exchanges"], "exchange_ms": halo["seconds"] * 1e3,
+           "ms_artifact": ms_art, "ms_live": ms_live,
+           "images_per_s_artifact": 1e3 / ms_art, "images_per_s_live": 1e3 / ms_live}
+    del art, live, model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return row, shapes
+
+
 def _sp_worker(out: str, backend: str, device: str, sp: int) -> dict:
-    """A rank of the sp phase: every case of ``SP_LIMITS``; writes
+    """A rank of the sp phase: every case of ``SP_LIMITS``, every leg of
+    ``SP_TRAIN_LEGS``, the trainer and (one space group) the export; writes
     ``sp_rank<r>.json`` under ``out`` (its readings and launch shapes)."""
     from maxsquareloss_torch.parallel import ddp, spatial
 
@@ -3142,30 +3264,44 @@ def _sp_worker(out: str, backend: str, device: str, sp: int) -> dict:
     space = spatial.space_group(sp)
     data_group, data_groups = spatial.data_groups(sp)
     cases, train, seen = [], [], {}
+
+    def merge(shapes):
+        for k, v in shapes.items():
+            seen.setdefault(k, set()).update(v)
+
     for dtype in SP_LIMITS:
         row, shapes = _sp_case(dtype, space, dev, data_group)
         cases.append(row)
-        for k, v in shapes.items():
-            seen.setdefault(k, set()).update(v)
-    for dtype in SP_TRAIN_LIMITS:
-        row, shapes = _sp_train_case(dtype, space, dev, data_group, data_groups, out)
+        merge(shapes)
+    for leg in SP_TRAIN_LEGS:
+        row, shapes = _sp_train_case(leg, space, dev, data_group, data_groups, out)
         train.append(row)
-        for k, v in shapes.items():
-            seen.setdefault(k, set()).update(v)
+        merge(shapes)
+    halo = {leg: {k: v for k, v in r["halo"].items() if "seconds" not in k}
+            for leg, r in zip(SP_TRAIN_LEGS, train)}
+    check(halo["remat_float32"] == halo["float32"],
+          f"sp remat rank {ddp.rank()}: exchanges {halo['remat_float32']}, the step without "
+          f"remat {halo['float32']}")
     trainer = _sp_trainer_case(space, dev, out)
+    export = None
+    if data_groups == 1:
+        export, shapes = _sp_export_case(space, dev, device, out)
+        merge(shapes)
     result = {"world": ddp.world(), "rank": ddp.rank(), "sp": sp, "space_index": space.index,
               "data_group": data_group, "data_groups": data_groups, "backend": backend,
               "device": str(dev), "cases": cases, "train": train, "trainer": trainer,
-              "launch_shapes": {k: sorted(v) for k, v in seen.items() if v}}
+              "export": export, "launch_shapes": {k: sorted(v) for k, v in seen.items() if v}}
     with open(os.path.join(out, f"sp_rank{ddp.rank()}.json"), "w") as f:
         json.dump(result, f)
     return result
 
 
-def _sp_train_parity(dtype: str, ref: dict, got: dict, p0: dict, m_fp32: dict) -> dict:
+def _sp_train_parity(leg: str, ref: dict, got: dict, p0: dict, m_fp32: dict) -> dict:
     """The SP step's metrics and parameter changes against the one-process
-    step's (SP_TRAIN_LIMITS; in bf16 the BF16_THRESHOLDED metrics beyond the
-    one-process bf16 step's distance from the fp32 one, ``m_fp32``)."""
+    step's (SP_TRAIN_LIMITS by the leg's dtype; in bf16 the
+    BF16_THRESHOLDED metrics beyond the one-process bf16 step's distance
+    from the fp32 one, ``m_fp32``)."""
+    dtype = SP_TRAIN_LEGS[leg][0]
     rtol, param_rtol = SP_TRAIN_LIMITS[dtype]
     report = _ddp_parity(p0, [(ref["metrics"], ref["params"])],
                          [(got["metrics"], got["params"])])[0]
@@ -3174,9 +3310,9 @@ def _sp_train_parity(dtype: str, ref: dict, got: dict, p0: dict, m_fp32: dict) -
                           if dtype == "bfloat16" and k in BF16_THRESHOLDED else 0.0)
                for k in m_ref}
     bad = {k: v for k, v in report["metric_rel_err"].items() if not v <= allowed[k]}
-    check(report["finite"] and not bad, f"sp train {dtype}: metrics off {bad}")
+    check(report["finite"] and not bad, f"sp train {leg}: metrics off {bad}")
     check(report["param_change_rel_l2_max"] <= param_rtol,
-          f"sp train {dtype}: {report['param_change_rel_l2_worst']} change off by "
+          f"sp train {leg}: {report['param_change_rel_l2_worst']} change off by "
           f"{report['param_change_rel_l2_max']:.3g} (relative L2)")
     return {**report, "metric_rel_allowed": allowed}
 
@@ -3232,19 +3368,40 @@ def phase_sp(checked: dict, cards: int | None = None) -> dict[str, list[int]]:
         runs = [(SP_SHARED_RANKS, "gloo", SP_DEVICE, SP_SHARED_RANKS)]
     else:
         runs = [(cards, "nccl", "-", cards)] + ([(4, "nccl", "-", 2)] if cards == 4 else [])
+    from maxsquareloss_torch.optim import make_sgd
+    from maxsquareloss_torch.tools import export_inference
+
     refs = {}
-    for dtype in SP_TRAIN_LIMITS:
-        refs[dtype] = _sp_train_run(_sp_train_cfg(dtype), dev, slice(None))
-        del refs[dtype]["shapes"], refs[dtype]["expected_emit"], refs[dtype]["halo"]
-    p0 = refs["float32"].pop("p0")
-    del refs["bfloat16"]["p0"]  # the same seeded fp32 parameters
+    for leg, (dtype, fields, timed) in SP_TRAIN_LEGS.items():
+        refs[leg] = _sp_train_run(_sp_train_cfg(dtype, **fields), dev, slice(None), timed=timed)
+        del refs[leg]["shapes"], refs[leg]["expected_emit"], refs[leg]["halo"]
+    p0 = refs["float32"]["p0"]
+    for r in refs.values():  # the same seeded fp32 parameters
+        del r["p0"]
     emit({"phase": "sp_train_one_process", "batch": TRAIN_BATCH,
           "source_hw": list(SRC_HW), "target_hw": list(TGT_HW),
-          **{dtype: {k: v for k, v in r.items() if k != "params"} for dtype, r in refs.items()}})
+          **{leg: {k: v for k, v in r.items() if k != "params"} for leg, r in refs.items()}})
+    # the export's seeded .pth and the one-process bf16 artifact's map
+    export_root = tempfile.mkdtemp(prefix="chip_smoke_sp_export_")
+    cfg = TrainConfig(**SP_MODEL_KW)
+    model = init_deeplabv2(model_config(cfg), torch.Generator().manual_seed(0), device=dev)
+    export_ckpt = ckpt_lib.save_checkpoint(os.path.join(export_root, "ckpt"), model,
+                                           make_sgd(model, cfg), 0, 0, 0.0)
+    del model
+    base = os.path.join(export_root, "serve_one")
+    t0 = time.perf_counter()
+    export_inference.main(_sp_export_argv(export_ckpt, base) + ["--device", str(dev)])
+    with torch.no_grad():
+        one_map = torch.export.load(base + ".pt2").module()(_sp_export_input().to(dev)).cpu()
+    emit({"phase": "sp_export_one_process", "hw": list(SP_EXPORT_HW),
+          "seconds": time.perf_counter() - t0,
+          "artifact_mb": os.path.getsize(base + ".pt2") / 1e6})
+    torch.cuda.empty_cache()
     trainer_refs = {}
     launches = {k: [] for k in ("fused_bottleneck", "fused_bottleneck_bf16",
                                 "fused_bottleneck_emit", "fused_bottleneck_emit_bf16",
-                                "fused_iw_max_square_loss",
+                                "fused_bottleneck_emit_masked", "fused_bottleneck_emit_remat",
+                                "fused_bottleneck_bf16_export", "fused_iw_max_square_loss",
                                 "fused_iw_max_square_loss_backward")}
     for nproc, backend, device, sp in runs:
         groups = nproc // sp
@@ -3252,38 +3409,66 @@ def phase_sp(checked: dict, cards: int | None = None) -> dict[str, list[int]]:
             trainer_refs[groups] = _sp_trainer_reference(groups, dev)
         work = tempfile.mkdtemp(prefix="chip_smoke_sp_")
         try:
+            shutil.copy(export_ckpt, os.path.join(work, "export_ckpt.pth"))
             _torchrun(nproc, [me, "--ddp-worker", "sp", work, backend, device, str(sp)],
                       f"sp {sp} over {nproc} {backend} ranks")
             ranks = []
             for r in range(nproc):
                 with open(os.path.join(work, f"sp_rank{r}.json")) as f:
                     ranks.append(json.load(f))
-            parity = {dtype: _sp_train_parity(
-                dtype, refs[dtype], torch.load(os.path.join(work, f"sp_train_{dtype}.pt")), p0,
-                refs["float32"]["metrics"]) for dtype in SP_TRAIN_LIMITS}
+            parity = {leg: _sp_train_parity(
+                leg, refs[leg], torch.load(os.path.join(work, f"sp_train_{leg}.pt")), p0,
+                refs["float32"]["metrics"]) for leg in SP_TRAIN_LEGS}
             trainer = _sp_trainer_parity(work, trainer_refs[groups])
+            export = None
+            if groups == 1:
+                sp_map = torch.load(os.path.join(work, "sp_export_trainids.pt"))
+                agree = (sp_map == one_map).float().mean().item()
+                export = {"sp": sp, "world": nproc, "backend": backend,
+                          "gathered_vs_one_process_artifact": agree,
+                          "ranks": [r["export"] for r in ranks]}
+                emit({"phase": "sp_export", **export})
+                check(sp_map.shape == one_map.shape and agree >= SP_EXPORT_AGREE,
+                      f"sp export: the gathered map agrees with the one-process bf16 "
+                      f"artifact's on {agree:.5f}")
         finally:
             shutil.rmtree(work, ignore_errors=True)
         seen = {}
         for rank in ranks:
             shapes = rank.pop("launch_shapes")
             emit({"phase": "sp", **rank})
-            for k, v in shapes.items():
-                seen.setdefault(k, set()).update(tuple(s) for s in v)
+            for k, v in shapes.items():  # a masked shape ends with its valid extents
+                seen.setdefault(k, set()).update(
+                    tuple(tuple(e) if isinstance(e, list) else e for e in s) for s in v)
             for case in rank["cases"]:
                 key = "fused_bottleneck" + ("_bf16" if case["dtype"] == "bfloat16" else "")
                 launches[key].append(case["forward"]["eval_launches"])
             for case in rank["train"]:
-                for key in ("fused_iw_max_square_loss", "fused_iw_max_square_loss_backward",
-                            "fused_bottleneck_emit" + ("_bf16" if case["dtype"] == "bfloat16"
-                                                       else "")):
-                    launches[key].append(case["launches"][key])
+                counts, leg = case["launches"], case["leg"]
+                if leg in ("float32", "bfloat16"):
+                    for key in ("fused_iw_max_square_loss", "fused_iw_max_square_loss_backward",
+                                "fused_bottleneck_emit" + ("_bf16" if leg == "bfloat16" else "")):
+                        launches[key].append(counts[key])
+                elif leg == "concat_float32":
+                    launches["fused_bottleneck_emit_masked"].append(
+                        counts["fused_bottleneck_emit_masked"])
+                else:
+                    launches["fused_bottleneck_emit_remat"].append(counts["fused_bottleneck_emit"])
+            if rank["export"] is not None:
+                launches["fused_bottleneck_bf16_export"].append(rank["export"]["eval_launches"])
         emit({"phase": "sp_train", "sp": sp, "world": nproc, "backend": backend,
               "limits": SP_TRAIN_LIMITS, "vs_one_process": parity,
               "trainer_vs_one_process": trainer,
-              "step_ms_one_process": {d: r["step_ms"] for d, r in refs.items()},
-              "step_ms_per_rank": {c["dtype"]: [r["train"][i]["step_ms"] for r in ranks]
-                                   for i, c in enumerate(ranks[0]["train"])}})
+              "step_ms_one_process": {leg: r["step_ms"] for leg, r in refs.items()},
+              "peak_memory_gib_one_process": {leg: r["peak_memory_gib"]
+                                              for leg, r in refs.items()},
+              "step_ms_per_rank": {c["leg"]: [r["train"][i]["step_ms"] for r in ranks]
+                                   for i, c in enumerate(ranks[0]["train"])},
+              "peak_memory_gib_per_rank": {c["leg"]: [r["train"][i]["peak_memory_gib"]
+                                                      for r in ranks]
+                                           for i, c in enumerate(ranks[0]["train"])},
+              "halo_per_rank": {c["leg"]: [r["train"][i]["halo"] for r in ranks]
+                                for i, c in enumerate(ranks[0]["train"])}})
         emit({"phase": "sp_shapes", "sp": sp, "world": nproc,
               "launch_shapes": {k: sorted(v) for k, v in seen.items()}})
         for kernel in seen:  # a bf16 shape is held in both instances
@@ -3291,6 +3476,7 @@ def phase_sp(checked: dict, cards: int | None = None) -> dict[str, list[int]]:
         for kernel in ("fused_bottleneck_bf16", "fused_bottleneck_emit_bf16"):
             checked.setdefault(kernel, set())
         hold_path_shapes("sp", seen, checked)
+    shutil.rmtree(export_root, ignore_errors=True)
     return launches
 
 
@@ -3816,18 +4002,26 @@ def main() -> int:
     sp_launches = phase_sp(checked_all)
     kernel["sp_launches_per_rank"] = sp_launches["fused_bottleneck"]
     bf16_kernels[0]["sp_launches_per_rank"] = sp_launches["fused_bottleneck_bf16"]
+    # the sharded bf16 artifact: each rank's launches in one forward
+    bf16_kernels[0]["sp_export_launches_per_rank"] = sp_launches["fused_bottleneck_bf16_export"]
     # the training path under --sp: each rank's launches in one UDA step
     for k in (*train_kernels, bf16_kernels[1]):
         if k["name"] in sp_launches:
             k["sp_train_launches_per_rank_per_step"] = sp_launches[k["name"]]
+    train_kernels[0]["sp_remat_launches_per_rank_per_step"] = sp_launches[
+        "fused_bottleneck_emit_remat"]
+    masked_kernel["sp_train_launches_per_rank_per_step"] = sp_launches[
+        "fused_bottleneck_emit_masked"]
     lap("sp")
     phase_ddp(bare_steps_per_s, checked_all)
     lap("ddp")
     kernels = (kernel, *train_kernels, masked_kernel, *bf16_kernels, probe)
     for k in kernels:
         check(k["launches"] > 0, f"the main path launched no {k['name']}")
-        check(all(n > 0 for n in k.get("sp_launches_per_rank", [1])
-                  + k.get("sp_train_launches_per_rank_per_step", [1])),
+        check(all(n > 0 for key in ("sp_launches_per_rank", "sp_export_launches_per_rank",
+                                    "sp_train_launches_per_rank_per_step",
+                                    "sp_remat_launches_per_rank_per_step")
+                  for n in k.get(key, [1])),
               f"a rank of the sp path launched no {k['name']}")
     emit({"phase": "summary", "wall_seconds": time.perf_counter() - t_start,
           "seconds_by_phase": seconds})

@@ -10,9 +10,8 @@ bfloat16; parameters, optimizer and checkpoints float32), one process per card
 --num_processes --process_id``); batch sizes are global. A flag for
 something the port does not have yet raises in ``check_supported`` with the
 ROADMAP item it waits on, instead of being ignored. ``--sp N`` (spatial
-partitioning, ``parallel/spatial.py``) is ported for the serving CLIs and
-the trainers; with ``--concat_batches true`` or ``--remat stages`` the
-trainers raise (ROADMAP Queue 1 item 2, sub-step (d)).
+partitioning, ``parallel/spatial.py``) is ported for the serving CLIs, the
+export and the trainers, with every training option.
 """
 
 from __future__ import annotations
@@ -136,22 +135,12 @@ _UNPORTED = (
     ("freeze_bn", True, "--freeze_bn false: BN is always frozen (folded into buffers), "
      "as in the JAX package"),
 )
-# the same for the trainers' options that do not compose with --sp > 1 yet
-# (the JAX package has both through GSPMD)
-_UNPORTED_WITH_SP = (
-    ("concat_batches", False, "--concat_batches under --sp (spatial partitioning) waits on "
-     "ROADMAP Queue 1 item 2, sub-step (d): the masked canvas on row shards"),
-    ("remat", "", "--remat under --sp (spatial partitioning) waits on ROADMAP Queue 1 item 2, "
-     "sub-step (d): the halo exchanges re-run inside a recompute"),
-)
 
 
-def check_supported(cfg: TrainConfig, serving: bool = False) -> None:
-    """Raise on an option the port does not have: never ignore it.
-    ``serving``: the checks of ``evaluate`` and ``predict``, which read no
-    training option. With several processes ``--sp`` must divide their
-    number."""
-    for name, ok, why in _UNPORTED + (() if serving or cfg.sp <= 1 else _UNPORTED_WITH_SP):
+def check_supported(cfg: TrainConfig) -> None:
+    """Raise on an option the port does not have: never ignore it. With
+    several processes ``--sp`` must divide their number."""
+    for name, ok, why in _UNPORTED:
         if getattr(cfg, name) != ok:
             what = f"{name}={getattr(cfg, name)!r}" + (f" with sp={cfg.sp}" if cfg.sp > 1 else "")
             raise NotImplementedError(f"{what} is not ported: {why}")
@@ -287,10 +276,8 @@ def str2bool(v) -> bool:
     return str(v).lower() in ("1", "true", "yes", "y", "t")
 
 
-def config_from_args(args: argparse.Namespace, serving: bool = False) -> TrainConfig:
-    """The parsed namespace → a checked TrainConfig; makes the run dir.
-    ``serving``: the checks of ``evaluate`` and ``predict``
-    (``check_supported``)."""
+def config_from_args(args: argparse.Namespace) -> TrainConfig:
+    """The parsed namespace → a checked TrainConfig; makes the run dir."""
     fields = {f.name for f in dataclasses.fields(TrainConfig)}
     kv: dict[str, Any] = {}
     for k, v in vars(args).items():
@@ -331,6 +318,6 @@ def config_from_args(args: argparse.Namespace, serving: bool = False) -> TrainCo
             raise ValueError(f"--quantize {cfg.quantize} does not compose with --sp {cfg.sp}, "
                              "as in the JAX package: use --sp for float serving, or int8 with "
                              "data parallelism")
-    check_supported(cfg, serving)
+    check_supported(cfg)
     os.makedirs(cfg.checkpoint_dir, exist_ok=True)
     return cfg

@@ -80,7 +80,13 @@ their gradients back to the rows' owners, an identity block runs
 its window, whose discarded halo rows get a zero gradient, and each weight
 gradient is this rank's rows' share. A rank that owns no rows of a map
 launches nothing for it (``spatial.no_rows``). Canvas masks
-(``--concat_batches``), stage remat and int8 do not compose with it.
+(``--concat_batches``) split by rows like any map: each op multiplies its
+own rows by the mask's, so the windows it fetches are masked, and an
+identity block's valid extents count rows from its window's first
+(``_mask_rows``). Stage remat checkpoints each stage's loop of blocks
+inside ``spatial.remat_region``, so the recompute replays the rows the
+first forward received. int8 does not compose with it, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -135,6 +141,17 @@ class CanvasMask(NamedTuple):
 
     mask: torch.Tensor
     valid: torch.Tensor
+
+
+def _mask_rows(mask: CanvasMask | None, r0: int, r1: int) -> CanvasMask | None:
+    """``mask`` on rows ``[r0, r1)`` of its map: the 0/1 mask's rows, and
+    each image's valid rows counted from ``r0`` and clamped to the window
+    (its valid columns unchanged)."""
+    if mask is None:
+        return None
+    rows = (mask.valid[:, :1] - r0).clamp(0, r1 - r0)
+    return CanvasMask(mask.mask[:, :, r0:r1],
+                      torch.cat([rows, mask.valid[:, 1:]], dim=1).contiguous())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -291,11 +308,15 @@ class Bottleneck(nn.Module):
         residual = x if self.downsample is None else self.downsample(x)
         return F.relu(y + residual)
 
-    def forward_sp(self, x: torch.Tensor, h: int, space: SpaceGroup, kernel, train_kernel):
+    def forward_sp(self, x: torch.Tensor, h: int, space: SpaceGroup, kernel, train_kernel,
+                   mask: CanvasMask | None = None):
         """The block on this rank's rows of a map of ``h`` rows: (its rows of
         the output, the output's height). An identity block runs ``forward``
-        (the fused kernel) on the rows [o0 - d, o1 + d) clipped to the map
-        and keeps [o0, o1); the others run their convs by ``_sp_conv``."""
+        (the fused kernel) on the rows [o0 - d, o1 + d) clipped to the map,
+        with ``mask``'s valid extents counted from the window's first row,
+        and keeps [o0, o1); the others run their convs by ``_sp_conv`` and
+        multiply their rows of h1 by ``mask``'s (the whole canvas's mask at
+        h1's resolution)."""
         if self.fusable and not self.quantized:
             d = self.dilation
             o0, o1 = space.own(h)
@@ -303,11 +324,13 @@ class Bottleneck(nn.Module):
             if o1 <= o0:
                 return spatial.no_rows(tuple(x.shape), x, x, self.conv1.weight,
                                        self.conv2.weight, self.conv3.weight), h
-            out = self.forward(xw, kernel, train_kernel)
             a = max(o0 - d, 0)
+            out = self.forward(xw, kernel, train_kernel, _mask_rows(mask, a, a + xw.shape[2]))
             return out[:, :, o0 - a: o1 - a], h
         y, h_out = _sp_conv(self.conv1, x, h, space)
         y = F.relu(self.bn1(y))
+        if mask is not None:
+            y = y * _mask_rows(mask, *space.own(h_out)).mask.to(y.dtype)
         y = F.relu(self.bn2(_sp_conv(self.conv2, y, h_out, space)[0]))
         y = self.bn3(_sp_conv(self.conv3, y, h_out, space)[0])
         if self.downsample is None:
@@ -346,11 +369,14 @@ class Classifier(nn.Module):
         return out
 
     def forward_sp(self, x: torch.Tensor, h: int, space: SpaceGroup,
-                   aspp_matmul: bool = False) -> torch.Tensor:
-        """The head on this rank's rows of a map of ``h`` rows. The eval form
-        computes its tap products on its own rows and fetches theirs within
-        max(dilation) rows (36 x nc channels, not x's); the training form
-        fetches x's rows and runs each conv on its part of the window."""
+                   aspp_matmul: bool = False, mask: CanvasMask | None = None) -> torch.Tensor:
+        """The head on this rank's rows of a map of ``h`` rows (masked by
+        its rows of ``mask``). The eval form computes its tap products on
+        its own rows and fetches theirs within max(dilation) rows (36 x nc
+        channels, not x's); the training form fetches x's rows and runs each
+        conv on its part of the window."""
+        if mask is not None:
+            x = x * _mask_rows(mask, *space.own(h)).mask.to(x.dtype)
         pad = max(ASPP_DILATIONS)
         n_own = space.own(h)[1] - space.own(h)[0]
         convs = self.conv2d_list
@@ -490,36 +516,51 @@ class DeepLabV2(nn.Module):
 
         return (None if aux_out is None else nhwc(aux_out)), nhwc(main)
 
+    def _stage_sp(self, layer: nn.Sequential, y: torch.Tensor, h: int, space: SpaceGroup,
+                  mask: CanvasMask | None) -> tuple[torch.Tensor, int]:
+        def run(y):
+            h_out = h
+            for block in layer:
+                y, h_out = block.forward_sp(y, h_out, space, self.block_fn, self.train_block_fn,
+                                            mask)
+            heights.append(h_out)
+            return y
+
+        heights = []
+        if self.cfg.remat == "stages" and torch.is_grad_enabled():
+            log = spatial.RowLog()
+
+            def region(y):
+                with spatial.remat_region(space, log):
+                    return run(y)
+
+            y = torch.utils.checkpoint.checkpoint(region, y, use_reentrant=False,
+                                                  preserve_rng_state=False)
+            return y, heights[0]
+        return run(y), heights[0]
+
     def _forward_sp(self, x: torch.Tensor, aux: bool, masks, space: SpaceGroup,
                     in_h: int | None):
         if in_h is None:
             raise ValueError("a spatially partitioned forward needs the input's height in_h")
-        if masks is not None:
-            raise NotImplementedError(
-                "--concat_batches (a masked canvas) under --sp is not ported: it waits on ROADMAP "
-                "Queue 1 item 2 (spatial partitioning, sub-step (d))")
-        if self.cfg.remat and torch.is_grad_enabled():
-            raise NotImplementedError(
-                f"--remat {self.cfg.remat} under --sp is not ported: it waits on ROADMAP Queue 1 "
-                "item 2 (spatial partitioning, sub-step (d))")
         if self.quantized:
             raise NotImplementedError("--quantize int8 does not compose with --sp")
+        m = masks or {}
         aspp_matmul = self.cfg.aspp_matmul
         y = x.to(self.cfg.compute_dtype).permute(0, 3, 1, 2)
         y = y.contiguous(memory_format=torch.channels_last)
         y, h = _sp_conv(self.conv1, y, in_h, space)
-        y, h = _sp_pool(F.relu(self.bn1(y)), h, space)
-
-        def stage(layer, y, h):
-            for block in layer:
-                y, h = block.forward_sp(y, h, space, self.block_fn, self.train_block_fn)
-            return y, h
-
-        y, h = stage(self.layer2, *stage(self.layer1, y, h))
-        y3, h = stage(self.layer3, y, h)
-        aux_out = (self.layer5.forward_sp(y3, h, space, aspp_matmul)
+        y = F.relu(self.bn1(y))
+        if masks is not None:
+            y = y * _mask_rows(m["pool_in"], *space.own(h)).mask.to(y.dtype)
+        y, h = _sp_pool(y, h, space)
+        y, h = self._stage_sp(self.layer1, y, h, space, m.get("os4"))
+        y, h = self._stage_sp(self.layer2, y, h, space, m.get("os8"))
+        y3, h = self._stage_sp(self.layer3, y, h, space, m.get("os8"))
+        aux_out = (self.layer5.forward_sp(y3, h, space, aspp_matmul, m.get("os8"))
                    if aux and self.cfg.multi_level else None)
-        main = self.layer6.forward_sp(stage(self.layer4, y3, h)[0], h, space, aspp_matmul)
+        main = self.layer6.forward_sp(self._stage_sp(self.layer4, y3, h, space, m.get("os8"))[0],
+                                      h, space, aspp_matmul, m.get("os8"))
 
         def nhwc(t):
             return t.permute(0, 2, 3, 1).float()

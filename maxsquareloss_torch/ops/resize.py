@@ -101,12 +101,15 @@ def upsample_logits(logits: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tens
     return resize_bilinear_align_corners(logits, out_hw)
 
 
-def resize_shard(x: torch.Tensor, in_h: int, out_hw: tuple[int, int], space) -> torch.Tensor:
+def resize_shard(x: torch.Tensor, in_h: int, out_hw: tuple[int, int], space,
+                 own: list[tuple[int, int]] | None = None) -> torch.Tensor:
     """This rank's rows of the align-corners resize to ``out_hw`` of a map of
-    ``in_h`` rows split over ``space`` (``x``: its rows): the global
-    matrix's rows over the input rows they read, fetched from their owners
-    (``spatial.fetch_rows``). Collective over the space group."""
+    ``in_h`` rows split over ``space`` (``x``: its rows; ``own``: every
+    rank's rows when the map is not split by ownership, as a canvas's rows
+    clipped to one batch's): the global matrix's rows over the input rows
+    they read, fetched from their owners (``spatial.fetch_rows``).
+    Collective over the space group."""
     need = [input_rows(out_hw[0], in_h, *o) for o in space.split(out_hw[0])]
-    win = spatial.fetch_rows(x, space.split(in_h), need, space)
+    win = spatial.fetch_rows(x, own or space.split(in_h), need, space)
     return resize_bilinear_align_corners(win, out_hw, h_rows=space.own(out_hw[0]), in_h=in_h,
                                          row0=need[space.index][0])

@@ -49,6 +49,27 @@ tied to the op's inputs and parameters (``no_rows``), so its
 ``requires_grad`` is every rank's and each parameter gets a gradient
 (zero) on every rank.
 
+**Stage remat** (``--remat stages``): a checkpointed stage's recompute
+re-runs its forward inside the backward, in each rank's own autograd order
+and outside the token chain, so it must not exchange again. Its first
+forward keeps the rows each fetch received from peers (``RowLog``, a few
+rows a side), and the recompute (``remat_region``) reads them back in call
+order with no exchange, neither reading nor advancing the chain's token:
+the first forward's fetches stay in the graph, and the backward's exchanges
+are theirs.
+
+**The serving export** (``tools/export_inference.py --sp``): ``torch.export``
+cannot trace ``dist`` calls, so an exchange without grad is the custom op
+``msl::sp_fetch_rows`` (its arguments: the map, a 0-d token, every rank's
+rows and request as flat integer lists, and the key of the space group in
+this module's registry, which the loading process fills by joining a group
+of the same ``sp``), and ``all_rows`` (the whole map on every rank) is
+``msl::sp_all_rows``. Inside ``serving(space)`` each op takes the token the
+previous one returned and ``all_rows`` takes the last: the exported graph's
+output depends on every exchange, so none is dropped as dead code (a rank
+that only gives rows, or owns none of a map, still joins), none is merged
+with another, and every rank runs them in one order.
+
 A group's ``stats`` count the bytes this rank sent and received, the
 exchanges and their wall seconds, forward and (``backward_*``) backward.
 """
@@ -142,6 +163,7 @@ class SpaceGroup:
         return dist.get_backend(self.group)
 
 
+# every space group of this process by its sp: the key the exchange ops name
 _groups: dict[int, SpaceGroup] = {}
 
 
@@ -231,16 +253,28 @@ def _shape(t: torch.Tensor, r: Rows) -> tuple:
     return (t.shape[0], r[1] - r[0], *t.shape[2:])
 
 
-def _fetch(x: torch.Tensor, own: list[Rows], want: list[Rows], space: SpaceGroup):
+def _fetch(x: torch.Tensor, own: list[Rows], want: list[Rows], space: SpaceGroup,
+           got: dict | None = None) -> torch.Tensor:
+    """This rank's window ``want[index]`` of a map of which ``x`` holds rows
+    ``own[index]``, as a new contiguous tensor (never a view of ``x``). The
+    peers' rows come from the exchange, or from ``got`` (a recompute's
+    replay, which exchanges nothing); a ``remat_region`` recording keeps
+    them."""
     me = space.index
     gets, gives = _plan(own, want, me)
-    got = _p2p(space, x, {p: _rows_of(x, r, own[me][0]) for p, r in gives.items() if p != me},
-               {p: _shape(x, r) for p, r in gets.items() if p != me}, backward=False)
+    if got is None:
+        got = _p2p(space, x, {p: _rows_of(x, r, own[me][0]) for p, r in gives.items() if p != me},
+                   {p: _shape(x, r) for p, r in gets.items() if p != me}, backward=False)
+        log = space.chain.get("rows_log")
+        if log is not None:
+            log.entries.append(got)
     # in row order: peers own rows in rank order
     pieces = [_rows_of(x, r, own[me][0]) if p == me else got[p] for p, r in gets.items()]
     if not pieces:
         return x.new_empty((x.shape[0], 0, *x.shape[2:]))
-    return torch.cat(pieces, dim=1) if len(pieces) > 1 else pieces[0].contiguous()
+    if len(pieces) > 1:
+        return torch.cat(pieces, dim=1)
+    return pieces[0].clone(memory_format=torch.contiguous_format)
 
 
 def _fetch_backward(g: torch.Tensor, x_rows: int, own: list[Rows], want: list[Rows],
@@ -265,10 +299,7 @@ class _FetchRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, token, own, want, space):
         ctx.plan = (x.shape[1], own, want, space)
-        out = _fetch(x, own, want, space)
-        if out.untyped_storage().data_ptr() == x.untyped_storage().data_ptr():
-            out = out.clone()  # a Function's output is no view of its input
-        return out, token.new_zeros(())
+        return _fetch(x, own, want, space), token.new_zeros(())
 
     @staticmethod
     def backward(ctx, g, g_token):
@@ -311,6 +342,105 @@ def join(loss: torch.Tensor, space: SpaceGroup | None) -> torch.Tensor:
     return loss if token is None else _Join.apply(loss, token)
 
 
+def _flat(rs: list[Rows]) -> list[int]:
+    return [v for r in rs for v in r]
+
+
+def _pairs(flat: list[int]) -> list[Rows]:
+    return [(flat[i], flat[i + 1]) for i in range(0, len(flat), 2)]
+
+
+def _registered(group: int) -> SpaceGroup:
+    if group not in _groups:
+        raise RuntimeError(f"no space group of sp {group} in this process: join one with "
+                           f"spatial.space_group({group}) (a torchrun group of {group} ranks) "
+                           "before running a graph that exchanges rows")
+    return _groups[group]
+
+
+@torch.library.custom_op("msl::sp_fetch_rows", mutates_args=(), schema=(
+    "(Tensor x, Tensor token, int[] own, int[] want, int group) -> (Tensor, Tensor)"))
+def _fetch_op(x, token, own, want, group):
+    """``_fetch`` as an op: (the window, the next token)."""
+    return _fetch(x, _pairs(own), _pairs(want), _registered(group)), token.new_zeros(())
+
+
+@_fetch_op.register_fake
+def _fetch_op_fake(x, token, own, want, group):
+    a, b = _pairs(want)[_registered(group).index]
+    return x.new_empty((x.shape[0], b - a, *x.shape[2:])), token.new_empty(())
+
+
+@torch.library.custom_op("msl::sp_all_rows", mutates_args=(), schema=(
+    "(Tensor x, Tensor token, int[] own, int group) -> Tensor"))
+def _all_rows_op(x, token, own, group):
+    """Every row of the map on every rank, after the exchange ``token``
+    ends."""
+    own, space = _pairs(own), _registered(group)
+    return _fetch(x, own, [(0, own[-1][1])] * space.sp, space)
+
+
+@_all_rows_op.register_fake
+def _all_rows_op_fake(x, token, own, group):
+    return x.new_empty((x.shape[0], own[-1], *x.shape[2:]))
+
+
+def _serving_token(space: SpaceGroup, like: torch.Tensor) -> torch.Tensor:
+    token = space.chain.get("serve_token") if space.chain.get("serving") else None
+    return like.new_zeros((), dtype=torch.int32) if token is None else token
+
+
+@contextlib.contextmanager
+def serving(space: SpaceGroup | None):
+    """The scope of one exported forward under ``space`` (a no-op for
+    None): its exchanges chain their tokens and ``all_rows`` ends the chain
+    (module docstring)."""
+    if space is None:
+        yield
+        return
+    space.chain.update(serving=True, serve_token=None)
+    try:
+        yield
+    finally:
+        space.chain.pop("serving", None)
+        space.chain.pop("serve_token", None)
+
+
+def all_rows(x: torch.Tensor, h: int, space: SpaceGroup) -> torch.Tensor:
+    """Every row of a map of height ``h`` split by ownership, on every rank
+    of the group (``x``: this rank's rows; no grad). Collective."""
+    token = _serving_token(space, x)
+    return _all_rows_op(x, token, _flat(space.split(h)), space.sp)
+
+
+class RowLog:
+    """The rows that the fetches of one checkpointed region received from
+    peers in its first forward, in call order (``remat_region``)."""
+
+    def __init__(self):
+        self.entries: list[dict] = []
+        self.recorded = False
+
+
+@contextlib.contextmanager
+def remat_region(space: SpaceGroup | None, log: RowLog):
+    """One run of a checkpointed region under ``space``: the first records
+    into ``log`` the rows each fetch receives; a later one (the recompute
+    in the backward) replays them in the same order and exchanges nothing
+    (module docstring)."""
+    if space is None:
+        yield
+        return
+    prev = space.chain.get("rows_log"), space.chain.get("replay")
+    replay = iter(log.entries) if log.recorded else None
+    space.chain["rows_log"], space.chain["replay"] = (None, replay) if log.recorded else (log, None)
+    try:
+        yield
+    finally:
+        log.recorded = True
+        space.chain["rows_log"], space.chain["replay"] = prev
+
+
 def fetch_rows(x: torch.Tensor, own: list[Rows], need: list[Rows],
                space: SpaceGroup) -> torch.Tensor:
     """Rows ``need[index]`` of the global map, clipped to ``[0, H)``, as one
@@ -325,12 +455,17 @@ def fetch_rows(x: torch.Tensor, own: list[Rows], need: list[Rows],
         raise ValueError(f"fetch_rows: rank {me} holds {x.shape[1]} rows, owns {own[me]}")
     want = [clip(r, h) for r in need]
     moves = any(p != q for q in range(space.sp) for p in _plan(own, want, q)[0])
-    if not (moves and torch.is_grad_enabled() and x.requires_grad):
-        if not moves:  # every window inside its own rows, on every rank: a slice
-            a, b = _overlap(own[me], want[me])
-            return x.narrow(1, a - own[me][0], b - a) if b > a else x[:, :0]
-        with torch.no_grad():
-            return _fetch(x, own, want, space)
+    if not moves:  # every window inside its own rows, on every rank: a slice
+        a, b = _overlap(own[me], want[me])
+        return x.narrow(1, a - own[me][0], b - a) if b > a else x[:, :0]
+    replay = space.chain.get("replay")
+    if replay is not None:  # a recompute: the first forward's rows, no exchange
+        return _fetch(x, own, want, space, got=next(replay))
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        out, token = _fetch_op(x, _serving_token(space, x), _flat(own), _flat(want), space.sp)
+        if space.chain.get("serving"):
+            space.chain["serve_token"] = token
+        return out
     if not space.chain.get("open"):
         raise RuntimeError("a forward with grad under --sp runs inside spatial.training(space), "
                            "whose loss goes through spatial.join (train/steps.py)")

@@ -90,15 +90,14 @@ def make_loader(
     )
 
 
-def init_distributed(cfg: TrainConfig, serving: bool = False) -> int:
+def init_distributed(cfg: TrainConfig) -> int:
     """Join the process group that ``torchrun`` or the flags
     ``--coordinator_address/--num_processes/--process_id`` describe (none for
-    a process started alone), check the run's options against it
-    (``serving``: the checks of ``evaluate`` and ``predict``) and make the
-    space groups of ``--sp``; returns the world size."""
+    a process started alone), check the run's options against it and make
+    the space groups of ``--sp``; returns the world size."""
     n = multihost.initialize_distributed(cfg.device, cfg.coordinator_address,
                                          cfg.num_processes, cfg.process_id)
-    check_supported(cfg, serving)
+    check_supported(cfg)
     spatial.space_group(cfg.sp)
     return n
 

@@ -52,10 +52,10 @@ def main(argv=None) -> dict:
                         help="keep labels at native resolution; predictions are"
                              " upsampled to label size")
     args = parser.parse_args(argv)
-    cfg = config_from_args(args, serving=True)
+    cfg = config_from_args(args)
     if not cfg.pretrained_ckpt_file:
         parser.error("--pretrained_ckpt_file is required")
-    init_distributed(cfg, serving=True)
+    init_distributed(cfg)
     device = resolve_device(cfg.device)
     logger = setup_logger(cfg.checkpoint_dir, "evaluate", main=ddp.is_main())
     model = load_inference_model(cfg, device)

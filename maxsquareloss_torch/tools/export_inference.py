@@ -24,6 +24,15 @@ tool's fields::
     fn = torch.export.load("serve/model.pt2").module()
     trainids = fn(uint8_batch_on_the_card)  # (N, H, W) int32, -1 = ignore
 
+    # a sharded artifact (the JAX tool's --sp, "batch-1 full-res requests"):
+    # one graph per rank of a space group of N, exported and checked under
+    # torchrun (gloo with --device cpu, NCCL on the cards)
+    torchrun --nproc_per_node 2 -m maxsquareloss_torch.tools.export_inference \
+        --pretrained_ckpt_file runs/x/checkpoint_best.pth --output serve/sp2 \
+        --hw 1024,2048 --batch_size 1 --sp 2
+    torchrun --nproc_per_node 2 -m maxsquareloss_torch.tools.export_inference \
+        --load serve/sp2 --selftest --pretrained_ckpt_file runs/x/checkpoint_best.pth
+
 The one way the artifact differs from the JAX tool's, which loads with no
 framework: the 29 identity blocks are the custom op
 ``torch.ops.msl.fused_bottleneck`` (``kernels/fused_block.py``), so the
@@ -41,9 +50,22 @@ parameters in bf16 under ``--compute_dtype bfloat16`` wherever the graph
 casts them to the activation's dtype at their one use, so the outputs are
 bitwise those of float32 storage; the int8 scales, the fused kernel's BN
 vectors (which it applies in float32) and the heads' biases (which the
-eval form adds in float32) stay float32. ``--sp > 1`` raises: a sharded
-artifact waits on ROADMAP Queue 1 item 2, sub-step (c) (``tools.evaluate``,
-``tools.predict`` and the trainers take ``--sp``).
+eval form adds in float32) stay float32.
+
+``--sp N`` (spatial partitioning, ``parallel/spatial.py``): the image rows
+split over a space group of N processes, as the JAX tool's (1, sp) mesh.
+A rank's windows depend on its index (border padding, uneven shards), so
+each rank of the ``torchrun`` launch exports its own graph,
+``<output>.rank<r>.pt2``: it takes rows ``input_rows[r]`` (the sidecar's)
+of the uint8 batch and returns the whole (N, out_h, out_w) map, as the JAX
+artifact returns it replicated on every device. The row exchanges are the
+custom ops ``msl::sp_fetch_rows`` and ``msl::sp_all_rows``, chained so that
+every exchange stays in the graph in one order on every rank; the process
+that loads an artifact joins a space group of N (``spatial.space_group``,
+on the backend it chooses: the artifact records none) and imports
+``maxsquareloss_torch.parallel.spatial`` to register them. int8 does not
+compose with ``--sp``, and ``--sp`` must divide the input height: both
+raise before any checkpoint is loaded.
 """
 
 from __future__ import annotations
@@ -60,6 +82,8 @@ from torch import nn
 import maxsquareloss_torch.kernels.fused_block  # noqa: F401  (registers msl::fused_bottleneck)
 from maxsquareloss_torch.config import TrainConfig, str2bool
 from maxsquareloss_torch.models.layers import QConv2d
+from maxsquareloss_torch.parallel import ddp, multihost, spatial
+from maxsquareloss_torch.parallel.spatial import SpaceGroup
 from maxsquareloss_torch.predict import predict_core
 from maxsquareloss_torch.utils.device import resolve_device
 
@@ -67,22 +91,45 @@ from maxsquareloss_torch.utils.device import resolve_device
 class ServingModule(nn.Module):
     """The serving function as a module (``torch.export`` lifts the model's
     parameters and buffers): ``forward(x)`` is ``predict``'s function on a
-    uint8 (N, H, W, 3) batch."""
+    uint8 (N, H, W, 3) batch. ``space``: ``x`` is this rank's rows of
+    images of ``in_h`` rows, and every rank returns the whole map."""
 
-    def __init__(self, cfg: TrainConfig, model: nn.Module, scales, flip: bool, out_hw):
+    def __init__(self, cfg: TrainConfig, model: nn.Module, scales, flip: bool, out_hw,
+                 space: SpaceGroup | None = None, in_h: int | None = None):
         super().__init__()
         self.model = model
-        self.fn = predict_core(cfg, model, scales, flip, out_hw)
+        self.fn = predict_core(cfg, model, scales, flip, out_hw, space)
+        self.space, self.in_h, self.out_h = space, in_h, out_hw[0]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fn(x)
+        if self.space is None:
+            return self.fn(x)
+        with spatial.serving(self.space):
+            return spatial.all_rows(self.fn(x, self.in_h), self.out_h, self.space)
 
 
-def make_serving_fn(cfg: TrainConfig, model: nn.Module, scales, flip: bool, out_hw):
+def make_serving_fn(cfg: TrainConfig, model: nn.Module, scales, flip: bool, out_hw,
+                    space: SpaceGroup | None = None, in_h: int | None = None):
     """uint8 NHWC batch → int32 trainIds (``make_serving_fn`` of the JAX
     tool): normalization (``cfg.numpy_transform``: caffe or torchvision)
-    and TTA in the graph."""
-    return ServingModule(cfg, model, scales, flip, out_hw).eval()
+    and TTA in the graph; ``space``: on this rank's rows (``ServingModule``)."""
+    return ServingModule(cfg, model, scales, flip, out_hw, space, in_h).eval()
+
+
+def _space(sp: int, device) -> SpaceGroup | None:
+    """The space group of ``--sp sp`` (None for 1): this process must be one
+    of exactly ``sp`` (``torchrun --nproc_per_node sp``)."""
+    if sp <= 1:
+        return None
+    multihost.initialize_distributed(device)
+    if ddp.world() != sp:
+        raise ValueError(f"--sp {sp} exports one space group: run it as {sp} processes "
+                         f"(torchrun --nproc_per_node {sp}), not {ddp.world()}")
+    return spatial.space_group(sp)
+
+
+def _rank_file(base: str, rank: int) -> str:
+    return f"{base}.rank{rank}.pt2"
 
 
 def _kept_float32(model: nn.Module) -> set[int]:
@@ -151,22 +198,30 @@ def _cfg(meta_or_args: dict) -> TrainConfig:
 
 
 def selftest(base: str, ckpt: str) -> dict:
-    """Load ``<base>.pt2``, run it on a seeded uint8 batch, and compare it
-    with the live graph rebuilt from the sidecar and ``ckpt`` (exact);
-    the report carries the fused kernel's launches in the artifact's
-    forward and in the live one."""
+    """Load ``<base>.pt2`` (under ``--sp``: this rank's file), run it on a
+    seeded uint8 batch (this rank's rows of it), and compare it with the
+    live graph rebuilt from the sidecar and ``ckpt`` (exact); the report
+    carries the fused kernel's launches in the artifact's forward and in the
+    live one (under ``--sp``: every rank's, printed by rank 0)."""
     from maxsquareloss_torch.kernels.fused_block import fused_bottleneck
 
     meta = json.load(open(base + ".json"))
     cfg = _cfg({**meta, "numpy_transform": meta["normalization"] == "caffe BGR-mean",
                 "pretrained_ckpt_file": ckpt})
     device = resolve_device(cfg.device)
-    art = torch.export.load(base + ".pt2").module()
+    space = _space(meta.get("sp", 1), device)
+    rank = 0 if space is None else space.index
+    path = base + ".pt2" if space is None else os.path.join(
+        os.path.dirname(os.path.abspath(base)), meta["files"][rank])
+    art = torch.export.load(path).module()
     model = _model(cfg, device, meta.get("calib_amax"))
     model.drop_fused_conv_weights()
+    h = meta["input_shape"][1]
     serve = make_serving_fn(cfg, model, tuple(meta["scales"]), meta["flip"],
-                            tuple(meta["out_hw"]))
+                            tuple(meta["out_hw"]), space, h)
     x = np.random.default_rng(0).integers(0, 256, size=tuple(meta["input_shape"]))
+    if space is not None:
+        x = x[:, slice(*meta["input_rows"][rank])]
     x = torch.from_numpy(x.astype(np.uint8)).to(device)
     with torch.no_grad():
         before = fused_bottleneck.launches
@@ -178,18 +233,29 @@ def selftest(base: str, ckpt: str) -> dict:
     report = {"selftest": "OK" if equal else "MISMATCH", "input_shape": meta["input_shape"],
               "equal_share": (got == want).float().mean().item(), "device": str(device),
               "artifact_kernel_launches": art_launches, "live_kernel_launches": live_launches}
-    print(json.dumps(report), flush=True)
+    if space is not None:
+        ranks = ddp.all_gather(torch.tensor([int(equal), art_launches, live_launches]))
+        equal = bool(ranks[:, 0].all())
+        report.update(selftest="OK" if equal else "MISMATCH", sp=space.sp, rank=rank,
+                      output_shape=list(got.shape),
+                      rank_equal=[bool(v) for v in ranks[:, 0]],
+                      rank_artifact_kernel_launches=ranks[:, 1].tolist(),
+                      rank_live_kernel_launches=ranks[:, 2].tolist())
+    if rank == 0:
+        print(json.dumps(report), flush=True)
     if not equal:
         raise AssertionError(f"artifact != live graph: {report}")
     return report
 
 
 def export(args, cfg: TrainConfig) -> dict:
-    """Build, export and save the artifact and its sidecar; the sidecar."""
+    """Build, export and save the artifact and its sidecar; the sidecar.
+    Under ``--sp`` each rank writes its graph and rank 0 the sidecar."""
     h, w = (int(v) for v in args.hw.split(","))
     oh, ow = (int(v) for v in (args.out_hw or args.hw).split(","))
     scales = tuple(float(s) for s in args.scales.split(","))
     device = resolve_device(cfg.device)
+    space = _space(args.sp, device)
     model = _model(cfg, device)
     quant_amax = None
     if args.quantize == "int8":
@@ -208,29 +274,52 @@ def export(args, cfg: TrainConfig) -> dict:
     if args.embed_dtype == "compute" and args.compute_dtype == "bfloat16":
         embed_cast(model, torch.bfloat16)
         embedded = "bfloat16"
-    serve = make_serving_fn(cfg, model, scales, args.flip, (oh, ow))
-    x = torch.zeros((args.batch_size, h, w, 3), dtype=torch.uint8, device=device)
+    serve = make_serving_fn(cfg, model, scales, args.flip, (oh, ow), space, h)
+    rows = [(0, h)] if space is None else space.split(h)
+    rank = 0 if space is None else space.index
+    x = torch.zeros((args.batch_size, rows[rank][1] - rows[rank][0], w, 3), dtype=torch.uint8,
+                    device=device)
     with torch.no_grad():
         ep = torch.export.export(serve, (x,))
+    path = args.output + ".pt2" if space is None else _rank_file(args.output, rank)
     os.makedirs(os.path.dirname(os.path.abspath(args.output)), exist_ok=True)
-    torch.export.save(ep, args.output + ".pt2")
+    torch.export.save(ep, path)
     meta = {
-        "input_shape": list(x.shape), "input_dtype": "uint8",
+        "input_shape": [args.batch_size, h, w, 3], "input_dtype": "uint8",
         "output": "int32 trainIds (N, out_h, out_w); -1 = ignore",
         "out_hw": [oh, ow], "num_classes": cfg.num_classes, "multi": cfg.multi,
         "blocks": list(cfg.blocks),
         "normalization": "caffe BGR-mean" if cfg.numpy_transform else "torchvision mean/std",
         "compute_dtype": args.compute_dtype, "embed_dtype": embedded,
-        "scales": list(scales), "flip": args.flip, "device": str(device), "sp": 1,
+        "scales": list(scales), "flip": args.flip, "sp": args.sp,
+        # under --sp every rank's card, as --device names it (none: each rank's own)
+        "device": str(device) if space is None else (args.device or device.type),
         "quantize": args.quantize,
         **({"calib_amax": quant_amax} if quant_amax is not None else {}),
         "consume": ("import maxsquareloss_torch.kernels.fused_block; "
                     "torch.export.load(path).module()(uint8_batch) on the device above"),
     }
-    with open(args.output + ".json", "w") as f:
-        json.dump(meta, f, indent=1)
-    size = os.path.getsize(args.output + ".pt2")
-    print(f"wrote {args.output}.pt2 ({size / 1e6:.1f} MB, {device}) + {args.output}.json")
+    if space is not None:
+        meta.update(
+            files=[os.path.basename(_rank_file(args.output, r)) for r in range(space.sp)],
+            input_rows=[list(r) for r in rows],
+            consume=(f"{space.sp} processes (torchrun --nproc_per_node {space.sp}), one space "
+                     "group: torch.distributed.init_process_group(backend), then "
+                     f"maxsquareloss_torch.parallel.spatial.space_group({space.sp}); import "
+                     "maxsquareloss_torch.kernels.fused_block and maxsquareloss_torch.parallel."
+                     "spatial; rank r runs torch.export.load(files[r]).module() on rows "
+                     "input_rows[r] of the uint8 batch, on the device above (its card under "
+                     "NCCL), and gets the whole map"))
+    if rank == 0:
+        with open(args.output + ".json", "w") as f:
+            json.dump(meta, f, indent=1)
+    sizes = [os.path.getsize(path)]
+    if space is not None:  # every rank returns once every file and the sidecar are written
+        sizes = ddp.all_gather(torch.tensor(sizes[0])).tolist()
+    if rank == 0:
+        files = path if space is None else f"{args.output}.rank{{0..{space.sp - 1}}}.pt2"
+        print(f"wrote {files} ({', '.join(f'{b / 1e6:.1f}' for b in sizes)} MB, {device}) + "
+              f"{args.output}.json")
     return meta
 
 
@@ -265,19 +354,25 @@ def main(argv=None):
                    help="glob of calibration images for --quantize int8 (resized to --hw; "
                         "the first 16 matches)")
     p.add_argument("--sp", type=int, default=1,
-                   help="spatial partitioning of the artifact (not ported; evaluate, "
-                        "predict and the trainers take --sp)")
+                   help="spatial partitioning: the image rows split over a space group of "
+                        "this many processes (torchrun --nproc_per_node N), each exporting "
+                        "<output>.rank<r>.pt2 for its rows; every rank's graph returns the "
+                        "whole map. 1 = off")
     args = p.parse_args(argv)
-    if args.sp > 1:
-        raise NotImplementedError(
-            f"--sp {args.sp} is not ported for the export: a sharded artifact waits on ROADMAP "
-            "Queue 1 item 2 (spatial partitioning, sub-step (c)); tools.evaluate, "
-            "tools.predict and the trainers take --sp")
+    if args.sp < 1:
+        raise ValueError(f"--sp must be >= 1, got {args.sp}")
+    if args.sp > 1 and not args.load:
+        # before the checkpoint and the calibration, as the JAX tool
+        if args.quantize:
+            raise ValueError(f"--quantize {args.quantize} does not compose with --sp "
+                             f"{args.sp}, as in the JAX tool")
+        if int(args.hw.split(",")[0]) % args.sp:
+            raise ValueError(f"--sp {args.sp} must divide the input height {args.hw}")
     if args.load:
         if not args.selftest:
             meta = json.load(open(args.load + ".json"))
-            print(f"{args.load}.pt2: in={meta['input_shape']} out_hw={meta['out_hw']} "
-                  f"device={meta['device']}")
+            print(f"{args.load}: {meta.get('files', 'one .pt2')} in={meta['input_shape']} "
+                  f"out_hw={meta['out_hw']} sp={meta['sp']} device={meta['device']}")
             return meta
         if not args.pretrained_ckpt_file:
             p.error("--selftest needs --pretrained_ckpt_file to rebuild the live graph")
@@ -290,3 +385,4 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    ddp.shutdown()

@@ -59,10 +59,10 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             f"predict runs as one process, not {world}: it predicts one image at a time, "
             "and its only scale-out is --sp N, as exactly N processes (one space group)")
-    cfg = config_from_args(args, serving=True)
+    cfg = config_from_args(args)
     if not cfg.pretrained_ckpt_file:
         parser.error("--pretrained_ckpt_file is required")
-    init_distributed(cfg, serving=True)
+    init_distributed(cfg)
     space = spatial.space_group(cfg.sp)
     main_rank = space is None or space.index == 0
     device = resolve_device(cfg.device)

@@ -45,7 +45,11 @@ token chain has run every exchange's backward in order
 over a canvas batch (zero-padded at the bottom and right to the larger
 crop, the pad region re-zeroed by the model's canvas masks), then slices
 each batch's valid logits back out; with frozen BN it computes what the two
-forwards do.
+forwards do. Under ``--sp`` the canvas's rows split like any map: each
+rank pads its rows of each batch, and each batch's valid logits are the
+canvas logits' rows clipped to that batch's height, which ``resize_shard``
+fetches from their owners (a rank whose canvas rows of a batch are all
+padding gives none, but joins the exchange).
 """
 
 from __future__ import annotations
@@ -230,26 +234,51 @@ def _own_rows(space: SpaceGroup | None, *ts: torch.Tensor) -> tuple:
     return tuple(t[:, slice(*space.own(t.shape[1]))] for t in ts)
 
 
-def _concat_forward_upsampled(model, xs, out_hw_s, xt):
+def _canvas(src_hw, tgt_hw) -> tuple[int, int]:
+    return max(src_hw[0], tgt_hw[0]), max(src_hw[1], tgt_hw[1])
+
+
+def _canvas_rows(space: SpaceGroup, canvas_h: int, *ts: torch.Tensor) -> tuple:
+    """Each NHWC batch as its rows inside this rank's rows of the canvas
+    (none where they are all padding)."""
+    o0, o1 = space.own(canvas_h)
+    return tuple(t[:, min(o0, t.shape[1]):min(o1, t.shape[1])] for t in ts)
+
+
+def _concat_forward_upsampled(model, xs, out_hw_s, xt, hws=None,
+                              space: SpaceGroup | None = None):
     """One forward over source and target on a shared canvas: each batch
     zero-padded at the bottom and right to (max H, max W), after
     normalization (a padded uint8 image would put -IMG_MEAN under the stem's
     7x7 at the valid border). Returns the upsampled (aux_s, main_s) at
-    ``out_hw_s`` and (aux_t, main_t) at the target's size."""
+    ``out_hw_s`` and (aux_t, main_t) at the target's size. ``space``:
+    ``xs`` and ``xt`` are this rank's rows of the canvas (``_canvas_rows``)
+    of batches of (H, W) ``hws``, and the results its rows of each."""
     n = xs.shape[0]
-    src_hw, tgt_hw = tuple(xs.shape[1:3]), tuple(xt.shape[1:3])
-    canvas = (max(src_hw[0], tgt_hw[0]), max(src_hw[1], tgt_hw[1]))
+    src_hw, tgt_hw = hws or (tuple(xs.shape[1:3]), tuple(xt.shape[1:3]))
+    canvas = _canvas(src_hw, tgt_hw)
+    rows = canvas[0] if space is None else space.own(canvas[0])[1] - space.own(canvas[0])[0]
 
-    def to_canvas(img, hw):  # NHWC: pad W, then H, at the far side
-        return F.pad(img, (0, 0, 0, canvas[1] - hw[1], 0, canvas[0] - hw[0]))
+    def to_canvas(img):  # NHWC: pad W, then H, at the far side
+        return F.pad(img, (0, 0, 0, canvas[1] - img.shape[2], 0, rows - img.shape[1]))
 
     masks = make_canvas_masks(canvas, [(n, src_hw), (xt.shape[0], tgt_hw)], xs.device)
-    aux_all, main_all = model(torch.cat([to_canvas(xs, src_hw), to_canvas(xt, tgt_hw)]),
-                              masks=masks)
+    batch = torch.cat([to_canvas(xs), to_canvas(xt)])
+    if space is None:
+        aux_all, main_all = model(batch, masks=masks)
+    else:
+        aux_all, main_all = model(batch, masks=masks, space=space, in_h=canvas[0])
 
-    def heads(rows, hw, out_hw):
+    def heads(images, hw, out_hw):
         vh, vw = valid_logits_hw(hw)
-        return tuple(None if t is None else upsample_logits(t[rows, :vh, :vw], out_hw)
+        if space is None:
+            return tuple(None if t is None else upsample_logits(t[images, :vh, :vw], out_hw)
+                         for t in (aux_all, main_all))
+        # every rank's canvas logit rows clipped to this batch's valid rows
+        own = [(min(a, vh), min(b, vh)) for a, b in space.split(valid_logits_hw(canvas)[0])]
+        mine = own[space.index][1] - own[space.index][0]
+        return tuple(None if t is None else resize_shard(t[images, :mine, :vw], vh, out_hw, space,
+                                                         own)
                      for t in (aux_all, main_all))
 
     return heads(slice(0, n), src_hw, out_hw_s), heads(slice(n, None), tgt_hw, tgt_hw)
@@ -395,21 +424,19 @@ def make_uda_train_step(cfg: TrainConfig, space: SpaceGroup | None = None):
     aux head's guidance CE), one backward, one SGD step. Source and target
     run as two forwards, or as one canvas forward with
     ``--concat_batches`` (the JAX step's two branches). ``space`` (default
-    ``spatial.space_group(cfg.sp)``; two forwards only): the batches are the
-    data group's, and the step takes this rank's rows. With
-    ``--debug_nans`` the step runs in autograd's anomaly mode."""
+    ``spatial.space_group(cfg.sp)``): the batches are the data group's, and
+    the step takes this rank's rows (of the canvas, with
+    ``--concat_batches``). With ``--debug_nans`` the step runs in
+    autograd's anomaly mode."""
     space = space or spatial.space_group(cfg.sp)
-    if space is not None and cfg.concat_batches:
-        raise NotImplementedError(
-            "--concat_batches under --sp is not ported: it waits on ROADMAP Queue 1 item 2 "
-            "(spatial partitioning, sub-step (d))")
 
     def loss_fn(model, xs, ys, xt, heights):
-        src_h, label_hw, tgt_hw = heights
+        src_hw, label_hw, tgt_hw = heights
         if cfg.concat_batches:
-            src, (aux_t, main_t) = _concat_forward_upsampled(model, xs, label_hw, xt)
+            src, (aux_t, main_t) = _concat_forward_upsampled(model, xs, label_hw, xt,
+                                                             (src_hw, tgt_hw), space)
         else:
-            src = _forward_upsampled(model, xs, label_hw, space, src_h)
+            src = _forward_upsampled(model, xs, label_hw, space, src_hw[0])
             aux_t, main_t = _forward_upsampled(model, xt, tgt_hw, space, tgt_hw[0])
         prob_main, label = target_guidance(main_t, aux_t, cfg)
         src_divisor, label_divisor = _ce_divisors(ys, label)
@@ -428,8 +455,13 @@ def make_uda_train_step(cfg: TrainConfig, space: SpaceGroup | None = None):
         return spatial.join(total, space), metrics
 
     def step(state: TrainState, xs: torch.Tensor, ys: torch.Tensor, xt: torch.Tensor):
-        heights = (xs.shape[1], tuple(ys.shape[-2:]), (xt.shape[1], xt.shape[2]))
-        xs, ys, xt = _own_rows(space, xs, ys, xt)
+        heights = (tuple(xs.shape[1:3]), tuple(ys.shape[-2:]), tuple(xt.shape[1:3]))
+        if cfg.concat_batches and space is not None:
+            _own_rows(space, xs, xt)  # --sp divides each height
+            (ys,) = _own_rows(space, ys)
+            xs, xt = _canvas_rows(space, _canvas(heights[0], heights[2])[0], xs, xt)
+        else:
+            xs, ys, xt = _own_rows(space, xs, ys, xt)
         xs, ys = _prepare_inputs(xs, ys, cfg)
         xt, _ = _prepare_inputs(xt, None, cfg)
         with anomaly_mode(cfg.debug_nans), spatial.training(space):

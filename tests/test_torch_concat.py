@@ -34,7 +34,7 @@ import torch
 
 from maxsquareloss_tpu.models import deeplabv2 as jmodel
 from maxsquareloss_torch import bench
-from maxsquareloss_torch.config import _UNPORTED, _UNPORTED_WITH_SP, TrainConfig, check_supported
+from maxsquareloss_torch.config import _UNPORTED, TrainConfig, check_supported
 from maxsquareloss_torch.convert import state_dict_from_jax
 from maxsquareloss_torch.data import synthetic as tsynthetic
 from maxsquareloss_torch.data.loader import SegDataLoader
@@ -351,11 +351,6 @@ def test_debug_nans_leaves_a_finite_step_unchanged(weights):
     assert not torch.is_anomaly_enabled()
 
 
-# keywords of the ROADMAP Queue 1 item that each unported option waits on:
-# --sp with each option of _UNPORTED_WITH_SP (sub-step (d) of item 2)
-UNPORTED_ITEM_WORDS = {"sp": "spatial"}
-
-
 def _roadmap_queue1_items() -> dict[int, str]:
     with open(ROADMAP) as f:
         text = f.read()
@@ -366,20 +361,21 @@ def _roadmap_queue1_items() -> dict[int, str]:
 
 @pytest.mark.parametrize("name,bad", [("sp", 2)])
 def test_still_unported_options_raise_naming_their_roadmap_item(name, bad, monkeypatch):
-    """``--sp`` trains (its space group needs ``bad`` processes); with
-    each option it does not compose with yet it raises, naming the ROADMAP
-    Queue 1 item (and sub-step) it waits on."""
+    """The one option the port lacks is the one the JAX package lacks too
+    (``--freeze_bn false``), and it raises saying so; ``--sp`` (its space
+    group needs ``bad`` processes) trains with every option, and ROADMAP
+    Queue 1's spatial item marks each of its sub-steps done."""
     assert {n for n, _, _ in _UNPORTED} == {"freeze_bn"}
-    assert {n for n, _, _ in _UNPORTED_WITH_SP} == {"concat_batches", "remat"}
+    with pytest.raises(NotImplementedError, match="as in the JAX package"):
+        check_supported(TrainConfig(freeze_bn=False))
     monkeypatch.setattr(ddp, "world", lambda: bad)
     check_supported(TrainConfig(**{name: bad}))
-    for field, value in (("concat_batches", True), ("remat", "stages")):
-        with pytest.raises(NotImplementedError, match="not ported") as err:
-            check_supported(TrainConfig(**{name: bad, field: value}))
-        item = int(re.search(r"ROADMAP Queue 1 item (\d+)", str(err.value)).group(1))
-        assert UNPORTED_ITEM_WORDS[name] in _roadmap_queue1_items()[item]
-        assert "sub-step (d)" in str(err.value)
-        assert "(d)" in _roadmap_queue1_items()[item]
+    for fields in ({"concat_batches": True}, {"remat": "stages"},
+                   {"concat_batches": True, "remat": "stages"}):
+        check_supported(TrainConfig(**{name: bad}, **fields))
+    item = next(t for t in _roadmap_queue1_items().values() if "Spatial partitioning" in t)
+    for sub in "abcd":
+        assert f"({sub}) **Done" in " ".join(item.split()), sub
 
 
 @pytest.mark.parametrize("flags", [["--concat_batches", "true"], ["--profile"], ["--debug_nans"],

@@ -486,8 +486,9 @@ def test_torchrun_environment_reaches_init_process_group(monkeypatch):
     assert multihost.backend_for(None) == multihost.backend_for("cuda:1") == "nccl"
 
 
-# (field, value, error, the fields that make it raise at world 2)
-NO_MEANING = [("sp", 2, NotImplementedError, {"sp": 2, "concat_batches": True}),
+# (field, value, error, the fields that make it raise at world 2, or at
+# world 3 for --sp 2)
+NO_MEANING = [("sp", 2, ValueError, {"sp": 2}),
               ("data_parallel", False, ValueError, {"data_parallel": False})]
 
 
@@ -496,15 +497,17 @@ NO_MEANING = [("sp", 2, NotImplementedError, {"sp": 2, "concat_batches": True}),
 def test_what_has_no_meaning_over_several_processes_raises(monkeypatch, field, value, error,
                                                            fields):
     """Over two processes: ``--data_parallel false`` would train two
-    models; ``--sp 2`` trains (one space group), but not with
-    ``--concat_batches`` yet (ROADMAP Queue 1 item 2, sub-step (d))."""
+    models; ``--sp 2`` trains (one space group), with ``--concat_batches``
+    and ``--remat stages`` too, but over three processes it makes no space
+    groups."""
     from maxsquareloss_torch.config import check_supported
 
     check_supported(TrainConfig(data_parallel=False))  # one process: the one card
     monkeypatch.setattr(ddp, "world", lambda: 2)
     if field == "sp":
-        check_supported(TrainConfig(sp=value))
-    with pytest.raises(error, match="not ported|unrelated models"):
+        check_supported(TrainConfig(sp=value, concat_batches=True, remat="stages"))
+        monkeypatch.setattr(ddp, "world", lambda: 3)
+    with pytest.raises(error, match="does not divide the 3|unrelated models"):
         check_supported(TrainConfig(**fields))
 
 

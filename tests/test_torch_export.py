@@ -15,6 +15,8 @@
 - The custom op traces under ``torch.export``: the exported graph holds one
   ``msl.fused_bottleneck`` node per identity block and forward, and none
   when the identity blocks are int8.
+- ``--sp`` needs its space group's processes, and refuses int8 as the JAX
+  tool does (the sharded export: ``tests/test_torch_spatial_export.py``).
 """
 
 from __future__ import annotations
@@ -205,6 +207,14 @@ def test_the_custom_op_traces_under_torch_export(served, quantize):
 
 
 def test_export_sp_raises(tmp_path, served):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2"):
-        ex.main(["--pretrained_ckpt_file", served[0], "--output", str(tmp_path / "m"),
-                 *COMMON, "--sp", "2"])
+    """``--sp 2`` exports one space group of two processes (under
+    ``torchrun``, ``tests/test_torch_spatial_export.py``): in one process
+    it raises, and with ``--quantize int8`` it raises as the JAX tool does,
+    both before the checkpoint is read."""
+    argv = ["--pretrained_ckpt_file", served[0], "--output", str(tmp_path / "m"), *COMMON,
+            "--sp", "2"]
+    with pytest.raises(ValueError, match="run it as 2 processes"):
+        ex.main(argv)
+    with pytest.raises(ValueError, match="does not compose with --sp 2, as in the JAX tool"):
+        ex.main([*argv, "--quantize", "int8", "--calib_images", served[1]])
+    assert not os.path.exists(tmp_path / "m.json")

@@ -594,7 +594,7 @@ def test_serving_config_checks(tmp_path, flags, error, match):
 
     with pytest.raises(error, match=match):
         config_from_args(_parse(_argv(tmp_path, "--crop_size", "64,32", "--base_size", "64,32",
-                                      *flags)), serving=True)
+                                      *flags)))
 
 
 def test_serving_config_takes_sp_under_its_world(tmp_path, monkeypatch):
@@ -602,19 +602,19 @@ def test_serving_config_takes_sp_under_its_world(tmp_path, monkeypatch):
 
     sizes = ["--crop_size", "64,32", "--base_size", "64,32"]
     monkeypatch.setenv("WORLD_SIZE", "4")
-    cfg = config_from_args(_parse(_argv(tmp_path, *sizes, "--sp", "2")), serving=True)
+    cfg = config_from_args(_parse(_argv(tmp_path, *sizes, "--sp", "2")))
     assert cfg.sp == 2
     monkeypatch.setattr(ddp, "world", lambda: 4)
-    check_supported(cfg, serving=True)  # dp2 x sp2
+    check_supported(cfg)  # dp2 x sp2
     # --data_parallel false is one space group: sp = world
-    check_supported(TrainConfig(sp=4, data_parallel=False), serving=True)
+    check_supported(TrainConfig(sp=4, data_parallel=False))
     with pytest.raises(ValueError, match="unrelated models"):
-        check_supported(TrainConfig(sp=2, data_parallel=False), serving=True)
-    # the trainers' check takes it too, and refuses it only with what does
-    # not compose with it yet, naming the ROADMAP item's sub-step
+        check_supported(TrainConfig(sp=2, data_parallel=False))
+    # the trainers' check takes it too, with every training option
     check_supported(cfg)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 2.*\(d\)"):
-        check_supported(dataclasses.replace(cfg, concat_batches=True))
+    for fields in ({"concat_batches": True}, {"remat": "stages"},
+                   {"concat_batches": True, "remat": "stages"}):
+        check_supported(dataclasses.replace(cfg, **fields))
 
 
 def test_space_groups_need_sp_to_divide_the_world(monkeypatch):

@@ -16,8 +16,11 @@ the one-process runs go meanwhile in this process.
   one-process run on the same ``.pth`` and data (the step tolerance of
   ``tests/test_torch_ddp.py``: losses rtol 1e-5, parameter changes 1e-4
   relative L2);
-- what still raises, naming ROADMAP Queue 1 item 2: the trainers' ``--sp``
-  with ``--concat_batches`` (sub-step (d)), the export's ``--sp`` ((c)).
+- what still raises, as in the JAX package: ``--sp`` with ``--quantize
+  int8``, in the trainers and the export (``--sp`` with
+  ``--concat_batches`` or ``--remat stages``: ``tests/
+  test_torch_spatial_options_cli.py``; the export's ``--sp``: ``tests/
+  test_torch_spatial_export.py``).
 """
 
 from __future__ import annotations
@@ -144,22 +147,23 @@ def test_predict_sp_writes_the_one_process_trainids(runs):
 
 @pytest.mark.parametrize("cli", ["train_source", "solve_gta5", "export_inference"])
 def test_trainers_and_the_export_still_refuse_sp(tmp_path, served, cli, monkeypatch):
-    """The export's ``--sp`` waits on sub-step (c); the trainers take
-    ``--sp`` (``test_solve_gta5_sp2_matches_one_process``) but not with
-    ``--concat_batches`` yet, sub-step (d)."""
+    """With ``--quantize int8`` (the refusal the JAX package has too); the
+    trainers take ``--sp`` with ``--concat_batches`` and ``--remat``, and
+    the export takes ``--sp``, so the flags ride along."""
     import importlib
 
     module = importlib.import_module(f"maxsquareloss_torch.tools.{cli}")
+    monkeypatch.setenv("WORLD_SIZE", "2")  # a space group of 2 is two processes
     if cli == "export_inference":
         argv = ["--pretrained_ckpt_file", served[1], "--output", str(tmp_path / "m"),
                 "--blocks", BLOCKS, "--device", "cpu", "--hw", "32,64", "--sp", "2"]
     else:
-        monkeypatch.setenv("WORLD_SIZE", "2")  # a space group of 2 is two processes
         argv = ["--data_root_path", served[0], "--checkpoint_dir", str(tmp_path),
-                "--device", "cpu", "--blocks", BLOCKS, "--sp", "2", "--concat_batches", "true"]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2") as err:
-        module.main(argv)
-    assert ("(c)" if cli == "export_inference" else "(d)") in str(err.value)
+                "--device", "cpu", "--blocks", BLOCKS, "--sp", "2", "--concat_batches", "true",
+                "--remat", "stages"]
+    with pytest.raises(ValueError, match="does not compose with --sp 2") as err:
+        module.main([*argv, "--quantize", "int8"])
+    assert "JAX" in str(err.value)
 
 
 def _rel_l2_changes(got: dict, want: dict, start: dict) -> dict:

@@ -515,17 +515,18 @@ def test_sp_must_divide_each_height(tmp_path, name):
 @pytest.mark.parametrize("flags", [["--concat_batches", "true"], ["--remat", "stages"]],
                          ids=["concat", "remat"])
 def test_sp_with_concat_or_remat_raises_naming_item_2d(tmp_path, monkeypatch, flags):
-    """Both wait on ROADMAP Queue 1 item 2, sub-step (d); --sp alone and the
-    serving CLIs' checks take them."""
+    """Both compose with ``--sp`` (``tests/test_torch_spatial_canvas_remat.py``
+    runs them): the trainers' checks take them; with ``--quantize int8``
+    the run still raises, as in the JAX package."""
     from maxsquareloss_torch.config import check_supported, config_from_args
 
     monkeypatch.setenv("WORLD_SIZE", "2")
-    argv = ["--checkpoint_dir", str(tmp_path), *SIZES, "--sp", "2"]
-    config_from_args(_parse(argv))
-    with pytest.raises(NotImplementedError, match=r"spatial.*ROADMAP Queue 1 item 2, sub-step "
-                                                  r"\(d\)"):
-        config_from_args(_parse([*argv, *flags]))
-    check_supported(config_from_args(_parse([*argv, *flags]), serving=True), serving=True)
+    argv = ["--checkpoint_dir", str(tmp_path), *SIZES, "--sp", "2", *flags]
+    cfg = config_from_args(_parse(argv))
+    assert cfg.sp == 2 and (cfg.concat_batches or cfg.remat == "stages")
+    check_supported(cfg)
+    with pytest.raises(ValueError, match="does not compose with --sp 2"):
+        config_from_args(_parse([*argv, "--quantize", "int8"]))
 
 
 def test_trainers_need_sp_processes(tmp_path):
@@ -538,15 +539,27 @@ def test_trainers_need_sp_processes(tmp_path):
 
 
 def test_sp_model_refuses_remat_and_canvas_under_grad(weights):
-    """The model's own refusals: stage remat with grad, and canvas masks."""
+    """Stage remat with grad and canvas masks compose with the spatially
+    partitioned forward: at a space group of one rank (every window its own
+    rows, no exchange) the forward equals the plain forward's within 1e-5
+    and each parameter's gradient within 1e-5 relative L2, with both at
+    once."""
     from maxsquareloss_torch.models.deeplabv2 import make_canvas_masks
 
-    space = spatial.SpaceGroup(2, 0, (0, 1))
+    space = spatial.SpaceGroup(1, 0, (0,))
     model = _port_model(weights[2], TrainConfig(blocks=BLOCKS, remat="stages"))
-    x = torch.zeros((1, 8, 16, 3))
-    with pytest.raises(NotImplementedError, match=r"remat.*item 2 \(spatial partitioning, "
-                                                  r"sub-step \(d\)\)"):
-        model(x, space=space, in_h=16)
+    x = torch.from_numpy(_batches()[0][0][:1, :16, :16].copy())
     masks = make_canvas_masks((16, 16), [(1, (16, 8))])
-    with torch.no_grad(), pytest.raises(NotImplementedError, match=r"sub-step \(d\)"):
-        model(x, masks=masks, space=space, in_h=16)
+    outs, grads = [], []
+    for kw in ({}, {"space": space, "in_h": 16}):
+        model.zero_grad(set_to_none=True)
+        with spatial.training(kw.get("space")):
+            aux, main = model(x, masks=masks, **kw)
+            (aux.square().sum() + main.square().sum()).backward()
+        outs.append((aux.detach(), main.detach()))
+        grads.append([p.grad.clone() for p in model.parameters()])
+    for a, b in zip(outs[0], outs[1]):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-5)
+    # the stem's weight gradient sums its padded window in another order
+    worst = max(float((b - a).norm() / a.norm()) for a, b in zip(*grads))
+    assert worst <= 1e-5, f"a gradient is off by {worst:.3g} (relative L2)"

@@ -240,37 +240,34 @@ def test_synthia_protocol_reports_16_and_13(tmp_path):
     assert {"val/MIoU_16", "val/MIoU_13"} <= tags
 
 
-# (flag, its values): --sp trains, but not with --remat stages yet (ROADMAP
-# Queue 1 item 2, sub-step (d))
+# (flag, its values, the error): --sp trains with --remat stages too, but
+# in one process it has no space group of 2
 UNPORTED = [
-    ("--sp", ["2", "--remat", "stages"]),
-    ("--freeze_bn", ["false"]), ("--xla_options", ["a=b"]),
+    ("--sp", ["2", "--remat", "stages"], ValueError),
+    ("--freeze_bn", ["false"], NotImplementedError),
+    ("--xla_options", ["a=b"], NotImplementedError),
 ]
 
 
-@pytest.mark.parametrize("flag,values", UNPORTED, ids=[f for f, _ in UNPORTED])
-def test_unported_flags_raise(tmp_path, flag, values):
+@pytest.mark.parametrize("flag,values,error", UNPORTED, ids=[f for f, *_ in UNPORTED])
+def test_unported_flags_raise(tmp_path, flag, values, error):
     import argparse
 
     p = argparse.ArgumentParser()
     add_uda_train_args(add_train_args(p))
     argv = ["--checkpoint_dir", str(tmp_path), flag, *values]
-    with pytest.raises(NotImplementedError, match="not ported|XLA"):
+    with pytest.raises(error, match="not ported|XLA|does not divide the 1 process"):
         config_from_args(p.parse_args(argv))
 
 
-def test_unported_field_raises_in_the_trainer(tmp_path, monkeypatch):
+def test_unported_field_raises_in_the_trainer(tmp_path):
     """An option the trainers do not take raises in the trainer itself:
-    ``--sp 2`` with ``--remat stages`` (not ported together) and
+    ``--freeze_bn false`` (BN is always frozen, as in the JAX package) and
     ``--quantize int8`` (evaluation and serving only; the JAX trainers never
     read it)."""
-    from maxsquareloss_torch.parallel import ddp
-
-    monkeypatch.setattr(ddp, "world", lambda: 2)
-    cfg = dataclasses.replace(_cfg(tmp_path), sp=2, remat="stages")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.*\(d\)"):
+    cfg = dataclasses.replace(_cfg(tmp_path), freeze_bn=False)
+    with pytest.raises(NotImplementedError, match="freeze_bn.*as in the JAX package"):
         Trainer(cfg, _loader(), None)
-    monkeypatch.undo()
     cfg = dataclasses.replace(_cfg(tmp_path), quantize="int8")
     with pytest.raises(ValueError, match="evaluation and serving"):
         Trainer(cfg, _loader(), None)
