@@ -39,7 +39,8 @@ tests.
 - ``FusedBottleneckFn.apply``: differentiable in x and the three conv
   kernels; its backward is the adjoint chain of ``_bwd``
   (``bottleneck_backward``) as PyTorch ops over the saved x, h1, h2 and
-  out, as the JAX package left it to XLA.
+  out, as the JAX package left it to XLA; each such backward is an
+  ``msl.block_backward`` span (``utils/debug.py``) on autograd's thread.
 
 Each takes ``valid``, ``None`` or a contiguous (N, 2) int32 tensor on x's
 device: the masked-canvas mode of the JAX package's ``_bottleneck(...,
@@ -59,6 +60,7 @@ import torch
 import torch.nn.functional as F
 
 from maxsquareloss_torch.kernels.build import CSRC, load, raise_on_error
+from maxsquareloss_torch.utils.debug import span
 
 SOURCE = CSRC / "fused_bottleneck.cu"
 
@@ -648,7 +650,8 @@ class FusedBottleneckFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        grads = bottleneck_backward(dy, *ctx.saved_tensors, ctx.dilation)
+        with span("msl.block_backward"):
+            grads = bottleneck_backward(dy, *ctx.saved_tensors, ctx.dilation)
         return (*grads, *(None,) * 8)
 
 

@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from maxsquareloss_torch.utils.debug import sync
+
 # SYNTHIA protocol class index sets
 SYNTHIA_SET_16 = [0, 1, 2, 3, 4, 5, 6, 7, 8, 10, 11, 12, 13, 15, 17, 18]
 SYNTHIA_SET_13 = [0, 1, 2, 6, 7, 8, 10, 11, 12, 13, 15, 17, 18]  # 16 minus {3,4,5}
@@ -38,10 +40,10 @@ def confusion_matrix_update(
     gt = gt.reshape(-1).long()
     pred = pred.reshape(-1).long()
     valid = (gt >= 0) & (gt < num_classes)
-    idx = num_classes * gt[valid] + pred[valid]
-    return torch.bincount(idx, minlength=num_classes**2).reshape(
-        num_classes, num_classes
-    )
+    with sync("confusion_matrix"):  # the mask's and the bincount's sizes come back
+        idx = num_classes * gt[valid] + pred[valid]
+        counts = torch.bincount(idx, minlength=num_classes**2)
+    return counts.reshape(num_classes, num_classes)
 
 
 class Eval:

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from maxsquareloss_torch.utils.debug import sync
+
 
 def class_histogram(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
     """(N, H, W) int labels in [-1, C-1] (-1 = ignore) → (N, C) float32
@@ -21,7 +23,8 @@ def class_histogram(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
     bins = num_classes + 1
     offset = torch.arange(n, device=labels.device).view(n, 1) * bins
     idx = labels.reshape(n, -1).long() + 1 + offset
-    counts = torch.bincount(idx.reshape(-1), minlength=n * bins)
+    with sync("histogram"):  # bincount reads its output size back from the device
+        counts = torch.bincount(idx.reshape(-1), minlength=n * bins)
     return counts.view(n, bins)[:, 1:].float()
 
 

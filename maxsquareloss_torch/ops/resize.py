@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from maxsquareloss_torch.parallel import spatial
+from maxsquareloss_torch.utils.debug import sync
 
 
 @functools.lru_cache(maxsize=64)
@@ -47,9 +48,12 @@ def _interp_matrix_np(out_size: int, in_size: int) -> np.ndarray:
 def interp_matrix(
     out_size: int, in_size: int, dtype: torch.dtype, device: torch.device
 ) -> torch.Tensor:
-    return torch.from_numpy(_interp_matrix_np(out_size, in_size)).to(
-        device=device, dtype=dtype
-    )
+    """The matrix on ``device``: a copy from pageable host memory, which
+    waits for the stream (``msl.sync``)."""
+    with sync("interp_matrix"):
+        return torch.from_numpy(_interp_matrix_np(out_size, in_size)).to(
+            device=device, dtype=dtype
+        )
 
 
 def input_rows(out_size: int, in_size: int, r0: int, r1: int) -> tuple[int, int]:

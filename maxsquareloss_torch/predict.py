@@ -6,7 +6,9 @@ heads (``train/evaluator.tta_prob_rows``) and the same row-chunked tail
 (``cfg.eval_h_chunk``; auto = 256-row chunks when the output is taller
 than 512 rows). The file-writing CLI comes with the CLIs. ``space``
 (``--sp``): the function takes this rank's rows of the images and returns
-its rows of the trainIds (``train/evaluator.py``'s spatial path).
+its rows of the trainIds (``train/evaluator.py``'s spatial path). Spans:
+``msl.step`` around a call, the evaluator's ``msl.forward`` and
+``msl.tail`` inside it.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from maxsquareloss_torch.config import TrainConfig
 from maxsquareloss_torch.parallel.spatial import SpaceGroup
 from maxsquareloss_torch.train.evaluator import resolve_h_chunk, tta_prob_rows
 from maxsquareloss_torch.train.steps import _prepare_inputs
+from maxsquareloss_torch.utils.debug import span
 
 
 def make_predict_fn(
@@ -45,14 +48,17 @@ def predict_core(cfg: TrainConfig, model, scales: Sequence[float], flip: bool,
     o0, o1 = (0, out_hw[0]) if space is None else space.own(out_hw[0])
 
     def fn(x: torch.Tensor, in_h: int | None = None) -> torch.Tensor:
-        x, _ = _prepare_inputs(x, None, cfg)
-        prob_rows = tta_prob_rows(model, x, scales, flip, out_hw, space, in_h)
+        with span("msl.step"):
+            x, _ = _prepare_inputs(x, None, cfg)
+            prob_rows = tta_prob_rows(model, x, scales, flip, out_hw, space, in_h)
 
-        def arg_rows(r0, r1):
-            return prob_rows(r0, r1).argmax(dim=-1).int()
+            def arg_rows(r0, r1):
+                with span("msl.tail"):
+                    return prob_rows(r0, r1).argmax(dim=-1).int()
 
-        if not hc or hc >= o1 - o0:
-            return arg_rows(o0, o1)
-        return torch.cat([arg_rows(r0, min(r0 + hc, o1)) for r0 in range(o0, o1, hc)], dim=1)
+            if not hc or hc >= o1 - o0:
+                return arg_rows(o0, o1)
+            return torch.cat([arg_rows(r0, min(r0 + hc, o1)) for r0 in range(o0, o1, hc)],
+                             dim=1)
 
     return fn

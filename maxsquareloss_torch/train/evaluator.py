@@ -9,7 +9,10 @@ The upsample→softmax→argmax→CM tail can stream over output-row blocks
 materialize the (N, H, W, C) probability tensor. With several processes
 each evaluates its shard (padded with all-ignore samples) and ``evaluate``
 sums the ranks' confusion matrices before any metric, so the metrics are
-the one-process metrics exactly.
+the one-process metrics exactly. Spans (``utils/debug.py``): ``msl.step``
+around a batch, ``msl.forward`` each scale's resize and forward (a flip
+rides its scale's), ``msl.tail`` each row chunk of the tail, and
+``msl.sync`` each confusion matrix, whose sizes come back to the host.
 
 Spatial partitioning (``space``, ``--sp``): every rank of a space group
 holds the same images, its rows of each (``parallel/spatial.py``'s
@@ -37,6 +40,7 @@ from maxsquareloss_torch.ops.resize import input_rows, resize_bilinear_align_cor
 from maxsquareloss_torch.parallel import ddp, spatial
 from maxsquareloss_torch.parallel.spatial import SpaceGroup
 from maxsquareloss_torch.train.steps import _prepare_inputs
+from maxsquareloss_torch.utils.debug import span
 
 
 def resolve_h_chunk(h_chunk: int, out_h: int) -> int:
@@ -65,24 +69,25 @@ def tta_prob_rows(model, x: torch.Tensor, scales, flip: bool, out_hw,
     n = x.shape[0]
     heads = []  # (logits, flipped, the logits' height, their first row) a head
     for s in scales:
-        sh, sw = max(1, round(h * s)), max(1, round(w * s))
-        if (sh, sw) == (h, w):
-            img = x
-        elif space is None:
-            img = resize_bilinear_align_corners(x, (sh, sw))
-        else:
-            img = resize_shard(x, h, (sh, sw), space)
-        sp_args = {} if space is None else {"space": space, "in_h": sh}
-        lh, row0 = valid_logits_hw((sh, sw))[0], 0
-        if flip:
-            _, logits = model(torch.cat([img, img.flip(2)], dim=0), aux=False, **sp_args)
-        else:
-            logits = model(img, aux=False, **sp_args)[1]
-        if space is not None:
-            # the logit rows this rank's output rows read
-            need = [input_rows(out_hw[0], lh, *o) for o in space.split(out_hw[0])]
-            logits = spatial.fetch_rows(logits, space.split(lh), need, space)
-            row0 = need[space.index][0]
+        with span("msl.forward"):
+            sh, sw = max(1, round(h * s)), max(1, round(w * s))
+            if (sh, sw) == (h, w):
+                img = x
+            elif space is None:
+                img = resize_bilinear_align_corners(x, (sh, sw))
+            else:
+                img = resize_shard(x, h, (sh, sw), space)
+            sp_args = {} if space is None else {"space": space, "in_h": sh}
+            lh, row0 = valid_logits_hw((sh, sw))[0], 0
+            if flip:
+                _, logits = model(torch.cat([img, img.flip(2)], dim=0), aux=False, **sp_args)
+            else:
+                logits = model(img, aux=False, **sp_args)[1]
+            if space is not None:
+                # the logit rows this rank's output rows read
+                need = [input_rows(out_hw[0], lh, *o) for o in space.split(out_hw[0])]
+                logits = spatial.fetch_rows(logits, space.split(lh), need, space)
+                row0 = need[space.index][0]
         if flip:
             heads.append((logits[:n], False, lh, row0))
             heads.append((logits[n:], True, lh, row0))
@@ -125,25 +130,28 @@ def make_multiscale_eval_step(
 
     @torch.inference_mode()
     def step(x: torch.Tensor, y: torch.Tensor, heights: tuple[int, int] | None = None):
-        x, y = _prepare_inputs(x, y, cfg)
-        if space is None:
-            in_h, out_hw, (o0, o1) = None, (y.shape[1], y.shape[2]), (0, y.shape[1])
-        else:
-            in_h, out_hw = heights[0], (heights[1], y.shape[2])
-            o0, o1 = space.own(out_hw[0])
-        prob_rows = tta_prob_rows(model, x, scales, flip, out_hw, space, in_h)
-        hc = resolve_h_chunk(h_chunk, out_hw[0])
-        if not hc or hc >= o1 - o0:
-            argpred = prob_rows(o0, o1).argmax(dim=-1).int()
-            return confusion_matrix_update(y, argpred, n_eval), argpred
-        cm = torch.zeros((n_eval, n_eval), dtype=torch.int64, device=y.device)
-        parts = []
-        for r0 in range(o0, o1, hc):
-            r1 = min(r0 + hc, o1)
-            arg = prob_rows(r0, r1).argmax(dim=-1).int()
-            cm += confusion_matrix_update(y[:, r0 - o0:r1 - o0], arg, n_eval)
-            parts.append(arg)
-        return cm, torch.cat(parts, dim=1)
+        with span("msl.step"):
+            x, y = _prepare_inputs(x, y, cfg)
+            if space is None:
+                in_h, out_hw, (o0, o1) = None, (y.shape[1], y.shape[2]), (0, y.shape[1])
+            else:
+                in_h, out_hw = heights[0], (heights[1], y.shape[2])
+                o0, o1 = space.own(out_hw[0])
+            prob_rows = tta_prob_rows(model, x, scales, flip, out_hw, space, in_h)
+            hc = resolve_h_chunk(h_chunk, out_hw[0])
+            if not hc or hc >= o1 - o0:
+                with span("msl.tail"):
+                    argpred = prob_rows(o0, o1).argmax(dim=-1).int()
+                    return confusion_matrix_update(y, argpred, n_eval), argpred
+            cm = torch.zeros((n_eval, n_eval), dtype=torch.int64, device=y.device)
+            parts = []
+            for r0 in range(o0, o1, hc):
+                with span("msl.tail"):
+                    r1 = min(r0 + hc, o1)
+                    arg = prob_rows(r0, r1).argmax(dim=-1).int()
+                    cm += confusion_matrix_update(y[:, r0 - o0:r1 - o0], arg, n_eval)
+                    parts.append(arg)
+            return cm, torch.cat(parts, dim=1)
 
     return step
 

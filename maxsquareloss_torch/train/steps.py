@@ -10,8 +10,14 @@ eval kernel's packed weights. The UDA step's target loss for
 on the upsampled target logits; the softmax that feeds the guidance, the
 histogram and the IW weights runs under ``torch.no_grad()``, as the JAX
 code's ``stop_gradient``s imply. Metrics come back as 0-d tensors on the
-model's device: the step reads no value back to the host, unless
-``--debug_nans`` asks it to check the loss.
+model's device. The host waits on the device where a call needs it: the
+IW histogram's ``bincount`` reads its size back, each batch's
+normalization constants are copied from pageable host memory, and
+``--debug_nans`` checks the loss; each such call is an ``msl.sync`` span.
+The step's phases are spans too (``utils/debug.py``): ``msl.step`` around
+it, ``msl.forward`` each forward with its upsample, ``msl.loss``,
+``msl.backward`` and ``msl.optimizer`` (the LR and the zeroed gradients
+before the backward, the update and the packed weights after it).
 
 Data parallelism (``parallel/``, one process per card under ``torchrun``):
 each process takes its share of the global batch and the step is the
@@ -84,7 +90,7 @@ from maxsquareloss_torch.ops.resize import resize_shard, upsample_logits
 from maxsquareloss_torch.optim import make_sgd, poly_lr, set_lr
 from maxsquareloss_torch.parallel import ddp, spatial
 from maxsquareloss_torch.parallel.spatial import SpaceGroup
-from maxsquareloss_torch.utils.debug import anomaly_mode
+from maxsquareloss_torch.utils.debug import anomaly_mode, span, sync
 
 
 def model_config(cfg: TrainConfig, eval_mode: bool = False) -> DeepLabV2Config:
@@ -109,15 +115,19 @@ def _prepare_inputs(x: torch.Tensor | None, y: torch.Tensor | None, cfg: TrainCo
     The caffe path (``numpy_transform``, the protocol default) is BGR minus
     ``IMG_MEAN``, bitwise the host pipeline's float32 result; the
     torchvision path is ``(x/255 - mean) / std``. float inputs pass
-    through untouched (already normalized).
+    through untouched (already normalized). The constants come from pageable
+    host memory, and such a copy waits for the stream (``msl.sync``).
     """
     if x is not None and x.dtype == torch.uint8:
         xf = x.float()
         if cfg.numpy_transform:
-            x = xf.flip(-1) - torch.from_numpy(IMG_MEAN).to(x.device)
+            with sync("inputs"):
+                mean = torch.from_numpy(IMG_MEAN).to(x.device)
+            x = xf.flip(-1) - mean
         else:
-            mean = torch.from_numpy(IMAGENET_MEAN).to(x.device)
-            std = torch.from_numpy(IMAGENET_STD).to(x.device)
+            with sync("inputs"):
+                mean = torch.from_numpy(IMAGENET_MEAN).to(x.device)
+                std = torch.from_numpy(IMAGENET_STD).to(x.device)
             x = (xf / 255.0 - mean) / std
     if y is not None and y.dtype != torch.int64:
         y = y.long()
@@ -208,16 +218,17 @@ def _forward_upsampled(model, x, out_hw, space: SpaceGroup | None = None,
     """Forward + align-corners upsample of both heads to ``out_hw``. With
     ``space``: ``x`` is this rank's rows of images of ``in_h`` rows, and
     the result its rows of ``out_hw``."""
-    if space is None:
-        aux, main = model(x)
-        up = functools.partial(upsample_logits, out_hw=out_hw)
-    else:
-        aux, main = model(x, space=space, in_h=in_h)
-        up = functools.partial(resize_shard, in_h=valid_logits_hw((in_h, x.shape[2]))[0],
-                               out_hw=out_hw, space=space)
-    main = up(main)
-    if aux is not None:
-        aux = up(aux)
+    with span("msl.forward"):
+        if space is None:
+            aux, main = model(x)
+            up = functools.partial(upsample_logits, out_hw=out_hw)
+        else:
+            aux, main = model(x, space=space, in_h=in_h)
+            up = functools.partial(resize_shard, in_h=valid_logits_hw((in_h, x.shape[2]))[0],
+                                   out_hw=out_hw, space=space)
+        main = up(main)
+        if aux is not None:
+            aux = up(aux)
     return aux, main
 
 
@@ -262,26 +273,27 @@ def _concat_forward_upsampled(model, xs, out_hw_s, xt, hws=None,
     def to_canvas(img):  # NHWC: pad W, then H, at the far side
         return F.pad(img, (0, 0, 0, canvas[1] - img.shape[2], 0, rows - img.shape[1]))
 
-    masks = make_canvas_masks(canvas, [(n, src_hw), (xt.shape[0], tgt_hw)], xs.device)
-    batch = torch.cat([to_canvas(xs), to_canvas(xt)])
-    if space is None:
-        aux_all, main_all = model(batch, masks=masks)
-    else:
-        aux_all, main_all = model(batch, masks=masks, space=space, in_h=canvas[0])
-
-    def heads(images, hw, out_hw):
+    def heads(images, hw, out_hw, logits):
         vh, vw = valid_logits_hw(hw)
         if space is None:
             return tuple(None if t is None else upsample_logits(t[images, :vh, :vw], out_hw)
-                         for t in (aux_all, main_all))
+                         for t in logits)
         # every rank's canvas logit rows clipped to this batch's valid rows
         own = [(min(a, vh), min(b, vh)) for a, b in space.split(valid_logits_hw(canvas)[0])]
         mine = own[space.index][1] - own[space.index][0]
         return tuple(None if t is None else resize_shard(t[images, :mine, :vw], vh, out_hw, space,
                                                          own)
-                     for t in (aux_all, main_all))
+                     for t in logits)
 
-    return heads(slice(0, n), src_hw, out_hw_s), heads(slice(n, None), tgt_hw, tgt_hw)
+    with span("msl.forward"):
+        masks = make_canvas_masks(canvas, [(n, src_hw), (xt.shape[0], tgt_hw)], xs.device)
+        batch = torch.cat([to_canvas(xs), to_canvas(xt)])
+        if space is None:
+            logits = model(batch, masks=masks)
+        else:
+            logits = model(batch, masks=masks, space=space, in_h=canvas[0])
+        return (heads(slice(0, n), src_hw, out_hw_s, logits),
+                heads(slice(n, None), tgt_hw, tgt_hw, logits))
 
 
 def _source_metrics(aux, main, y, cfg: TrainConfig, divisor):
@@ -369,17 +381,23 @@ def _apply_update(state: TrainState, loss: torch.Tensor, cfg: TrainConfig) -> fl
     ``FloatingPointError`` on every rank before the update (the step's one
     read back under the flag). The gradients are zeroed, not dropped: under
     DDP they stay in its buckets."""
-    if cfg.debug_nans and ddp.any_flag(not bool(torch.isfinite(loss))):
-        raise FloatingPointError(f"iteration {state.iteration}: loss is not finite "
-                                 f"({loss.item()} on rank {ddp.rank()})")
+    if cfg.debug_nans:
+        with sync("debug_nans"):
+            finite = bool(torch.isfinite(loss))
+        if ddp.any_flag(not finite):
+            raise FloatingPointError(f"iteration {state.iteration}: loss is not finite "
+                                     f"({loss.item()} on rank {ddp.rank()})")
     lr = poly_lr(cfg.lr, state.iteration, cfg.iter_max, cfg.poly_power)
-    set_lr(state.optimizer, lr)
-    state.optimizer.zero_grad(set_to_none=False)
-    loss.backward()
-    if state.average_grads:
-        ddp.average_gradients([p for p in state.model.parameters() if p.requires_grad])
-    state.optimizer.step()
-    state.model.pack_weights()
+    with span("msl.optimizer"):
+        set_lr(state.optimizer, lr)
+        state.optimizer.zero_grad(set_to_none=False)
+    with span("msl.backward"):
+        loss.backward()
+        if state.average_grads:
+            ddp.average_gradients([p for p in state.model.parameters() if p.requires_grad])
+    with span("msl.optimizer"):
+        state.optimizer.step()
+        state.model.pack_weights()
     state.iteration += 1
     return lr
 
@@ -401,18 +419,20 @@ def make_supervised_train_step(cfg: TrainConfig, space: SpaceGroup | None = None
 
     def loss_fn(model, x, y, in_h, out_hw):
         (divisor,) = _ce_divisors(y)
-        out = _source_metrics(*_forward_upsampled(model, x, out_hw, space, in_h), y, cfg,
-                              divisor)
+        aux, main = _forward_upsampled(model, x, out_hw, space, in_h)
+        with span("msl.loss"):
+            out = _source_metrics(aux, main, y, cfg, divisor)
         return spatial.join(out[0], space), out[1]
 
     def step(state: TrainState, x: torch.Tensor, y: torch.Tensor):
-        in_h, out_hw = x.shape[1], tuple(y.shape[-2:])
-        x, y = _own_rows(space, x, y)
-        x, y = _prepare_inputs(x, y, cfg)
-        with anomaly_mode(cfg.debug_nans), spatial.training(space):
-            loss, metrics = _step_loss(state, loss_fn, x, y, in_h, out_hw)
-            lr = _apply_update(state, loss, cfg)
-        return state, _finish_metrics(metrics, loss, lr)
+        with span("msl.step"):
+            in_h, out_hw = x.shape[1], tuple(y.shape[-2:])
+            x, y = _own_rows(space, x, y)
+            x, y = _prepare_inputs(x, y, cfg)
+            with anomaly_mode(cfg.debug_nans), spatial.training(space):
+                loss, metrics = _step_loss(state, loss_fn, x, y, in_h, out_hw)
+                lr = _apply_update(state, loss, cfg)
+            return state, _finish_metrics(metrics, loss, lr)
 
     return step
 
@@ -438,36 +458,38 @@ def make_uda_train_step(cfg: TrainConfig, space: SpaceGroup | None = None):
         else:
             src = _forward_upsampled(model, xs, label_hw, space, src_hw[0])
             aux_t, main_t = _forward_upsampled(model, xt, tgt_hw, space, tgt_hw[0])
-        prob_main, label = target_guidance(main_t, aux_t, cfg)
-        src_divisor, label_divisor = _ce_divisors(ys, label)
-        src_loss, metrics = _source_metrics(*src, ys, cfg, src_divisor)
-        tgt_loss, tmetrics = target_loss_fn(main_t, prob_main, label, cfg, label_divisor,
-                                            space, tgt_hw[0])
-        metrics.update(tmetrics)
-        total = src_loss + cfg.lambda_target * tgt_loss
-        if aux_t is not None and label is not None:
-            # self-produced guidance: the aux head learns the hard
-            # ensemble pseudo-label
-            loss_aux_t = cross_entropy(aux_t, label, divisor=label_divisor)
-            metrics["loss_target_aux"] = loss_aux_t.detach()
-            total = total + cfg.lambda_target * cfg.lambda_seg * loss_aux_t
-        metrics["loss_target"] = (cfg.lambda_target * tgt_loss).detach()
+        with span("msl.loss"):
+            prob_main, label = target_guidance(main_t, aux_t, cfg)
+            src_divisor, label_divisor = _ce_divisors(ys, label)
+            src_loss, metrics = _source_metrics(*src, ys, cfg, src_divisor)
+            tgt_loss, tmetrics = target_loss_fn(main_t, prob_main, label, cfg, label_divisor,
+                                                space, tgt_hw[0])
+            metrics.update(tmetrics)
+            total = src_loss + cfg.lambda_target * tgt_loss
+            if aux_t is not None and label is not None:
+                # self-produced guidance: the aux head learns the hard
+                # ensemble pseudo-label
+                loss_aux_t = cross_entropy(aux_t, label, divisor=label_divisor)
+                metrics["loss_target_aux"] = loss_aux_t.detach()
+                total = total + cfg.lambda_target * cfg.lambda_seg * loss_aux_t
+            metrics["loss_target"] = (cfg.lambda_target * tgt_loss).detach()
         return spatial.join(total, space), metrics
 
     def step(state: TrainState, xs: torch.Tensor, ys: torch.Tensor, xt: torch.Tensor):
-        heights = (tuple(xs.shape[1:3]), tuple(ys.shape[-2:]), tuple(xt.shape[1:3]))
-        if cfg.concat_batches and space is not None:
-            _own_rows(space, xs, xt)  # --sp divides each height
-            (ys,) = _own_rows(space, ys)
-            xs, xt = _canvas_rows(space, _canvas(heights[0], heights[2])[0], xs, xt)
-        else:
-            xs, ys, xt = _own_rows(space, xs, ys, xt)
-        xs, ys = _prepare_inputs(xs, ys, cfg)
-        xt, _ = _prepare_inputs(xt, None, cfg)
-        with anomaly_mode(cfg.debug_nans), spatial.training(space):
-            total, metrics = _step_loss(state, loss_fn, xs, ys, xt, heights)
-            lr = _apply_update(state, total, cfg)
-        return state, _finish_metrics(metrics, total, lr)
+        with span("msl.step"):
+            heights = (tuple(xs.shape[1:3]), tuple(ys.shape[-2:]), tuple(xt.shape[1:3]))
+            if cfg.concat_batches and space is not None:
+                _own_rows(space, xs, xt)  # --sp divides each height
+                (ys,) = _own_rows(space, ys)
+                xs, xt = _canvas_rows(space, _canvas(heights[0], heights[2])[0], xs, xt)
+            else:
+                xs, ys, xt = _own_rows(space, xs, ys, xt)
+            xs, ys = _prepare_inputs(xs, ys, cfg)
+            xt, _ = _prepare_inputs(xt, None, cfg)
+            with anomaly_mode(cfg.debug_nans), spatial.training(space):
+                total, metrics = _step_loss(state, loss_fn, xs, ys, xt, heights)
+                lr = _apply_update(state, total, cfg)
+            return state, _finish_metrics(metrics, total, lr)
 
     return step
 

@@ -15,7 +15,10 @@ current stream. As in the JAX loop, the metrics come back to the host every
 iteration; here in ONE ``torch.stack(...).tolist()``, a single sync.
 
 ``--profile`` writes a ``torch.profiler`` trace of iterations 2-5 under
-``<checkpoint_dir>/profile`` (``utils.debug.StepProfiler``);
+``<checkpoint_dir>/profile`` (``utils.debug.StepProfiler``), with the
+steps' spans (``utils.debug.span``: forward, loss, backward, block
+backward, optimizer, host syncs) on its timeline, and logs each span's
+device and host ms a step over those iterations;
 ``--debug_nans`` is the train steps' (anomaly mode, ``FloatingPointError``
 on a loss that is not finite).
 
@@ -59,7 +62,7 @@ from maxsquareloss_torch.train.steps import (
     make_train_state,
     model_config,
 )
-from maxsquareloss_torch.utils.debug import StepProfiler
+from maxsquareloss_torch.utils.debug import StepProfiler, sync
 from maxsquareloss_torch.utils.device import resolve_device
 from maxsquareloss_torch.utils.logging import NullWriter, SummaryWriter, setup_logger
 
@@ -120,7 +123,7 @@ class Trainer:
         self._preempt_requested = False  # SIGTERM seen
         self.preempted = False           # stopped early
         self.profiler = StepProfiler(cfg.checkpoint_dir, cfg.profile and self.is_main,
-                                     self.device)
+                                     self.device, logger=self.logger)
 
     def _check_sharded(self, *loaders):
         """With several processes every loader must read this rank's data
@@ -322,7 +325,8 @@ class Trainer:
                 self.logger.info(f"wrote profiler trace {self.profiler.path}")
             imgs += self._batch_images(batch)
             # every metric to the host in one sync (the JAX loop reads each)
-            m = dict(zip(metrics, torch.stack(list(metrics.values())).tolist()))
+            with sync("metrics"):
+                m = dict(zip(metrics, torch.stack(list(metrics.values())).tolist()))
             last_metrics = m
             for k, v in m.items():
                 self.writer.add_scalar(f"train/{k}", v, it)

@@ -303,6 +303,16 @@ def test_profile_writes_a_trace_of_iterations_2_to_5(tmp_path, iter_stop, trace)
     with open(trainer.profiler.path) as f:
         names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
     assert any(n.startswith("aten::conv") for n in names)
+    spans = {"msl.step", "msl.forward", "msl.loss", "msl.backward", "msl.block_backward",
+             "msl.optimizer", "msl.sync"}
+    assert spans <= names
+    with open(tmp_path / "train_log.txt") as f:
+        logged = [line.split("span ", 1)[1] for line in f if " span msl." in line]
+    assert sorted(line.split(":")[0] for line in logged) == sorted(spans)
+    per_step = {line.split(":")[0]: line.split(": ")[1].split(" a step")[0] for line in logged}
+    assert per_step["msl.step"] == per_step["msl.forward"] == "1"  # one canvas forward
+    assert per_step["msl.block_backward"] == "4"
+    assert all("device not measured" in line for line in logged)
 
 
 def test_no_profile_writes_no_trace(tmp_path):
