@@ -14,7 +14,8 @@ Phases, one JSON object per line on stdout:
      ``maxsquareloss_torch/csrc``, one ``nvcc`` per library, all at once
      (the fused bottleneck twice: fp32, and bf16 with ``-DMSL_BF16``), with
      each bottleneck kernel instance's registers a thread and stack bytes
-     (spills) as ``cuobjdump --dump-resource-usage`` reads them;
+     (spills) as ``cuobjdump --dump-resource-usage`` reads them; a bf16
+     instance with stack bytes fails the run;
   2b. hostops: the host extension (``maxsquareloss_torch/csrc/hostops.cpp``,
      PNG decode over zlib, no libpng) built by g++ (its seconds); every PNG
      kind x ``expand_rgb`` decoded bitwise as the card's PIL reads it, 200
@@ -106,10 +107,14 @@ Phases, one JSON object per line on stdout:
      eval out equal to the emit out, a second call the same bits; eval timed
      at the eval shapes, emit at the step's, beside the bf16 plain version
      (the cuDNN bf16 chain), the bound at 989 TFLOP/s bf16 or 3.35 TB/s and
-     the FMA route's ceiling at 67 TFLOP/s. The bf16 instance runs conv1
-     and conv3 on wgmma and conv2 on the FMA loop: each row and the kernels
+     the FMA route's ceiling at 67 TFLOP/s. The bf16 instance runs every
+     conv on wgmma (conv2 two output rows a pass): each row and the kernels
      line name each conv's route, and each row the plan (m64 tiles and the
-     share of their rows in use, stages);
+     share of their rows in use, stages) and its launches that put conv2 on
+     wgmma (``conv2_tc_launches``: every one; the exact launch checks of
+     every later phase hold the ``*_bf16_conv2_fma`` counts at 0); the
+     summary carries the bf16 instances' registers and stack bytes, and a
+     spill fails the run (as in the build phase);
  11c. bf16: the train phase's step with --compute_dtype bfloat16 from the
      same seeded weights: one kernel-path step against one plain-path step
      (every metric within 1e-2 relative beyond what bf16 moves it from the
@@ -412,6 +417,8 @@ VAL_BATCH = 2
 CLI_SIZE = ["--base_size", "256,128", "--crop_size", "256,128"]
 CLI_COMMON = ["--batch_size", "2", "--num_workers", "4", "--tqdm", "false"]
 
+# a COUNTERS entry read as bf16_launches - conv2_tc_launches
+CONV2_FMA = "bf16_launches - conv2_tc_launches"
 # the launch count of every kernel, by the name it has in the kernels line
 COUNTERS = {
     "fused_bottleneck": (fused_bottleneck, "launches"),
@@ -422,6 +429,11 @@ COUNTERS = {
     # the bf16 instances' launches among them
     "fused_bottleneck_bf16": (fused_bottleneck, "bf16_launches"),
     "fused_bottleneck_emit_bf16": (fused_bottleneck_emit, "bf16_launches"),
+    # the bf16 launches whose plan left conv2 off wgmma (bf16_launches less
+    # conv2_tc_launches): 0 on every path, so every exact launch check holds
+    # conv2_tc_launches to bf16_launches
+    "fused_bottleneck_bf16_conv2_fma": (fused_bottleneck, CONV2_FMA),
+    "fused_bottleneck_emit_bf16_conv2_fma": (fused_bottleneck_emit, CONV2_FMA),
     "fused_iw_max_square_loss": (fused_iw_max_square_loss, "launches"),
     "fused_iw_max_square_loss_backward": (fused_iw_max_square_loss, "backward_launches"),
     "fused_max_square_loss": (fused_max_square_loss, "launches"),
@@ -450,11 +462,12 @@ PROBE_TOL = {F32: 1e-4, BF16: 2e-2}
 
 def zero_counts() -> None:
     for fn, attr in COUNTERS.values():
-        setattr(fn, attr, 0)
+        setattr(fn, "conv2_tc_launches" if attr == CONV2_FMA else attr, 0)
 
 
 def read_counts() -> dict[str, int]:
-    return {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
+    return {name: fn.bf16_launches - fn.conv2_tc_launches if attr == CONV2_FMA
+            else getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
 
 
 def emit(obj) -> None:
@@ -554,11 +567,21 @@ def phase_build() -> None:
         module._library()
     for dtype in fused_block.INSTANCES:
         fused_block._library(dtype)
+    usage = {name: _resource_usage(lib) for name, (lib, _) in zip(builds, built)
+             if name.startswith("fused_bottleneck")}
     emit({"phase": "build", "libraries": [lib.name for lib, _ in built],
           "seconds_by_library": {name: sec for name, (_, sec) in zip(builds, built)},
-          "seconds": time.perf_counter() - t0,
-          "resource_usage": {name: _resource_usage(lib) for name, (lib, _) in zip(builds, built)
-                             if name.startswith("fused_bottleneck")}})
+          "seconds": time.perf_counter() - t0, "resource_usage": usage})
+    _check_no_spill(usage["fused_bottleneck.cu (bf16)"], "bf16")
+
+
+def _check_no_spill(usage: dict | None, what: str) -> None:
+    """Every instance of a bottleneck library without stack or local bytes:
+    a spill of the bf16 instances' accumulators (conv2's 128 a thread at
+    layer4) would put the wgmma products through local memory."""
+    check(usage is not None, f"{what} bottleneck: no resource usage (cuobjdump missing)")
+    spills = {name: u for name, u in usage.items() if u["stack_bytes"] or u["local_bytes"]}
+    check(not spills, f"{what} bottleneck instances spill: {spills}")
 
 
 def phase_hostops() -> None:
@@ -625,7 +648,8 @@ def _tile_report(n, h, w, cin, cmid, d, dtype=torch.float32) -> dict:
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     plan = fused_block.plan_tiles(n, h, w, cin, cmid, d, sm_count, dtype)
     return {"tile": plan._asdict(), "smem_bytes_with_stages": plan.smem,
-            "conv_routes": plan.conv_routes(), "m_rows_used": plan.m_rows_used(d),
+            "conv_routes": plan.conv_routes(), "conv2_tile": plan.conv2_tile(cmid),
+            "m_rows_used": plan.m_rows_used(d),
             "flop_per_l2_weight_byte": plan.flop_per_l2_weight_byte(dtype.itemsize),
             "busy_threads": plan.busy_threads(cmid, d)}
 
@@ -1522,6 +1546,7 @@ def _hold_bf16(gen, name, n, h, w, cin, cmid, d, valid=None, timed=None) -> dict
     its bound at 989 TFLOP/s bf16 or 3.35 TB/s, and the FMA route's ceiling
     at 67 TFLOP/s. Returns the row."""
     args = _block_inputs(gen, n, h, w, cin, cmid, BF16)
+    counts0 = read_counts()
     got = fused_bottleneck_emit(*args, d, valid)
     want = fused_bottleneck_emit_reference(*args, d, valid)
     out_e = fused_bottleneck(*args, d, valid)
@@ -1539,6 +1564,12 @@ def _hold_bf16(gen, name, n, h, w, cin, cmid, d, valid=None, timed=None) -> dict
           and torch.equal(out_e, fused_bottleneck(*args, d, valid)),
           f"bf16 {name}: two calls differ (not bitwise deterministic)")
     row["bitwise_repeatable"] = True
+    # each of the four launches above put conv2 on wgmma
+    delta = {k: v - counts0[k] for k, v in read_counts().items()}
+    row["conv2_tc_launches"] = {kernel: delta[f"{kernel}_bf16"] - delta[f"{kernel}_bf16_conv2_fma"]
+                                for kernel in ("fused_bottleneck", "fused_bottleneck_emit")}
+    check(row["conv2_tc_launches"] == {"fused_bottleneck": 2, "fused_bottleneck_emit": 2},
+          f"bf16 {name}: conv2 on wgmma in {row['conv2_tc_launches']} of 2 launches each")
     if valid is not None:
         pad = (valid_mask(valid, h, w) == 0).expand_as(got[1])
         check(got[1][pad].abs().max().item() == 0.0, f"bf16 masked {name}: h1 is not 0 in the pad")
@@ -1597,9 +1628,14 @@ def phase_bf16_kernels() -> tuple[dict, list[dict]]:
     torch.cuda.empty_cache()
     worst = {key: max(r[f"{k}_{key}"] for r in every for k in ("out", "h1", "h2"))
              for key in ("max_abs_err", "ulps")}
+    usage = _resource_usage(kernel_build.build(fused_block.SOURCE, fused_block.INSTANCES[BF16][0]))
+    _check_no_spill(usage, "bf16")
     emit({"phase": "bf16_kernel_summary", "shapes": len(every), "max_abs_err": worst["max_abs_err"],
           "max_ulps": worst["ulps"],
-          "min_bitwise_share": min(r[f"{k}_bitwise_share"] for r in every for k in ("out", "h1", "h2"))})
+          "min_bitwise_share": min(r[f"{k}_bitwise_share"] for r in every for k in ("out", "h1", "h2")),
+          "conv2_tc_launches": {k: sum(r["conv2_tc_launches"][k] for r in every)
+                                for k in ("fused_bottleneck", "fused_bottleneck_emit")},
+          "resource_usage": usage})
 
     def entry(name, kind, per):
         rs = rows[kind]
@@ -3969,6 +4005,13 @@ def main() -> int:
     bf16_step_counts, bf16_eval_counts = phase_bf16(bf16_checked)
     bf16_kernels[0]["launches"] = bf16_eval_counts["fused_bottleneck_bf16"]
     bf16_kernels[1]["launches"] = bf16_step_counts["fused_bottleneck_emit_bf16"]
+    # the launches whose plan put conv2 on wgmma: all of them (the exact
+    # launch checks hold the *_conv2_fma counts at 0)
+    bf16_kernels[0]["conv2_tc_launches"] = (bf16_eval_counts["fused_bottleneck_bf16"]
+                                            - bf16_eval_counts["fused_bottleneck_bf16_conv2_fma"])
+    bf16_kernels[1]["conv2_tc_launches"] = (
+        bf16_step_counts["fused_bottleneck_emit_bf16"]
+        - bf16_step_counts["fused_bottleneck_emit_bf16_conv2_fma"])
     lap("bf16")
     phase_remat()
     lap("remat")

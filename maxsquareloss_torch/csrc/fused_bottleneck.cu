@@ -81,75 +81,92 @@
 //   edge skips its arithmetic but keeps copying and meeting the barriers.
 // - Emit (a template flag, so the eval kernel is unchanged): a block owns
 //   the output pixels of its strip [col0, col0+TW) on the rows of its
-//   segment. h2 goes to device memory from registers where conv2 makes it,
-//   for those pixels. h1 of row j is copied from its ring slot while the
-//   slot holds it (between the two barriers of row j), from the slot's
-//   columns [d, d+TW), which are the strip itself: the halo columns and
-//   the rows j0-1 and j0+RS that a segment computes only as conv2's
-//   neighbours are never written. No atomics: two calls give the same bits.
+//   segment. h2 goes to device memory for those pixels: on the FMA route
+//   from registers where conv2 makes it, on the tc route copied from the
+//   plane after conv2. h1 of row j is copied from shared memory while it is
+//   there (before conv2 of its trip), from the columns [d, d+TW) of its
+//   row, which are the strip itself: the halo columns and the rows j0-1 and
+//   j0+RS that a segment computes only as conv2's neighbours are never
+//   written. No atomics: two calls give the same bits.
 // - Masked canvas (valid non-null, N x 2 ints: image n's valid rows and
 //   columns on a canvas batch of unequal crops, the JAX package's
 //   _bottleneck(..., mask=...)): h1 is exact zeros past image n's valid
-//   rows and columns, as it is outside the image. conv1_row is the only
-//   place h1 is made, so the ring, conv2's input and the emitted h1 are all
-//   the masked h1; conv2, conv3, h2 and out run over the whole canvas as
-//   before. A runtime argument: no template instance of its own.
+//   rows and columns, as it is outside the image. conv1_row (conv1_row_tc)
+//   is the only place h1 is made, so the ring, conv2's input and the emitted
+//   h1 are all the masked h1; conv2, conv3, h2 and out run over the whole
+//   canvas as before. A runtime argument: no template instance of its own.
 // - bf16 (the library built with -DMSL_BF16, kernels/fused_block.py): every
 //   tensor but the BN vectors in bf16 (the weights the caller's HWIO copies
-//   cast from fp32, as the TPU kernel's _prep casts them), and conv1 and
-//   conv3 on the tensor cores: the tc route, chosen at compile time
+//   cast from fp32, as the TPU kernel's _prep casts them), and all three
+//   convs on the tensor cores: the tc route, chosen at compile time
 //   (kTensorCores), so the fp32 build runs the FMA route above unchanged.
 //   Results are rounded to bf16 where the Pallas body casts to the compute
 //   dtype: each conv's fp32 sum; the BN's product and its sum (the BN
 //   vectors rounded to bf16 as they are read); the residual add; the ReLU
-//   is exact. h1 and h2 are stored as bf16, the ring and the emitted copies
-//   alike. Only the order of each fp32 sum differs from the plain version.
-// - The tc route: conv1 ([TW+2d pixels x Cin] x [Cin x Cmid]) and conv3 ([TW
-//   x Cmid] x [Cmid x Cin], in passes of bn3 columns) are wgmma.mma_async
-//   m64nNk16 bf16 -> fp32 products from shared memory without swizzle, in
-//   passes of bn1 (conv1) or bn3 (conv3) columns: each warpgroup takes the
-//   pass's columns over the warpgroups, 128 over one m64 tile of pixels or 64
-//   over two, 64 fp32 accumulators a thread (DISPATCH_TC: 3 instances a
-//   conv; 128 accumulators spill beside the FMA loop's registers), and the
-//   epilogue follows each pass's k loop (tc_pass: ptxas serializes the wgmma
-//   of a loop whose body reads the accumulators). The operands are staged
-//   as before, by cp.async double buffers of kb1 (conv1) or kb3 (conv3)
-//   k-rows, up to 64 (one barrier a stage, four k16 steps per barrier),
-//   only at other addresses: the x stage and h2 in the k-major
-//   core-matrix layout (8 pixels x 16 bytes a core matrix, channel block
-//   c/8 of pixel p at 8 (stride * c/8 + p), the pixel stride odd so the
-//   stores into it avoid bank conflicts), the weight stages in the n-major
-//   one (8 k-rows x 8 columns a core matrix, read with the transpose flag),
-//   which the 16-byte pieces of each weight row fill by address alone: no
-//   host-side packing. conv2 stays on the FMA loop (rung (b), nine shifted
-//   products from the ring, is for later) and writes h2 into its ring slot
-//   in the core-matrix layout, compact (h2p x Cmid fits the P1 x ldh slot).
-//   A stage's cp.async writes and conv2's plain stores of h2 are fenced
+//   is exact. h1 and h2 are stored as bf16, in shared memory and the emitted
+//   copies alike. Only the order of each fp32 sum differs from the plain
+//   version.
+// - The tc route: conv1 ([TW+2d pixels x Cin] x [Cin x Cmid]), conv2 (nine
+//   shifted [pixels x Cmid] x [Cmid x Cmid] products) and conv3 ([TW x Cmid]
+//   x [Cmid x Cin]) are wgmma.mma_async m64nNk16 bf16 -> fp32 products from
+//   shared memory without swizzle. conv1 and conv3 run in passes of bn1 or
+//   bn3 columns: each warpgroup takes the pass's columns over the
+//   warpgroups, 128 over one m64 tile of pixels or 64 over two, 64 fp32
+//   accumulators a thread (DISPATCH_TC: 3 instances a conv). The epilogue
+//   follows each pass's k loop (tc_pass: ptxas serializes the wgmma of a
+//   loop whose body reads the accumulators). The operands are staged by
+//   cp.async double buffers of kb1 (conv1) or kb3 (conv3) k-rows, up to 64
+//   (one barrier a stage, four k16 steps per barrier), the x stage in the
+//   k-major core-matrix layout (8 pixels x 16 bytes a core matrix,
+//   channel block c/8 of pixel p at 8 (stride * c/8 + p), the pixel stride
+//   odd so 16-byte reads of one pixel's channel blocks avoid bank
+//   conflicts), the weight stages in the n-major one (8 k-rows x 8 columns
+//   a core matrix, read with the transpose flag), which the 16-byte pieces
+//   of each weight row fill by address alone: no host-side packing.
+// - conv2 on the tc route (tc_segment, conv2_rows_tc): a block's w2 (a
+//   (9*Cmid, Cmid) matrix, 1.2 MB at layer3 and 4.7 MB at layer4) streams
+//   from L2 once a pass, and the passes are bound by that stream (about 2
+//   TB/s over the card's SMs, PERF.md): FLOP per L2 byte = the pass's
+//   pixels. So a pass takes two output rows of the chain at once: h1 lives
+//   in a window of four rows (j-1 .. j+2) at positions P1 = TW + 2d
+//   pixels apart in one core-matrix plane (pixel stride ldh, odd), where
+//   conv1's epilogue writes it. Tap (ra, cb) of both rows is then one A
+//   descriptor, started at position ra shifted by cb*d pixels: tile rows m
+//   < TW are output row j, rows P1 <= m < P1 + TW row j+1, rows between and
+//   past them read inside the block's shared memory and are dropped. One
+//   pass over all Cmid (a warpgroup takes Cmid / warpgroups columns: 256 at
+//   layer4, 128 accumulators a thread, which fit with no FMA loop in the
+//   bf16 build; DISPATCH_CONV2), 9 Cmid / kb stages in a ring of
+//   kConv2Buffers (three in flight while one is multiplied). After every
+//   product h2 of the trip's rows takes positions 0 and 1 (tile row m is
+//   plane pixel m), where conv3 reads it row by row; then the window's last
+//   two rows move to positions 0, 1 and conv1 fills the rest. Measured on an
+//   H100 (PERF.md): conv2 alone 3.5-5.6x the FMA loop's rate at layers 3-4,
+//   the block 1.8-2.2x faster than with conv2 on the FMA loop.
+// - A stage's cp.async writes and the plain stores of h1 and h2 are fenced
 //   into the async proxy (fence.proxy.async) before the barrier that hands
 //   them to wgmma; every thread waits for its warpgroup's products
 //   (wgmma.wait_group 0) before the next barrier lets a buffer be
-//   overwritten, so one stage's products run while the next stage lands.
+//   overwritten, so one stage's products run while the next stages land.
 //   Rows of an m64 tile past the pixels (layer4: 28 of 64 in conv3) read
 //   whatever lies at their addresses inside the block's shared memory and
 //   are dropped. The epilogues take the accumulator fragment (thread t of a
 //   warpgroup holds columns 8j + 2(t%4) + {0,1} of rows 16(t/32) + (t%32)/4
-//   and 8 below): conv1 writes h1 pixel-major into the ring as 4-byte pairs
-//   (the h1 pixel stride padded by 16 bytes at every width: no bank
-//   conflict); conv3 writes bn3 of its fragment into a tile of 64 columns a
-//   warpgroup in the x stages (free during conv3, a swizzle of 16-byte
-//   pieces against bank conflicts) and then reads the residual and stores
-//   out in 16-byte pieces along each pixel's channels: in the fragment's
-//   order, 8 pixels x 16 bytes a warp instruction, those accesses took 2.3x
-//   as long (PERF.md). The planner (plan_tiles) picks TW by the m64 tiles
-//   the FMA loop's pixel tiles allow: R101 at 1024x512 layer1 TW 96 (P1 98:
-//   two tiles), layer2 48 (1024x512) or 96 (1280x640), layer3 48 or 56 (one
-//   tile), layer4 28 (P1 36, conv3 28 rows of a tile), in 85-188 KB of
-//   shared memory; timed at every other TW on an H100, no choice is more
-//   than 6 % off the fastest at its shape. Measured on an H100 (PERF.md):
-//   0.65-0.68x the FMA route's time; the tensor-core part runs at about a
-//   tenth of the bf16 peak and conv2's FMA loop takes most of the time.
-// - Left for later: conv2 on wgmma (nine shifted products from the h1 ring,
-//   behind a gate measured in a scratch kernel first), a fetching warp with
+//   and 8 below): conv1 and conv2 write h1 and h2 into the plane as 4-byte
+//   pairs (8 pixels x 4 threads a warp store: 32 words, no bank conflict);
+//   conv3 writes bn3 of its fragment into a tile of 64 columns a warpgroup
+//   in the x stages (free during conv3, a swizzle of 16-byte pieces against
+//   bank conflicts) and then reads the residual and stores out in 16-byte
+//   pieces along each pixel's channels: in the fragment's order, 8 pixels x
+//   16 bytes a warp instruction, those accesses took 2.3x as long (PERF.md);
+//   with Emit, h1 and h2 go to device memory the same way, copied from the
+//   plane (store_row). The planner (plan_tiles) picks TW by the m64 tiles
+//   of conv1 and conv3: R101 at 1024x512 layer1 TW 96 (P1 98: two tiles),
+//   layer2 48 (1024x512) or 96 (1280x640), layer3 48 or 56 (one tile),
+//   layer4 28 (P1 36; conv2's two rows are rows 0-27 and 36-63 of one tile),
+//   in 90-224 KB of shared memory.
+// - Left for later: conv1 and conv3 over two rows a weight pass as conv2
+//   (their L2 stream is now most of the block's time), a fetching warp with
 //   mbarriers in place of the block barrier a stage, more pixels per weight
 //   pass at layer4 (thread block clusters with multicast weight stages), and
 //   the tensor cores in fp32 (split-TF32 mma.sync at this structure: 1.17x
@@ -171,7 +188,7 @@ constexpr int kCh = 8;         // channels per thread tile
 
 #ifdef MSL_BF16
 using Elem = __nv_bfloat16;    // the type of every tensor but the BN vectors
-constexpr bool kTensorCores = true;   // conv1 and conv3 on wgmma (the tc route)
+constexpr bool kTensorCores = true;   // every conv on wgmma (the tc route)
 #else
 using Elem = float;
 constexpr bool kTensorCores = false;  // every conv on the FMA loop
@@ -200,9 +217,9 @@ struct Args {
   int bn3, px1, px2, px3, ldh, wstage, xs_px, kb;
   // the tc route's: the k rows of a conv1 and a conv3 stage, the m64 tiles
   // of conv1 (TW + 2d pixels) and conv3 (TW), the pixel stride of h2's
-  // core-matrix layout and conv1's columns per pass (kb1 = kb3 = kb, the
-  // others 0, on the FMA route)
-  int kb1, kb3, mt1, mt3, h2p, bn1;
+  // core-matrix layout, conv1's columns per pass and the m64 tiles of a
+  // conv2 pass (kb1 = kb3 = kb, the others 0, on the FMA route)
+  int kb1, kb3, mt1, mt3, h2p, bn1, mt2;
 };
 
 // Four bf16 (8 bytes, the lower address in the low half of each word) as
@@ -284,6 +301,12 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's newest cp.async groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ int ring_slot(int j) { return (j + 3) % 3; }
@@ -468,9 +491,7 @@ __device__ __forceinline__ void conv2_row(const Args& a, const Elem* h1, Elem* h
 #pragma unroll
     for (int p = 0; p < PX; ++p) {
       const float4 y = bn_relu(&acc[p][hf * 4], s, b);
-      // pixel-major for conv3_row; core matrices for conv3_row_tc's wgmma
-      store4(h2 + (kTensorCores ? 8 * (a.h2p * (ch >> 3) + c0 + p) + (ch & 7)
-                                : (c0 + p) * a.ldh + ch), y);
+      store4(h2 + (c0 + p) * a.ldh + ch, y);  // pixel-major for conv3_row
       const int col = col0 + c0 + p;
       if (Emit && col < a.W)
         store4(a.h2 + ((size_t)(n * a.H + r) * a.W + col) * a.Cmid + ch, y);
@@ -478,8 +499,16 @@ __device__ __forceinline__ void conv2_row(const Args& a, const Elem* h1, Elem* h
   }
 }
 
-// With Emit: h1 of image row r, the strip's own columns of its ring slot.
-__device__ void store_h1_row(const Args& a, const Elem* slot, int n, int r, int col0) {
+// With Emit: the strip's TW pixels of one row in shared memory (pixel c at
+// src's pixel first + c) to dst's image row r, (N, H, W, Cmid) in device
+// memory, in 16-byte pieces along each pixel's channels. src is pixel-major
+// with pixel stride ld (the FMA route's h1), or with CoreMatrices in the
+// k-major core-matrix layout of pixel stride ld (the tc route's h1 and h2:
+// ld odd, so the pieces a quarter warp reads, one pixel's consecutive
+// channel blocks, fall on distinct banks).
+template <bool CoreMatrices>
+__device__ void store_row(const Args& a, const Elem* src, int ld, int first, Elem* dst, int n,
+                          int r, int col0) {
   const int nq = a.Cmid / kVec;
   const int items = nq * a.TW;
   for (int item = threadIdx.x; item < items; item += blockDim.x) {
@@ -487,8 +516,9 @@ __device__ void store_h1_row(const Args& a, const Elem* slot, int n, int r, int 
     const int c = item / nq;
     const int col = col0 + c;
     if (col < a.W)
-      *reinterpret_cast<uint4*>(a.h1 + ((size_t)(n * a.H + r) * a.W + col) * a.Cmid + q * kVec) =
-          *reinterpret_cast<const uint4*>(slot + (c + a.d) * a.ldh + q * kVec);
+      *reinterpret_cast<uint4*>(dst + ((size_t)(n * a.H + r) * a.W + col) * a.Cmid + q * kVec) =
+          *reinterpret_cast<const uint4*>(
+              src + (CoreMatrices ? kVec * (ld * q + first + c) : (first + c) * ld + q * kVec));
   }
 }
 
@@ -556,10 +586,10 @@ __device__ __forceinline__ void conv3_row(const Args& a, const Elem* h2, Elem* w
 }
 
 // ---------------------------------------------------------------------------
-// The tc route (the bf16 build): conv1 and conv3 on the tensor cores with
-// wgmma (bf16 x bf16 -> fp32), conv2 on the FMA loop above. The shared-memory
-// maps are restated in kernels/fused_block.py (x_stage_offset,
-// w_stage_offset, h2_offset, fragment_rows_cols) and checked there on the CPU.
+// The tc route (the bf16 build): every conv on the tensor cores with wgmma
+// (bf16 x bf16 -> fp32). The shared-memory maps are restated in
+// kernels/fused_block.py (x_stage_offset, w_stage_offset, h1_offset,
+// h2_offset, conv2_a_start, fragment_rows_cols) and checked there on the CPU.
 
 // Makes this thread's writes to shared memory (plain stores and cp.async)
 // visible to the async proxy that wgmma reads through.
@@ -655,6 +685,58 @@ struct Wgmma<128> {
   }
 };
 
+template <>
+struct Wgmma<256> {
+  static __device__ __forceinline__ void mma(float (&d)[128], uint64_t da, uint64_t db,
+                                             int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+          "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+          "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+          "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+          "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
+};
+
 // Start the copy of the weight stage W[k0 : k0+kb, n0 : n0+bn) (row-major,
 // ld = ldw) into ws in wgmma's n-major core-matrix layout: a core matrix is
 // 8 k-rows x 8 columns (16 bytes a row), the bn/8 core matrices of one block
@@ -711,26 +793,34 @@ __device__ __forceinline__ void warpgroup_sync() {
 
 // One pass of a tc product: acc[t] = (64 rows of m64 tile t) x (this
 // warpgroup's NW of the pass's bn columns), summed over `stages` stages of
-// kb k-rows, double buffered with cp.async. load(i) starts and commits stage
-// i's copies into buffer i & 1 (the weight stage at wst + (i & 1) * wstage,
-// kb x bn in the n-major core-matrix layout); a_at(i, s, t) is the A
-// descriptor of k16 step s of stage i for tile t. One barrier a stage; the
-// products of stage i run while stage i+1 lands. The epilogue reads acc
-// after the pass, outside its k loop: a read of the accumulators inside the
-// loop makes ptxas serialize every wgmma. Returns with all products done.
-template <int MT, int NW, class Load, class ADesc>
+// kb k-rows in a ring of Depth buffers (a power of 2) filled by cp.async.
+// load(i) starts and commits stage i's copies into buffer i % Depth (the
+// weight stage at wst + (i % Depth) * wstage, kb x bn in the n-major
+// core-matrix layout); a_at(i, s, t) is the A descriptor of k16 step s of
+// stage i for tile t. One barrier a stage; the products of stage i run
+// while stages i+1 .. i+Depth-1 land. The epilogue reads acc after the
+// pass, outside its k loop: a read of the accumulators inside the loop
+// makes ptxas serialize every wgmma. Returns with all products done.
+template <int MT, int NW, int Depth = 2, class Load, class ADesc>
 __device__ __forceinline__ void tc_pass(float (&acc)[MT][NW / 2], int stages, int kb, int bn,
                                         const Elem* wst, int wstage, Load load, ADesc a_at) {
+  static_assert(Depth >= 2 && (Depth & (Depth - 1)) == 0, "a power of 2 of buffers");
   const Elem* wcol = wst + 8 * (threadIdx.x >> 7) * NW;  // this warpgroup's columns
   __syncthreads();  // the buffers' last readers (the last pass's products) are done
-  load(0);
+  // one commit group a stage, empty past the last, so that stage i has
+  // landed once at most Depth - 2 newer groups are pending
+  for (int i = 0; i < Depth - 1; ++i) {
+    if (i < stages) load(i);
+    else cp_async_commit();
+  }
   for (int i = 0; i < stages; ++i) {
-    cp_async_wait_all();  // stage i has landed (this thread's copies)
-    fence_proxy_async();  // ... visible to wgmma
-    wgmma_wait_all();     // stage i-1's products are done with its buffers
-    __syncthreads();      // ... everyone's: stage i+1 may take them
-    if (i + 1 < stages) load(i + 1);
-    const Elem* ws = wcol + (i & 1) * wstage;
+    cp_async_wait<Depth - 2>();  // stage i has landed (this thread's copies)
+    fence_proxy_async();         // ... visible to wgmma
+    wgmma_wait_all();            // stage i-1's products are done with its buffers
+    __syncthreads();             // ... everyone's: stage i+Depth-1 may take them
+    if (i + Depth - 1 < stages) load(i + Depth - 1);
+    else cp_async_commit();
+    const Elem* ws = wcol + (i & (Depth - 1)) * wstage;
 #pragma unroll
     for (int t = 0; t < MT; ++t) fence_acc(acc[t]);
     wgmma_fence();
@@ -747,12 +837,17 @@ __device__ __forceinline__ void tc_pass(float (&acc)[MT][NW / 2], int stages, in
 }
 
 // conv1 on the tensor cores: h1 for image row r at columns [col0 - d, col0 +
-// TW + d) into one ring slot, as conv1_row. [P1 pixels x Cin] x [Cin x Cmid]
+// TW + d) into one window position, as conv1_row. [P1 pixels x Cin] x [Cin x Cmid]
 // in Cmid / bn1 passes of kb1-channel stages of x and w1: warpgroup g takes
 // the pass's columns [g NW, (g+1) NW) over MT m64 tiles of pixels. An x
 // stage holds channel block c/8 of pixel p at 8 (xs_px (c/8) + p) (lbo =
 // 16 xs_px bytes, sbo = 128): the tiles' rows past P1 read whatever lies
 // there (inside the block's shared memory, plan_tiles) and are never stored.
+// h1 goes to its window position (slot: pixel 0 of the position in the
+// plane) in the same k-major core-matrix layout with pixel stride ldh
+// (channel block c/8 of pixel p at slot + 8 (ldh (c/8) + p)), which
+// conv2_rows_tc reads as its A operand; all P1 pixels are zeros for a row
+// outside the image.
 template <int MT, int NW>
 __device__ __forceinline__ void conv1_row_tc(const Args& a, Elem* slot, Elem* wst, Elem* xst,
                                              int n, int r, int col0) {
@@ -764,9 +859,8 @@ __device__ __forceinline__ void conv1_row_tc(const Args& a, Elem* slot, Elem* ws
   // readers (conv3's wgmma, waited for) are done
   __syncthreads();
   if (r < 0 || r >= vh) {  // the same for the whole block: a block has one image
-    const int nq = a.Cmid / kVec;
-    for (int i = tid; i < P1 * nq; i += nt)
-      *reinterpret_cast<uint4*>(slot + (i / nq) * a.ldh + (i % nq) * kVec) =
+    for (int i = tid; i < P1 * a.Cmid / 8; i += nt)
+      *reinterpret_cast<uint4*>(slot + 8 * (a.ldh * (i / P1) + i % P1)) =
           make_uint4(0u, 0u, 0u, 0u);
     return;
   }
@@ -806,7 +900,7 @@ __device__ __forceinline__ void conv1_row_tc(const Args& a, Elem* slot, Elem* ws
           const int col = col0 - a.d + pix;
           if (pix < P1) {
             const bool in = col >= 0 && col < vw;
-            store2(slot + pix * a.ldh + ch,
+            store2(slot + 8 * (a.ldh * (ch >> 3) + pix) + (ch & 7),
                    in ? fmaxf(frozen_bn(acc[t][4 * j + 2 * h], s.x, b.x), 0.f) : 0.f,
                    in ? fmaxf(frozen_bn(acc[t][4 * j + 2 * h + 1], s.y, b.y), 0.f) : 0.f);
           }
@@ -815,9 +909,71 @@ __device__ __forceinline__ void conv1_row_tc(const Args& a, Elem* slot, Elem* ws
   }
 }
 
+// conv2's ring of w2 stages: the two weight buffers of conv1 and conv3 (2
+// wstage elements) cut into this many, so that three stages are in flight
+// while one is multiplied (the L2 latency of w2, which every block streams
+// once an output row, is what bounds conv2).
+constexpr int kConv2Buffers = 4;
+
+// conv2 on the tensor cores: h2 of the output rows j and j+1 of a trip from
+// the h1 rows j-1 .. j+2 at positions 0 .. 3 of the window (tc_segment).
+// [2 rows x Cmid] x [9 Cmid x Cmid] in one pass over all Cmid columns
+// (warpgroup g takes [g NW, (g+1) NW) over MT m64 tiles) and 9 Cmid / kb
+// stages of w2's k-rows (kb divides Cmid, so a stage lies in one tap). The A
+// operand of tap (ra, cb) starts at position ra shifted by cb*d pixels: row
+// m of tile t, channel block c/8 at 8 (ldh (c/8) + ra P1 + cb d + 64 t + m),
+// a descriptor shifted by 16 (ra P1 + cb d) bytes (lbo = 16 ldh, sbo = 128).
+// Rows m < TW are output row j, rows P1 <= m < P1 + TW row j+1: the
+// positions lie P1 pixels apart, so the taps of both rows are one descriptor
+// and every w2 stage that a block streams from L2 serves two rows. Rows
+// between and past them read whatever lies at their addresses inside the
+// block's shared memory and are dropped. One pass, so h2 takes positions 0
+// and 1 (h1 rows j-1 and j, which no later product reads) only after every
+// product: row m of the tiles is plane pixel m, the layout conv3_row_tc
+// reads.
+template <int MT, int NW>
+__device__ __forceinline__ void conv2_rows_tc(const Args& a, Elem* plane, Elem* wst) {
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int warp = (tid >> 5) & 3, g = (tid & 31) >> 2, tq = tid & 3;
+  const int P1 = a.TW + 2 * a.d, kb = a.kb;
+  const int wbuf = 2 * a.wstage / kConv2Buffers;
+  float acc[MT][NW / 2] = {};
+  fence_proxy_async();  // conv1's epilogues and the window's shift wrote h1 with plain stores
+  auto load = [&](int i) {
+    stage_weights_tc(wst + (i & (kConv2Buffers - 1)) * wbuf, a.w2, a.Cmid, 0, i * kb, a.Cmid,
+                     kb);
+    cp_async_commit();
+  };
+  auto a_at = [&](int i, int s, int t) {
+    const int tap = i * kb / a.Cmid, kc = i * kb - tap * a.Cmid;
+    const int ra = tap / 3, cb = tap - 3 * ra;
+    return wgmma_desc(plane + 8 * (a.ldh * (kc / 8 + 2 * s) + ra * P1 + cb * a.d + 64 * t),
+                      16 * a.ldh, 128);
+  };
+  tc_pass<MT, NW, kConv2Buffers>(acc, 9 * a.Cmid / kb, kb, a.Cmid, wst, wbuf, load, a_at);
+  __syncthreads();  // h2 takes positions 0, 1: every warpgroup's products are done
+#pragma unroll
+  for (int jj = 0; jj < NW / 8; ++jj) {
+    const int ch = wg * NW + 8 * jj + 2 * tq;
+    const float2 s = bn_vec2(a.s2 + ch);
+    const float2 b = bn_vec2(a.b2 + ch);
+#pragma unroll
+    for (int t = 0; t < MT; ++t)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int pix = 64 * t + 16 * warp + 8 * h + g;
+        if (pix < a.TW || (pix >= P1 && pix < P1 + a.TW))  // output row j or j+1
+          store2(plane + 8 * (a.ldh * (ch >> 3) + pix) + (ch & 7),
+                 fmaxf(frozen_bn(acc[t][4 * jj + 2 * h], s.x, b.x), 0.f),
+                 fmaxf(frozen_bn(acc[t][4 * jj + 2 * h + 1], s.y, b.y), 0.f));
+      }
+  }
+}
+
 // conv3 on the tensor cores: out row r = relu(bn3(conv3 h2) + x), as
-// conv3_row. h2 lies in its ring slot in the core-matrix layout (channel
-// block c/8 of pixel p at 8 (h2p (c/8) + p), written by conv2_row), whole:
+// conv3_row. h2 lies at its window position in the core-matrix layout
+// (channel block c/8 of pixel p at h2 + 8 (h2p (c/8) + p), h2p = ldh,
+// written by conv2_rows_tc), whole:
 // [TW x Cmid] x [Cmid x Cin] in Cin / bn3 passes of kb3-row stages of w3;
 // warpgroup g takes the pass's columns [g NW, (g+1) NW) over MT m64 tiles.
 // The epilogue goes through shared memory (epi_offset): bn3 of the fragment
@@ -892,6 +1048,26 @@ __device__ __forceinline__ void conv3_row_tc(const Args& a, const Elem* h2, Elem
     constexpr int MT = 2, NW = 64; CALL;                            \
   }
 
+// conv2's instances on the tc route: one pass over all Cmid columns, NW =
+// Cmid / warpgroups, over MT m64 tiles of the trip's rows (plan_tiles:
+// layers 1-2 64 columns over 2 or 4 tiles, layer3 128 over 1 or 2, layer4 256
+// over 1, whose 128 accumulators a thread fit beside the rest of the kernel
+// with no FMA loop in the bf16 build).
+#define DISPATCH_CONV2(mt, nw, CALL)                                \
+  if ((nw) == 256) {                                                \
+    constexpr int MT = 1, NW = 256; CALL;                           \
+  } else if ((nw) == 128 && (mt) == 1) {                            \
+    constexpr int MT = 1, NW = 128; CALL;                           \
+  } else if ((nw) == 128) {                                         \
+    constexpr int MT = 2, NW = 128; CALL;                           \
+  } else if ((mt) == 1) {                                           \
+    constexpr int MT = 1, NW = 64; CALL;                            \
+  } else if ((mt) == 2) {                                           \
+    constexpr int MT = 2, NW = 64; CALL;                            \
+  } else {                                                          \
+    constexpr int MT = 4, NW = 64; CALL;                            \
+  }
+
 // The pixels per thread tile are compile-time (the accumulators are
 // registers): one instance per value, picked by the planner's px.
 #define DISPATCH_PX(px, CALL)  \
@@ -906,15 +1082,98 @@ __device__ __forceinline__ void conv3_row_tc(const Args& a, const Elem* h2, Elem
     default: { constexpr int PX = 8; CALL; } break; \
   }
 
+// The tc route's walk down a segment of a chain, two output rows a trip: a
+// window of four h1 rows at positions 0 .. 3 of one core-matrix plane (ldh
+// pixels a channel block, P1 pixels a position), holding rows j-1 .. j+2
+// for the trip of output rows j and j+1. conv2_rows_tc multiplies both rows
+// at once, its h2 takes positions 0 and 1, conv3 runs row by row; then rows
+// j+1 and j+2 move from positions 2, 3 to 0, 1 and conv1 fills positions 2
+// and 3 with rows j+3 and j+4 of the next trip. A trip with one row (the
+// segment's or the image's last) leaves position 3 as it was and drops the
+// h2 of its second row, the only one that reads it; conv1 thus makes RS + 2
+// rows a segment, as on the FMA route.
+template <bool Emit>
+__device__ __forceinline__ void tc_segment(const Args& a, Elem* plane, Elem* wst, Elem* xst,
+                                           int n, int res, int j0, int col0) {
+  const int P1 = a.TW + 2 * a.d;
+  auto conv1 = [&](int k, int j) {  // h1 row j of the chain into position k
+    DISPATCH_TC(a.mt1, a.bn1 * 128 / (int)blockDim.x,
+                (conv1_row_tc<MT, NW>(a, plane + 8 * k * P1, wst, xst, n, res + a.d * j, col0)))
+  };
+  for (int j = j0; j < j0 + a.RS; j += 2) {
+    const int r = res + a.d * j;
+    if (r >= a.H) break;
+    const int rows = j + 1 < j0 + a.RS && r + a.d < a.H ? 2 : 1;
+    // the window holds rows j-1 .. j+rows: the first trip makes them all, a
+    // later one those past the two it moved to positions 0, 1
+    for (int k = j == j0 ? 0 : 2; k < rows + 2; ++k) conv1(k, j - 1 + k);
+    __syncthreads();  // the window's h1 is whole
+    if constexpr (Emit)
+      for (int q = 0; q < rows; ++q)
+        store_row<true>(a, plane, a.ldh, (q + 1) * P1 + a.d, a.h1, n, r + q * a.d, col0);
+    DISPATCH_CONV2(a.mt2, a.Cmid * 128 / (int)blockDim.x,
+                   (conv2_rows_tc<MT, NW>(a, plane, wst)))
+    __syncthreads();  // h2 is whole
+    for (int q = 0; q < rows; ++q) {
+      if constexpr (Emit) store_row<true>(a, plane, a.ldh, q * P1, a.h2, n, r + q * a.d, col0);
+      DISPATCH_TC(a.mt3, a.bn3 * 128 / (int)blockDim.x,
+                  (conv3_row_tc<MT, NW>(a, plane + 8 * q * P1, wst, xst, n, r + q * a.d, col0)))
+    }
+    if (rows < 2 || j + 2 >= j0 + a.RS || r + 2 * a.d >= a.H) break;  // no next trip
+    __syncthreads();  // conv3's reads of h2 are done
+    for (int i = threadIdx.x; i < 2 * P1 * a.Cmid / 8; i += blockDim.x) {
+      const int e = 8 * (a.ldh * (i / (2 * P1)) + i % (2 * P1));  // positions 2, 3 to 0, 1
+      *reinterpret_cast<uint4*>(plane + e) = *reinterpret_cast<const uint4*>(plane + e + 16 * P1);
+    }
+  }
+}
+
+// The FMA route's walk down a segment of a chain: a ring of three h1 rows;
+// rows j0-1 and j0 of the chain only fill it; from j0 on, every trip adds h1
+// row j+1 and finishes output row j.
+template <bool Emit>
+__device__ __forceinline__ void fma_segment(const Args& a, Elem* h1, Elem* wst, Elem* xst,
+                                            int n, int res, int j0, int col0) {
+  const int slot_len = (a.TW + 2 * a.d) * a.ldh;
+  for (int j = j0 - 2; j < j0 + a.RS; ++j) {
+    const int r = res + a.d * j;
+    if (j >= j0 && r >= a.H) break;
+    Elem* fill = h1 + ring_slot(j + 1) * slot_len;
+    if (a.kb == 16) {
+      DISPATCH_PX(a.px1, (conv1_row<PX, 16>(a, fill, wst, xst, n, r + a.d, col0)))
+    } else {
+      DISPATCH_PX(a.px1, (conv1_row<PX, 8>(a, fill, wst, xst, n, r + a.d, col0)))
+    }
+    if (j < j0) continue;
+    __syncthreads();
+    if (Emit) store_row<false>(a, h1 + ring_slot(j) * slot_len, a.ldh, a.d, a.h1, n, r, col0);
+    // conv2 of row j is the last reader of h1 row j-1, so h2 goes into that
+    // slot, where it stays until the next trip's conv1 refills it
+    Elem* h2 = h1 + ring_slot(j - 1) * slot_len;
+    if (a.kb == 16) {
+      DISPATCH_PX(a.px2, (conv2_row<PX, 16, Emit>(a, h1, h2, wst, j, n, r, col0)))
+    } else {
+      DISPATCH_PX(a.px2, (conv2_row<PX, 8, Emit>(a, h1, h2, wst, j, n, r, col0)))
+    }
+    __syncthreads();
+    if (a.kb == 16) {
+      DISPATCH_PX(a.px3, (conv3_row<PX, 16>(a, h2, wst, n, r, col0)))
+    } else {
+      DISPATCH_PX(a.px3, (conv3_row<PX, 8>(a, h2, wst, n, r, col0)))
+    }
+  }
+}
+
 // grid: (column strips, N * d * S); block y = ((n * d) + residue) * S + segment.
-// shared: h1 ring (h2 in its oldest slot) | two weight stages | two x stages.
+// shared: h1 ring (FMA: h2 in its oldest slot; tc: tc_segment's window) |
+// two weight stages | two x stages.
 template <bool Emit>
 __global__ void __launch_bounds__(kMaxThreads) fused_bottleneck_kernel(const Args a) {
   extern __shared__ float4 smem4[];
   Elem* h1 = reinterpret_cast<Elem*>(smem4);
-  const int P1 = a.TW + 2 * a.d;
-  const int slot_len = P1 * a.ldh;
-  Elem* wst = h1 + 3 * slot_len;
+  // the FMA route's ring: three slots of P1 pixels, pixel stride ldh; the tc
+  // route's window: one core-matrix plane of ldh pixels a channel block
+  Elem* wst = h1 + (kTensorCores ? a.ldh * a.Cmid : 3 * (a.TW + 2 * a.d) * a.ldh);
   Elem* xst = wst + 2 * a.wstage;  // fma: a.kb + kVec elements a pixel; tc: core matrices
 
   const int col0 = blockIdx.x * a.TW;
@@ -925,41 +1184,10 @@ __global__ void __launch_bounds__(kMaxThreads) fused_bottleneck_kernel(const Arg
   const int n = chain / a.d;
   const int j0 = seg * a.RS;
   if (res + a.d * j0 >= a.H) return;  // the whole block: no row of this segment
-
-  // rows j0-1 and j0 of the chain only fill the ring; from j0 on, every trip
-  // adds h1 row j+1 and finishes output row j
-  for (int j = j0 - 2; j < j0 + a.RS; ++j) {
-    const int r = res + a.d * j;
-    if (j >= j0 && r >= a.H) break;
-    Elem* fill = h1 + ring_slot(j + 1) * slot_len;
-    if constexpr (kTensorCores) {
-      DISPATCH_TC(a.mt1, a.bn1 * 128 / (int)blockDim.x,
-                  (conv1_row_tc<MT, NW>(a, fill, wst, xst, n, r + a.d, col0)))
-    } else if (a.kb == 16) {
-      DISPATCH_PX(a.px1, (conv1_row<PX, 16>(a, fill, wst, xst, n, r + a.d, col0)))
-    } else {
-      DISPATCH_PX(a.px1, (conv1_row<PX, 8>(a, fill, wst, xst, n, r + a.d, col0)))
-    }
-    if (j < j0) continue;
-    __syncthreads();
-    if (Emit) store_h1_row(a, h1 + ring_slot(j) * slot_len, n, r, col0);
-    // conv2 of row j is the last reader of h1 row j-1, so h2 goes into that
-    // slot, where it stays until the next trip's conv1 refills it
-    Elem* h2 = h1 + ring_slot(j - 1) * slot_len;
-    if (a.kb == 16) {
-      DISPATCH_PX(a.px2, (conv2_row<PX, 16, Emit>(a, h1, h2, wst, j, n, r, col0)))
-    } else {
-      DISPATCH_PX(a.px2, (conv2_row<PX, 8, Emit>(a, h1, h2, wst, j, n, r, col0)))
-    }
-    __syncthreads();
-    if constexpr (kTensorCores) {
-      DISPATCH_TC(a.mt3, a.bn3 * 128 / (int)blockDim.x,
-                  (conv3_row_tc<MT, NW>(a, h2, wst, xst, n, r, col0)))
-    } else if (a.kb == 16) {
-      DISPATCH_PX(a.px3, (conv3_row<PX, 16>(a, h2, wst, n, r, col0)))
-    } else {
-      DISPATCH_PX(a.px3, (conv3_row<PX, 8>(a, h2, wst, n, r, col0)))
-    }
+  if constexpr (kTensorCores) {
+    tc_segment<Emit>(a, h1, wst, xst, n, res, j0, col0);
+  } else {
+    fma_segment<Emit>(a, h1, wst, xst, n, res, j0, col0);
   }
 }
 
@@ -982,25 +1210,36 @@ bool plan_ok(const Args& a, int threads) {
   const int P1 = a.TW + 2 * a.d;
   if (threads != 128 && threads != 256) return false;
   if (a.Cmid % 32 || a.Cin % 32 || a.bn3 % 32 || a.Cin % a.bn3) return false;
-  // conv2, on the FMA loop in both routes
-  if (!px_ok(a.px2) || (a.kb != 8 && a.kb != 16) || threads % (a.Cmid / 4) ||
-      a.TW != a.px2 * (threads / (a.Cmid / 8)))
-    return false;
-  if (a.ldh < a.Cmid || a.ldh % kVec || a.wstage < a.kb * a.Cmid) return false;
+  if (a.wstage < a.kb * a.Cmid) return false;
   if constexpr (kTensorCores) {
     const int wgs = threads / 128, nw1 = a.bn1 / wgs, nw3 = a.bn3 / wgs;
+    const int nw2 = a.Cmid / wgs;
     auto tile_ok = [](int mt, int nw) {  // a DISPATCH_TC instance
       return (nw == 64 && (mt == 1 || mt == 2)) || (nw == 128 && mt == 1);
     };
-    return tile_ok(a.mt1, nw1) && tile_ok(a.mt3, nw3) && a.bn1 % wgs == 0 &&
+    // conv2: a DISPATCH_CONV2 instance over the m64 tiles of its two rows
+    // (P1 apart), stages of kb k-rows inside one tap, the window of four
+    // rows in one plane, h2 in it at pixel stride ldh
+    const bool conv2_ok =
+        a.mt2 == (P1 + a.TW + 63) / 64 &&
+        ((nw2 == 64 && (a.mt2 == 1 || a.mt2 == 2 || a.mt2 == 4)) ||
+         (nw2 == 128 && (a.mt2 == 1 || a.mt2 == 2)) || (nw2 == 256 && a.mt2 == 1)) &&
+        a.Cmid % wgs == 0 && a.kb % 16 == 0 && a.kb > 0 && a.Cmid % a.kb == 0 &&
+        kConv2Buffers * a.kb * a.Cmid <= 2 * a.wstage && a.ldh >= 4 * P1 &&
+        a.h2p == a.ldh;
+    return conv2_ok && tile_ok(a.mt1, nw1) && tile_ok(a.mt3, nw3) && a.bn1 % wgs == 0 &&
            a.bn3 % wgs == 0 && a.Cmid % a.bn1 == 0 &&
            a.mt1 == (P1 + 63) / 64 && a.mt3 == (a.TW + 63) / 64 &&
            a.kb1 % 16 == 0 && a.kb1 > 0 && a.Cin % a.kb1 == 0 &&
            a.kb3 % 16 == 0 && a.kb3 > 0 && a.Cmid % a.kb3 == 0 &&
            a.wstage >= a.kb1 * a.bn1 && a.wstage >= a.kb3 * a.bn3 && a.xs_px >= P1 &&
-           a.h2p >= a.TW && a.h2p * a.Cmid <= P1 * a.ldh &&
            wgs * a.TW * kEpiCols <= 2 * a.xs_px * a.kb1;
   } else {
+    // conv2 on the FMA loop
+    if (!px_ok(a.px2) || (a.kb != 8 && a.kb != 16) || threads % (a.Cmid / 4) ||
+        a.TW != a.px2 * (threads / (a.Cmid / 8)))
+      return false;
+    if (a.ldh < a.Cmid || a.ldh % kVec) return false;
     return px_ok(a.px1) && px_ok(a.px3) && threads % (a.bn3 / 4) == 0 &&
            a.TW == a.px3 * (threads / (a.bn3 / 8)) &&
            a.px1 * (threads / (a.Cmid / 8)) >= P1 && a.wstage >= a.kb * a.bn3 &&
@@ -1019,18 +1258,20 @@ bool plan_ok(const Args& a, int threads) {
 #endif
 
 // The tile arguments come from kernels/fused_block.py plan_tiles, which owns
-// their arithmetic (plan_ok lists what the kernel relies on): threads (128
-// or 256) = pixel tiles x Cmid/8; TW = px2 x pixel tiles; ldh >= Cmid, a
-// multiple of 16 bytes; kb (conv2's stages) 8 or 16. The FMA route (fp32):
-// threads = pixel tiles x bn3/8 too, TW = px3 x those tiles, px1 x tiles >=
-// TW + 2d, wstage >= kb * max(Cmid, bn3) elements, xs_px >= TW + 2d, and
-// kb1, kb3, mt1, mt3, h2p, bn1 unused. The tc route (bf16): bn1 (dividing
-// Cmid) and bn3 (dividing Cin) over the warpgroups 128 columns with one m64
-// tile or 64 with one or two, mt1 = ceil((TW + 2d) / 64) and mt3 = ceil(TW /
-// 64), kb1 and kb3 multiples of 16 dividing Cin and Cmid, wstage >= kb1 * bn1
-// and kb3 * bn3,
-// xs_px >= TW + 2d, TW <= h2p with h2p * Cmid <= (TW + 2d) * ldh (h2 fits
-// its ring slot); px1, px3 unused.
+// their arithmetic (plan_ok lists what the kernel relies on): threads 128 or
+// 256. The FMA route (fp32): threads = pixel tiles x Cmid/8 = pixel tiles x
+// bn3/8, TW = px2 x tiles = px3 x tiles, px1 x tiles >= TW + 2d, ldh >= Cmid
+// a multiple of 16 bytes, kb (every stage) 8 or 16, wstage >= kb * max(Cmid,
+// bn3) elements, xs_px >= TW + 2d, and kb1, kb3, mt1, mt3, h2p, bn1, mt2
+// unused. The tc route (bf16): bn1 (dividing Cmid) and bn3 (dividing Cin)
+// over the warpgroups 128 columns with one m64 tile or 64 with one or two,
+// mt1 = ceil((TW + 2d) / 64) and mt3 = ceil(TW / 64), kb1 and kb3 multiples
+// of 16 dividing Cin and Cmid, wstage >= kb1 * bn1 and kb3 * bn3, xs_px >=
+// TW + 2d; conv2 over two output rows a pass, mt2 = ceil((2 TW + 2d) / 64)
+// tiles of Cmid / warpgroups columns (a DISPATCH_CONV2 instance), kb (its
+// stages) a multiple of 16 dividing Cmid with kConv2Buffers * kb * Cmid <= 2
+// wstage, ldh >= 4 (TW + 2d) the window plane's pixel stride, h2p = ldh;
+// px1, px2, px3 unused.
 // x, the weights, out, h1 and h2 are Elem; the six BN vectors fp32.
 // h1, h2: both null (eval) or both (N, H, W, Cmid) outputs (training).
 // valid: null, or N x 2 ints on the device, each image's valid rows in
@@ -1043,7 +1284,8 @@ extern "C" int MSL_FUSED_BOTTLENECK(
     const void* valid, int N,
     int H, int W, int Cin, int Cmid, int d, int TW, int RS, int S, int threads,
     int smem_bytes, int bn3, int px1, int px2, int px3, int ldh, int wstage,
-    int xs_px, int kb, int kb1, int kb3, int mt1, int mt3, int h2p, int bn1, void* stream) {
+    int xs_px, int kb, int kb1, int kb3, int mt1, int mt3, int h2p, int bn1, int mt2,
+    void* stream) {
   Args a;
   a.x = static_cast<const Elem*>(x);
   a.w1 = static_cast<const Elem*>(w1);
@@ -1084,6 +1326,7 @@ extern "C" int MSL_FUSED_BOTTLENECK(
   a.mt3 = mt3;
   a.h2p = h2p;
   a.bn1 = bn1;
+  a.mt2 = mt2;
   if (!plan_ok(a, threads)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(h1 != nullptr ? launch<true>(a, threads, smem_bytes, s)

@@ -20,12 +20,12 @@ built with ``-DMSL_BF16``); any other type raises, naming it. In bf16 the
 kernel and the plain version round where the Pallas body casts to the
 compute dtype: each conv's fp32 sum, the BN's product and sum (the BN
 vectors cast to bf16, as its ``_prep`` casts them), the residual add. The
-bf16 instance runs conv1 and conv3 on the tensor cores (``wgmma``, the "tc"
-route of ``plan_tiles``) and conv2 on the FMA loop; the fp32 instance runs
-all three on the FMA loop. ``x_stage_offset``, ``w_stage_offset``,
-``h2_offset``, ``epilogue_offset``, ``fragment_rows_cols`` and
-``descriptor_read`` restate the tc route's shared-memory maps for the CPU
-tests.
+bf16 instance runs all three convs on the tensor cores (``wgmma``, the "tc"
+route of ``plan_tiles``; conv2 as nine shifted products from the h1 ring);
+the fp32 instance runs all three on the FMA loop. ``x_stage_offset``,
+``w_stage_offset``, ``h1_offset``, ``h2_offset``, ``conv2_a_start``,
+``epilogue_offset``, ``fragment_rows_cols`` and ``descriptor_read`` restate
+the tc route's shared-memory maps for the CPU tests.
 
 - ``fused_bottleneck``: out only (eval, no grad), through the custom op
   ``torch.ops.msl.fused_bottleneck`` (``torch.library``): its CUDA
@@ -73,7 +73,7 @@ INSTANCES = {
     torch.float32: ((), "msl_fused_bottleneck_f32"),
     torch.bfloat16: (("-DMSL_BF16",), "msl_fused_bottleneck_bf16"),
 }
-# the tc route (the bf16 instance): conv1 and conv3 on wgmma
+# the tc route (the bf16 instance): all three convs on wgmma
 WGMMA_M = 64            # pixels (rows) of one wgmma tile
 WGMMA_K = 16            # k of one bf16 wgmma
 WG_THREADS = 128        # threads of a warpgroup
@@ -82,13 +82,25 @@ WGMMA_WIDTHS = (128, 64)  # columns of one warpgroup's wgmma (its NW)
 # loop's registers, ptxas on sm_90a, PERF.md)
 MAX_ACC_COLS = 128
 TC_MAX_TILES = 2        # m64 tiles a warpgroup holds at once (MT)
+# conv2's instances (MT, NW): one pass over all Cmid columns, NW = Cmid /
+# warpgroups, over MT m64 tiles of its rows; up to 128 accumulators a thread
+# (layer4's 256 columns, layer3's 128 over two tiles), which fit with no FMA
+# loop in the bf16 build (DISPATCH_CONV2 in the .cu)
+CONV2_TILES = ((1, 64), (2, 64), (4, 64), (1, 128), (2, 128), (1, 256))
+# output rows a conv2 pass takes: w2 streams from L2 once a pass, and the
+# pass is bound by that stream (PERF.md)
+CONV2_ROWS = 2
+# conv2's ring of w2 stages: the two weight buffers of conv1 and conv3 cut
+# into this many (kConv2Buffers), three stages in flight while one is multiplied
+CONV2_BUFFERS = 4
 TC_STAGE_ROWS = (64, 32, 16)  # k rows of a conv1 / conv3 stage, deepest that fits
 CORE = 8                # a core matrix: 8 rows x 8 bf16 (16 bytes)
 EPI_COLS = 64           # conv3's epilogue: columns a warpgroup stages at a time (kEpiCols)
-# plan_tiles' cost of a tc tile: conv2's FMA work on TW pixels plus conv1's
-# and conv3's work on their m64 tiles' rows at TC_OVER_FMA times the FMA
-# loop's rate, about 4 on an H100 at layer3's widths (PERF.md); every R101
-# shape takes the same TW at any weight from 3 to 12
+# plan_tiles' cost of a tc tile, set when conv2 ran on the FMA loop and kept
+# so that conv2's route is compared at the same tiles: conv2's work on TW
+# pixels plus conv1's and conv3's work on their m64 tiles' rows at
+# TC_OVER_FMA times conv2's rate, about 4 on an H100 at layer3's widths
+# (PERF.md); every R101 shape takes the same TW at any weight from 3 to 12
 TC_OVER_FMA = 4
 SMEM_BLOCK_MAX = 232448  # bytes of shared memory one block may use on sm_90
 SMEM_SM = 233472         # bytes of shared memory per SM on sm_90
@@ -142,48 +154,59 @@ class TilePlan(NamedTuple):
     threads: int  # threads per block
     smem: int     # bytes of dynamic shared memory, stages included
     bn3: int      # conv3's output columns per pass over h2
-    px1: int      # pixels per thread tile in conv1, conv2, conv3 (fma; tc: px2)
+    px1: int      # pixels per thread tile in conv1, conv2, conv3 (fma; tc: 0)
     px2: int
     px3: int
-    ldh: int      # elements between two pixels of h1 (and fma h2) in shared memory
+    ldh: int      # h1's pixel stride in shared memory (fma: elements between two
+                  # pixels, h2's too; tc: of the core-matrix layout, h1_offset)
     wstage: int   # elements of one weight stage buffer
     xs_px: int    # pixels of one x stage buffer (tc: its core-matrix pixel stride)
-    kb: int       # k rows per weight stage, channels per x stage (tc: conv2's)
+    kb: int       # k rows per weight stage, channels per x stage (tc: conv2's stage)
     kb1: int = 0  # tc: k rows of a conv1 stage and of a conv3 stage
     kb3: int = 0
-    mt1: int = 0  # tc: m64 tiles of conv1 (tw + 2d pixels) and of conv3 (tw)
+    mt1: int = 0  # tc: m64 tiles of conv1 (tw + 2d pixels) and of conv2 and conv3 (tw)
     mt3: int = 0
     h2p: int = 0  # tc: pixel stride of h2's core-matrix layout
     bn1: int = 0  # tc: conv1's output columns per pass over x
-    route: str = "fma"  # conv1's and conv3's: "fma" (CUDA cores) or "tc" (wgmma)
+    mt2: int = 0  # tc: m64 tiles of a conv2 pass (CONV2_ROWS rows, tw + 2d apart)
+    route: str = "fma"  # every conv's: "fma" (CUDA cores) or "tc" (wgmma)
 
     def launch_args(self) -> tuple[int, ...]:
         """The tile arguments of the launch function, in its order (on the
         fma route kb1 = kb3 = kb)."""
         kb13 = (self.kb1, self.kb3) if self.route == "tc" else (self.kb, self.kb)
-        return (*self[:13], *kb13, self.mt1, self.mt3, self.h2p, self.bn1)
+        return (*self[:13], *kb13, self.mt1, self.mt3, self.h2p, self.bn1, self.mt2)
 
     def conv_routes(self) -> dict[str, str]:
         """What runs each conv: "wgmma" (tensor cores) or "fma" (the FMA
         loop on the CUDA cores)."""
-        outer = "wgmma" if self.route == "tc" else "fma"
-        return {"conv1": outer, "conv2": "fma", "conv3": outer}
+        route = "wgmma" if self.route == "tc" else "fma"
+        return {"conv1": route, "conv2": route, "conv3": route}
+
+    def conv2_tile(self, cmid: int) -> dict[str, int]:
+        """tc: conv2's wgmma tile: the output rows of a pass, its m64 tiles
+        over them, the columns a warpgroup takes (NW, all Cmid in one pass),
+        the k rows of a w2 stage and the stages of its 9 Cmid k-rows."""
+        if self.route != "tc":
+            return {}
+        return {"rows": CONV2_ROWS, "mt": self.mt2, "nw": cmid * WG_THREADS // self.threads,
+                "kb": self.kb, "stages": 9 * cmid // self.kb}
 
     def flop_per_l2_weight_byte(self, itemsize: int = 4) -> float:
         """A block reads every weight once from L2 per output row of tw
-        pixels: 2 FLOP per weight and pixel over ``itemsize`` bytes per
-        weight."""
+        pixels (w2, on the tc route, once per CONV2_ROWS rows): 2 FLOP per
+        weight and pixel over ``itemsize`` bytes per weight."""
         return 2.0 * self.tw / itemsize
 
     def busy_threads(self, cmid: int, d: int) -> dict[str, int]:
         """Threads that own pixels in each conv (of ``threads``): a conv's
         threads are pixel tiles x channel groups of 8, and every tile that
         starts inside the conv's pixel row has work; on the tc route every
-        warpgroup takes part in each wgmma of conv1 and conv3."""
+        warpgroup takes part in each wgmma of every conv."""
+        if self.route == "tc":
+            return dict.fromkeys(("conv1", "conv2", "conv3"), self.threads)
         tiles12 = self.threads // (cmid // TILE_CHANNELS)
         conv2 = min(tiles12, math.ceil(self.tw / self.px2)) * (self.threads // tiles12)
-        if self.route == "tc":
-            return {"conv1": self.threads, "conv2": conv2, "conv3": self.threads}
         tiles3 = self.threads // (self.bn3 // TILE_CHANNELS)
         return {
             "conv1": min(tiles12, math.ceil((self.tw + 2 * d) / self.px1)) * (self.threads // tiles12),
@@ -192,11 +215,12 @@ class TilePlan(NamedTuple):
         }
 
     def m_rows_used(self, d: int) -> dict[str, float]:
-        """tc: the share of the m64 tiles' rows that are pixels of conv1's
-        and conv3's rows (the rest are computed and dropped)."""
+        """tc: the share of the m64 tiles' rows that are pixels of each
+        conv's row (the rest are computed and dropped)."""
         if self.route != "tc":
             return {}
         return {"conv1": (self.tw + 2 * d) / (WGMMA_M * self.mt1),
+                "conv2": CONV2_ROWS * self.tw / (WGMMA_M * self.mt2),
                 "conv3": self.tw / (WGMMA_M * self.mt3)}
 
 
@@ -248,9 +272,28 @@ def x_stage_offset(pix, ch, xs_px: int):
     return CORE * (xs_px * (ch // CORE) + pix) + ch % CORE
 
 
+def h1_offset(pix, ch, ldh: int):
+    """tc: the element of the h1 window's plane (ldh x Cmid elements) that
+    holds channel ``ch`` of plane pixel ``pix`` (pixel p of the row at
+    window position k, of CONV2_ROWS + 2, is k (tw + 2d) + p): the x
+    stage's layout with pixel stride ldh, which conv1's epilogue writes,
+    conv2's A descriptors read (lbo = 16 ldh bytes, sbo = 128) and conv2's
+    epilogue overwrites with h2 (h2_offset with h2p = ldh)."""
+    return x_stage_offset(pix, ch, ldh)
+
+
+def conv2_a_start(kc, s, t, ra, cb, d: int, p1: int, ldh: int) -> int:
+    """tc: the element of conv2's A operand for k16 step ``s`` of a stage
+    that starts at channel ``kc`` of tap (ra, cb), m64 tile ``t``: row m of
+    the tile is plane pixel ra p1 + cb d + 64 t + m (the window position
+    of the pass's first row's tap row, shifted by cb d), channel block
+    kc/8 + 2 s; rows p1 further are the pass's second output row."""
+    return h1_offset(ra * p1 + cb * d + WGMMA_M * t, kc + WGMMA_K * s, ldh)
+
+
 def h2_offset(pix, ch, h2p: int):
-    """tc: the element of h2's ring slot that holds channel ``ch`` of pixel
-    ``pix`` (the x stage's layout with pixel stride h2p)."""
+    """tc: the element of h2's window position that holds channel ``ch`` of
+    pixel ``pix`` (the x stage's layout with pixel stride h2p)."""
     return x_stage_offset(pix, ch, h2p)
 
 
@@ -313,19 +356,24 @@ def _tc_width(mt: int, n: int, wgs: int):
 
 
 def _tc_layout(tw: int, cin: int, cmid: int, d: int, rows: int):
-    """tc: (bn3, px2, ldh, wstage, xs_px, kb, kb1, kb3, mt1, mt3, h2p, bn1,
-    smem) for tw output columns a block and conv1/conv3 stages of ``rows``
-    k-rows, or None where the mapping does not exist. conv2 keeps the FMA
-    loop's pixel tiles (tw = pixel tiles x px2, px2 <= 8) and stages of 16
-    rows; conv1 runs over mt1 m64 tiles of the tw + 2d pixels, conv3 over
-    mt3 tiles of tw, each in passes of bn1 / bn3 = warpgroups x the widest
-    width that keeps 64 accumulators a thread. h1's pixel stride is padded
-    by 16 bytes (bank-free 4-byte epilogue stores), the x stages' and h2's
-    pixel strides are odd (bank-free stores into the core-matrix layout).
-    Shared memory: the h1 ring, two weight stages, two x stages, and the
-    rows past tw + 2d that conv1's last m64 tile reads behind the second x
-    stage; conv3's epilogue stages its tiles (each warpgroup's tw x
-    EPI_COLS) in the x stages."""
+    """tc: (bn3, ldh, wstage, xs_px, kb, kb1, kb3, mt1, mt3, h2p, bn1, mt2,
+    smem) for tw output columns a block (one of ``tc_tws``) and conv1/conv3
+    stages of ``rows`` k-rows, or None where the mapping does not exist.
+    conv1 runs over mt1 m64 tiles of the tw + 2d pixels, conv3 over mt3
+    tiles of tw, each in passes of bn1 / bn3 = warpgroups x the widest width
+    that keeps 64 accumulators a thread; conv2 over mt2 tiles of its
+    CONV2_ROWS rows, tw + 2d apart, in one pass over all Cmid (one of
+    CONV2_TILES), in stages of kb k-rows, the deepest of TC_STAGE_ROWS of
+    which CONV2_BUFFERS fit the two weight buffers of conv1 and conv3. The
+    h1 window (CONV2_ROWS + 2 rows of tw + 2d pixels in one plane, h2 in
+    its first CONV2_ROWS positions) and the x stages are in the k-major
+    core-matrix layout with odd pixel strides (ldh = h2p, xs_px: bank-free
+    16-byte reads of one pixel's channel blocks). Shared memory: the plane
+    (ldh x Cmid), two weight stages, two x stages, and the rows past tw + 2d
+    that conv1's last m64 tile reads behind the second x stage; conv3's
+    epilogue stages its tiles (each warpgroup's tw x EPI_COLS) in the x
+    stages, and the rows of conv2's and conv3's tiles past their pixels read
+    no further than the stages."""
     threads = block_threads(cmid)
     wgs = threads // WG_THREADS
     tiles = threads * TILE_CHANNELS // cmid
@@ -333,19 +381,24 @@ def _tc_layout(tw: int, cin: int, cmid: int, d: int, rows: int):
         return None
     p1 = tw + 2 * d
     mt1, mt3 = math.ceil(p1 / WGMMA_M), math.ceil(tw / WGMMA_M)
+    mt2 = math.ceil(((CONV2_ROWS - 1) * p1 + tw) / WGMMA_M)
     nw1, nw3 = _tc_width(mt1, cmid, wgs), _tc_width(mt3, cin, wgs)
-    if nw1 is None or nw3 is None or max(mt1, mt3) > TC_MAX_TILES:
+    if (nw1 is None or nw3 is None or max(mt1, mt3) > TC_MAX_TILES
+            or (mt2, cmid // wgs) not in CONV2_TILES):
         return None
     bn1, bn3 = wgs * nw1, wgs * nw3
-    kb, kb1, kb3 = K_STAGES[0], rows, min(rows, cmid)
-    ldh = cmid + PAD_BYTES // 2
-    xs_px, h2p = p1 | 1, tw | 1
+    kb1, kb3 = rows, min(rows, cmid)
+    xs_px = p1 | 1
+    ldh = h2p = ((CONV2_ROWS + 2) * p1) | 1
     if wgs * tw * EPI_COLS > 2 * xs_px * kb1:
         return None
-    wstage = max(kb1 * bn1, kb3 * bn3, kb * cmid)
+    wstage = max(kb1 * bn1, kb3 * bn3)
+    kb = next((r for r in TC_STAGE_ROWS if CONV2_BUFFERS * r * cmid <= 2 * wstage),
+              TC_STAGE_ROWS[-1])
+    wstage = max(wstage, CONV2_BUFFERS * kb * cmid // 2)
     overread = CORE * max(0, WGMMA_M * mt1 - xs_px)
-    smem = 2 * (3 * p1 * ldh + 2 * wstage + 2 * xs_px * kb1 + overread)
-    return (bn3, tw // tiles, ldh, wstage, xs_px, kb, kb1, kb3, mt1, mt3, h2p, bn1, smem)
+    smem = 2 * (ldh * cmid + 2 * wstage + 2 * xs_px * kb1 + overread)
+    return (bn3, ldh, wstage, xs_px, kb, kb1, kb3, mt1, mt3, h2p, bn1, mt2, smem)
 
 
 def _tc_fit(tw: int, cin: int, cmid: int, d: int):
@@ -358,23 +411,25 @@ def _tc_fit(tw: int, cin: int, cmid: int, d: int):
 
 
 def tc_tws(cmid: int) -> range:
-    """tc: the TWs conv2's FMA loop allows, multiples of its pixel tiles with
-    at most 8 pixels a tile."""
+    """tc: the candidate TWs, multiples of the block's pixel tiles T =
+    threads * 8 / Cmid up to 8 T (the FMA loop's conv2 allowed these; the
+    planner kept them when conv2 moved to wgmma)."""
     tiles = block_threads(cmid) * TILE_CHANNELS // cmid
     return range(tiles, MAX_PIXEL_TILE * tiles + 1, tiles)
 
 
 def _tc_tw(w: int, cin: int, cmid: int, d: int) -> int:
     """tc: TW, the one of ``tc_tws`` with a layout that fits and the least
-    cost over the width: strips x (conv2's FMA work on tw pixels + conv1's
-    and conv3's work on their m64 tiles' rows over TC_OVER_FMA), so the m64
-    tiles waste little; ties go to the wider strip."""
+    cost over the width: strips x (conv2's work on tw pixels + conv1's and
+    conv3's work on their m64 tiles' rows over TC_OVER_FMA), so the m64
+    tiles waste little; ties go to the wider strip. The cost was set when
+    conv2 ran on the FMA loop; it gives conv2 on wgmma the same tiles."""
     best = None
     for tw in tc_tws(cmid):
         layout = _tc_fit(tw, cin, cmid, d)
         if layout is None:
             continue
-        mt1, mt3 = layout[8], layout[9]
+        mt1, mt3 = layout[7], layout[8]
         cost = math.ceil(w / tw) * (9 * cmid * cmid * tw + cin * cmid * WGMMA_M * (mt1 + mt3)
                                     / TC_OVER_FMA)
         if best is None or cost <= best[0]:
@@ -412,11 +467,11 @@ def tc_plan_at(tw: int, n: int, h: int, w: int, cin: int, cmid: int, d: int,
     layout = _tc_fit(tw, cin, cmid, d)
     if layout is None:
         return None
-    bn3, px2, ldh, wstage, xs_px, kb, kb1, kb3, mt1, mt3, h2p, bn1, smem = layout
+    bn3, ldh, wstage, xs_px, kb, kb1, kb3, mt1, mt3, h2p, bn1, mt2, smem = layout
     threads = block_threads(cmid)
     rs, s = _segments(n, h, d, math.ceil(w / tw), threads, smem, sm_count)
-    return TilePlan(tw, rs, s, threads, smem, bn3, px2, px2, px2, ldh, wstage, xs_px, kb,
-                    kb1, kb3, mt1, mt3, h2p, bn1, "tc")
+    return TilePlan(tw, rs, s, threads, smem, bn3, 0, 0, 0, ldh, wstage, xs_px, kb, kb1, kb3,
+                    mt1, mt3, h2p, bn1, mt2, "tc")
 
 
 def plan_tiles(n: int, h: int, w: int, cin: int, cmid: int, d: int, sm_count: int,
@@ -439,11 +494,15 @@ def plan_tiles(n: int, h: int, w: int, cin: int, cmid: int, d: int, sm_count: in
     recompute (2 extra h1 rows per segment) against filling the SMs: it
     minimises waves * (RS + 0.5).
 
-    bf16 takes the tc route (``_tc_tw``, ``tc_plan_at``): conv1 and conv3
-    on wgmma, whose m64 tiles, not conv1's pixel tiles, bound TW; conv2
-    keeps the FMA loop's pixel tiles (TW up to 8 x its tiles) and stages of
-    16 rows, conv1 and conv3 stream stages of up to 64 k-rows. R101 at 1024x512:
-    layer1 TW 96, layer2 48, layer3 48, layer4 28.
+    bf16 takes the tc route (``_tc_tw``, ``tc_plan_at``): every conv on
+    wgmma, whose m64 tiles, not conv1's pixel tiles, bound TW (candidates up
+    to 8 x the block's pixel tiles); conv1 and conv3 stream stages of up to
+    64 k-rows, conv2 runs nine shifted products from the h1 window in one pass
+    over all Cmid (``CONV2_TILES``; 128 accumulators a thread at layer4),
+    two output rows a pass (CONV2_ROWS), in a ring of CONV2_BUFFERS stages
+    of 16 (layer4), 32 or 64 k-rows. R101 at 1024x512: layer1 TW 96,
+    layer2 48, layer3 48, layer4 28. The route is the build's (bf16), the
+    tile the shape's: no flag selects either.
     """
     threads = block_threads(cmid)
     if cmid not in (64, 128, 256, 512) or cin % 64:
@@ -482,7 +541,7 @@ def _library(dtype: torch.dtype = torch.float32) -> ctypes.CDLL:
     defines, fn = INSTANCES[dtype]
     lib = load(SOURCE, defines)
     p, i = ctypes.c_void_p, ctypes.c_int
-    getattr(lib, fn).argtypes = [p] * 14 + [i] * 25 + [p]
+    getattr(lib, fn).argtypes = [p] * 14 + [i] * 26 + [p]
     getattr(lib, fn).restype = i
     return lib
 
@@ -538,7 +597,8 @@ def _check(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation, valid=None):
 
 
 def _launch(args, dilation: int, emit: bool, valid=None):
-    """One kernel launch on CUDA tensors: out, and h1/h2 with ``emit``."""
+    """One kernel launch on CUDA tensors: ((out, and h1/h2 with ``emit``),
+    the launch's plan)."""
     x, w1 = args[0], args[1]
     n, cin, h, w = x.shape
     cmid = w1.shape[-1]
@@ -562,7 +622,7 @@ def _launch(args, dilation: int, emit: bool, valid=None):
             n, h, w, cin, cmid, dilation, *plan.launch_args(), stream,
         )
     raise_on_error(err, lib, "fused bottleneck")
-    return (out, *hs)
+    return (out, *hs), plan
 
 
 def fused_bottleneck_emit(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation: int,
@@ -571,23 +631,26 @@ def fused_bottleneck_emit(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation: int,
     h1 = relu(bn1(conv1 x)) (masked by ``valid``) and h2 = relu(bn2(conv2
     h1)), each (N, Cmid, H, W) channels_last; arguments as
     ``fused_bottleneck``. ``masked_launches`` counts the launches with
-    ``valid``, ``bf16_launches`` those of the bf16 instance."""
+    ``valid``, ``bf16_launches`` those of the bf16 instance, and
+    ``conv2_tc_launches`` those whose plan put conv2 on wgmma."""
     args = (x, w1, w2, w3, s1, b1, s2, b2, s3, b3)
     _check(*args, dilation, valid)
     if x.device.type == "cpu":
         return fused_bottleneck_emit_reference(*args, dilation, valid)
     if x.device.type != "cuda":
         raise ValueError(f"fused bottleneck: no kernel for device {x.device}")
-    outs = _launch(args, dilation, emit=True, valid=valid)
+    outs, plan = _launch(args, dilation, emit=True, valid=valid)
     fused_bottleneck_emit.launches += 1
     fused_bottleneck_emit.masked_launches += valid is not None
     fused_bottleneck_emit.bf16_launches += x.dtype == torch.bfloat16
+    fused_bottleneck_emit.conv2_tc_launches += plan.conv_routes()["conv2"] == "wgmma"
     return outs
 
 
 fused_bottleneck_emit.launches = 0
 fused_bottleneck_emit.masked_launches = 0
 fused_bottleneck_emit.bf16_launches = 0
+fused_bottleneck_emit.conv2_tc_launches = 0
 
 
 def bottleneck_backward(dy, x, h1, h2, out, w1, w2, w3, s1, s2, s3, dilation: int):
@@ -677,10 +740,11 @@ def _fused_bottleneck_cpu(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation, valid
 def _fused_bottleneck_cuda(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation, valid=None):
     args = (x, w1, w2, w3, s1, b1, s2, b2, s3, b3)
     _check(*args, dilation, valid)
-    (out,) = _launch(args, dilation, emit=False, valid=valid)
+    (out,), plan = _launch(args, dilation, emit=False, valid=valid)
     fused_bottleneck.launches += 1
     fused_bottleneck.masked_launches += valid is not None
     fused_bottleneck.bf16_launches += x.dtype == torch.bfloat16
+    fused_bottleneck.conv2_tc_launches += plan.conv_routes()["conv2"] == "wgmma"
     return out
 
 
@@ -702,7 +766,8 @@ def fused_bottleneck(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation: int, valid
       dilation: conv2's dilation (and zero padding).
       valid: None, or (N, 2) int32 valid (rows, columns) of each image on a
         canvas: h1 is zero past them before conv2 (``masked_launches``
-        counts these launches; ``bf16_launches`` counts the bf16 instance's).
+        counts these launches; ``bf16_launches`` counts the bf16 instance's,
+        ``conv2_tc_launches`` those whose plan put conv2 on wgmma).
     Returns:
       (N, Cin, H, W) in x's dtype, channels_last. ``launches`` counts the
       kernel's launches, from a live graph or an exported program alike.
@@ -713,3 +778,4 @@ def fused_bottleneck(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, dilation: int, valid
 fused_bottleneck.launches = 0
 fused_bottleneck.masked_launches = 0
 fused_bottleneck.bf16_launches = 0
+fused_bottleneck.conv2_tc_launches = 0

@@ -16,6 +16,7 @@ from experiments.retired_pallas.fused_block import fused_bottleneck as pallas_fu
 from maxsquareloss_tpu.models.deeplabv2 import _bottleneck
 from maxsquareloss_torch.kernels import fused_block
 from maxsquareloss_torch.kernels.fused_block import fused_bottleneck, plan_tiles
+from maxsquareloss_torch.models.deeplabv2 import _valid_sizes
 
 CASES = [
     (2, 13, 17, 64, 16, 2),   # H % TH != 0, odd W
@@ -116,13 +117,14 @@ PLAN_SHAPES = [
 
 
 def _assert_tc_plan(plan, n, h, w, cin, cmid, d):
-    """A bf16 (tc route) plan: conv1 and conv3 on wgmma m64 tiles of whole
-    warpgroups, conv2 on the FMA loop's pixel tiles, everything in 232,448 B
-    with stages deeper than the FMA loop's 16 rows."""
+    """A bf16 (tc route) plan: every conv on wgmma m64 tiles of whole
+    warpgroups, conv2 in one pass over all Cmid from the h1 ring in the
+    core-matrix layout, everything in 232,448 B with stages deeper than the
+    FMA loop's 16 rows."""
     tw, rs, segs, threads, smem = plan[:5]
     p1 = tw + 2 * d
     assert plan.route == "tc"
-    assert plan.conv_routes() == {"conv1": "wgmma", "conv2": "fma", "conv3": "wgmma"}
+    assert plan.conv_routes() == {"conv1": "wgmma", "conv2": "wgmma", "conv3": "wgmma"}
     # whole warpgroups; each takes a pass of bn1 (conv1) or bn3 (conv3)
     # columns over their count
     assert threads == fused_block.block_threads(cmid) and threads % fused_block.WG_THREADS == 0
@@ -139,33 +141,52 @@ def _assert_tc_plan(plan, n, h, w, cin, cmid, d):
     assert plan.kb1 in fused_block.TC_STAGE_ROWS and plan.kb1 > fused_block.K_STAGES[0]
     assert plan.kb3 in fused_block.TC_STAGE_ROWS and plan.kb3 > fused_block.K_STAGES[0]
     assert cin % plan.kb1 == 0 and cmid % plan.kb3 == 0
-    assert plan.wstage == max(plan.kb1 * plan.bn1, plan.kb3 * plan.bn3, plan.kb * cmid)
-    # shared memory: the ring, two weight stages, two x stages and the rows
-    # conv1's last m64 tile reads past the second x stage
+    assert plan.wstage == max(plan.kb1 * plan.bn1, plan.kb3 * plan.bn3,
+                              fused_block.CONV2_BUFFERS * plan.kb * cmid // 2)
+    # shared memory: the h1 window's plane (ldh x Cmid), two weight stages,
+    # two x stages and the rows conv1's last m64 tile reads past the second
+    # x stage
     overread = fused_block.CORE * max(0, m * plan.mt1 - plan.xs_px)
-    assert smem == 2 * (3 * p1 * plan.ldh + 2 * plan.wstage + 2 * plan.xs_px * plan.kb1
+    assert smem == 2 * (plan.ldh * cmid + 2 * plan.wstage + 2 * plan.xs_px * plan.kb1
                         + overread) <= fused_block.SMEM_BLOCK_MAX
-    assert plan.ldh == cmid + 8 and plan.xs_px >= p1 and plan.xs_px % 2 == 1
-    # the compact h2 tile fits the ring slot it shares with h1, and conv3's
-    # tiles read no further than the block's shared memory from the last slot
-    assert tw <= plan.h2p and plan.h2p % 2 == 1 and plan.h2p * cmid <= p1 * plan.ldh
-    last = 2 * p1 * plan.ldh + fused_block.CORE * (plan.h2p * (cmid // 8 - 1) + m * plan.mt3)
+    assert plan.xs_px == p1 | 1
+    # the window holds CONV2_ROWS + 2 rows of P1 pixels in one plane of odd
+    # stride, h2 takes its first CONV2_ROWS positions at the same stride, and
+    # conv3's tiles (from the pass's last row) read no further than shared
+    # memory
+    r2 = fused_block.CONV2_ROWS
+    assert plan.ldh == plan.h2p == ((r2 + 2) * p1) | 1
+    last = fused_block.CORE * (plan.h2p * (cmid // 8 - 1) + (r2 - 1) * p1 + m * plan.mt3)
     assert 2 * last <= smem
     # conv3's epilogue tiles (tw x EPI_COLS a warpgroup) lie in the x stages
     assert wgs * tw * fused_block.EPI_COLS <= 2 * plan.xs_px * plan.kb1
     assert nw3 % fused_block.EPI_COLS == 0
-    # conv2's FMA mapping holds: TW = pixel tiles x px2, every thread a tile
-    tiles = threads * fused_block.TILE_CHANNELS // cmid
-    assert tw == tiles * plan.px2 and plan.px2 <= fused_block.MAX_PIXEL_TILE
-    assert plan.kb in fused_block.K_STAGES and threads % (cmid // 4) == 0
+    # conv2 on wgmma: one pass over all Cmid (one of the kernel's instances)
+    # over conv3's m64 tiles, a ring of stages of kb k-rows inside one tap
+    # that the two weight buffers of conv1 and conv3 already hold
+    tile = plan.conv2_tile(cmid)
+    assert (tile["mt"], tile["nw"]) in fused_block.CONV2_TILES and tile["rows"] == r2 == 2
+    assert m * (tile["mt"] - 1) < (r2 - 1) * p1 + tw <= m * tile["mt"]
+    assert wgs * tile["nw"] == cmid and tile["mt"] * tile["nw"] // 2 <= 128
+    assert plan.kb in fused_block.TC_STAGE_ROWS and cmid % plan.kb == 0
+    assert (fused_block.CONV2_BUFFERS * plan.kb * cmid
+            <= 2 * max(plan.kb1 * plan.bn1, plan.kb3 * plan.bn3))
+    assert tile["stages"] * plan.kb == 9 * cmid
+    # its A reads (the last tap, the last channel block, every row of the
+    # m64 tiles) stay in shared memory
+    a_last = fused_block.conv2_a_start(cmid - fused_block.WGMMA_K, 0, tile["mt"] - 1, 2, 2, d,
+                                       p1, plan.ldh)
+    assert 2 * (a_last + fused_block.CORE * (plan.ldh + m)) <= smem
+    assert plan.px1 == plan.px2 == plan.px3 == 0  # no FMA pixel tiles on the tc route
     assert plan.busy_threads(cmid, d) == {"conv1": threads, "conv2": threads, "conv3": threads}
     # the strips cover the width, the segments cover every chain of rows
     assert -(-w // tw) * tw >= w and (-(-w // tw) - 1) * tw < w
     assert rs * segs >= -(-h // d)
     assert plan.flop_per_l2_weight_byte(2) == tw
-    assert len(plan.launch_args()) == 19  # with N, H, W, Cin, Cmid, d: the ABI's 25 ints
+    assert len(plan.launch_args()) == 20  # with N, H, W, Cin, Cmid, d: the ABI's 26 ints
     used = plan.m_rows_used(d)
-    assert used == {"conv1": p1 / (m * plan.mt1), "conv3": tw / (m * plan.mt3)}
+    assert used == {"conv1": p1 / (m * plan.mt1), "conv2": r2 * tw / (m * plan.mt2),
+                    "conv3": tw / (m * plan.mt3)}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -273,7 +294,7 @@ def test_tc_stage_maps_are_bijections(n, h, w, cmid, d):
     pix, ch = torch.meshgrid(torch.arange(plan.h2p), torch.arange(cmid), indexing="ij")
     ho = fused_block.h2_offset(pix, ch, plan.h2p).flatten()
     assert torch.equal(ho.sort().values, torch.arange(plan.h2p * cmid))
-    assert plan.h2p * cmid <= (plan.tw + 2 * d) * plan.ldh
+    assert plan.h2p == plan.ldh
 
 
 @pytest.mark.parametrize("n,h,w,cmid,d", TC_SHAPES)
@@ -397,8 +418,10 @@ def test_tc_emulation_equals_the_product(n, h, w, cmid, d, conv):
                               lambda i, s, t: 8 * (2 * s * plan.xs_px + m * t), wgs, nw)
             assert torch.equal(got[:rows], a @ wt[:, n0:n0 + bn])
         return
-    # conv3: h2 whole in the last ring slot, then the rest of shared memory
-    buf = torch.full((plan.smem // 2 - 2 * p1 * plan.ldh,), float("nan"))
+    # conv3: h2 whole at the window position of a pass's last row, then the
+    # rest of the plane and of shared memory
+    start = fused_block.CORE * (ROWS - 1) * p1
+    buf = torch.full((plan.smem // 2 - start,), float("nan"))
     ch = torch.arange(cmid)[None, :]
     buf[fused_block.h2_offset(pix, ch, plan.h2p)] = a
     for n0 in range(0, n_out, bn):
@@ -406,6 +429,154 @@ def test_tc_emulation_equals_the_product(n, h, w, cmid, d, conv):
                           lambda i, s, t: 8 * (plan.h2p * (i * kb // 8 + 2 * s) + m * t), wgs,
                           nw)
         assert torch.equal(got[:rows], a @ wt[:, n0:n0 + bn])
+
+
+# conv2 on wgmma: the identity blocks' (N, H, W, Cmid, d) of R101 in the
+# benchmark's cells (the eval protocol's 0.75 / 1 / 1.25 scales with the flip
+# at 1024x512, the UDA steps' 1280x640, 1280x760 and 1024x512 crops, serving
+# at batch 1) and of the CPU tests' blocks=(2,2,2,2) models at 64x128 and
+# 48x96, one case a (W, Cmid, d): N and H do not change the maps
+CELL_IMAGES = ((8, 384, 768), (8, 512, 1024), (8, 640, 1280), (4, 640, 1280), (4, 760, 1280),
+               (4, 512, 1024), (1, 512, 1024), (2, 64, 128), (2, 48, 96))
+R101_WIDTHS = ((64, 1), (128, 1), (256, 2), (512, 4))  # (Cmid, d) of layers 1-4
+ROWS = fused_block.CONV2_ROWS  # output rows of a conv2 pass
+CONV2_SHAPES = sorted({
+    (w, cmid, d): (n, h, w, cmid, d) for n, *hw in CELL_IMAGES for cmid, d in R101_WIDTHS
+    for h, w in [_valid_sizes(tuple(hw))["os4" if cmid == 64 else "os8"]]}.values())
+
+
+@pytest.mark.parametrize("n,h,w,cmid,d", CONV2_SHAPES)
+def test_tc_conv2_plan_fits_and_names_its_tile(n, h, w, cmid, d):
+    """At every cell's shape the bf16 plan fits 232,448 B with the tc
+    route's invariants and puts conv2 on wgmma (the gate passed at layers 3
+    and 4, PERF.md) two output rows a pass, with its tile named: rows, m64
+    tiles, columns a warpgroup, stage rows and stages."""
+    plan = _tc_plan(n, h, w, cmid, d)
+    _assert_tc_plan(plan, n, h, w, 4 * cmid, cmid, d)
+    assert plan.conv_routes()["conv2"] == "wgmma"
+    assert set(plan.conv2_tile(cmid)) == {"rows", "mt", "nw", "kb", "stages"}
+    assert plan.smem <= fused_block.SMEM_BLOCK_MAX
+
+
+@pytest.mark.parametrize("n,h,w,cmid,d", CONV2_SHAPES)
+def test_tc_h1_window_layout_is_a_bijection(n, h, w, cmid, d):
+    """The h1 window's core-matrix plane puts each of its ldh x Cmid
+    (pixel, channel) pairs in a place of its own and fills the plane; its
+    ROWS + 2 positions of P1 pixels come first in each channel block."""
+    plan = _tc_plan(n, h, w, cmid, d)
+    pix, ch = torch.meshgrid(torch.arange(plan.ldh), torch.arange(cmid), indexing="ij")
+    off = fused_block.h1_offset(pix, ch, plan.ldh)
+    assert torch.equal(off.flatten().sort().values, torch.arange(plan.ldh * cmid))
+    assert plan.ldh >= (ROWS + 2) * (plan.tw + 2 * d)
+
+
+def _conv2_window(plan, cmid, d, rng):
+    """ROWS + 2 h1 rows (P1 x Cmid small integers) scattered into the
+    window's positions through ``h1_offset``, everything else in the
+    block's shared memory NaN: (the buffer, the rows)."""
+    p1 = plan.tw + 2 * d
+    buf = torch.full((plan.smem // 2,), float("nan"))
+    rows = torch.from_numpy(rng.integers(0, 4, size=(ROWS + 2, p1, cmid)).astype(np.float32))
+    pix, ch = torch.meshgrid(torch.arange(p1), torch.arange(cmid), indexing="ij")
+    for k in range(ROWS + 2):
+        buf[fused_block.h1_offset(k * p1 + pix, ch, plan.ldh)] = rows[k]
+    return buf, rows
+
+
+@pytest.mark.parametrize("n,h,w,cmid,d", CONV2_SHAPES)
+def test_tc_conv2_tap_descriptors_read_the_shifted_h1(n, h, w, cmid, d):
+    """Each tap's A descriptor (start ``conv2_a_start``, lbo 16 ldh bytes,
+    sbo 128), read through ``descriptor_read``, holds for each output row q
+    of the pass the h1 row q + ra shifted by cb * d pixels: tile row
+    q P1 + p (p < TW) equals h1 row q + ra at pixel cb d + p, at the k16
+    step's 16 channels."""
+    plan = _tc_plan(n, h, w, cmid, d)
+    buf, rows = _conv2_window(plan, cmid, d, np.random.default_rng(3))
+    p1, m = plan.tw + 2 * d, fused_block.WGMMA_M
+    for ra in range(3):
+        for cb in range(3):
+            for kc in range(0, cmid, fused_block.WGMMA_K):
+                a = torch.cat([fused_block.descriptor_read(
+                    buf, 2 * fused_block.conv2_a_start(kc, 0, t, ra, cb, d, p1, plan.ldh),
+                    16 * plan.ldh, 128, m) for t in range(plan.mt2)])
+                for q in range(ROWS):
+                    want = rows[q + ra, cb * d:cb * d + plan.tw, kc:kc + 16]
+                    assert torch.equal(a[q * p1:q * p1 + plan.tw], want)
+
+
+@pytest.mark.parametrize("n,h,w,cmid,d", CONV2_SHAPES)
+def test_tc_conv2_rows_past_tw_stay_in_shared_memory(n, h, w, cmid, d):
+    """Every row of conv2's m64 tiles, those between and past its output
+    rows included, reads inside the block's shared memory at every tap,
+    k16 step and tile (the last tap's last channel block is the furthest),
+    and no output row reads outside the P1 pixels conv1 wrote at its tap
+    row's window position."""
+    plan = _tc_plan(n, h, w, cmid, d)
+    p1, m, k = plan.tw + 2 * d, fused_block.WGMMA_M, fused_block.WGMMA_K
+    furthest = 0
+    for ra in range(3):
+        for cb in range(3):
+            for kc in range(0, cmid, k):
+                for t in range(plan.mt2):
+                    start = fused_block.conv2_a_start(kc, 0, t, ra, cb, d, p1, plan.ldh)
+                    # the core matrix of element (m-1, 15): k block 1, m block 7
+                    last = 2 * start + 16 * plan.ldh + (m // 8 - 1) * 128 + 16 * 7 + 2 * 7
+                    furthest = max(furthest, last + 2)
+            for q in range(ROWS):  # output row q's pixels p < TW
+                first, end = ra * p1 + cb * d + q * p1, ra * p1 + cb * d + q * p1 + plan.tw
+                assert (q + ra) * p1 <= first and end <= (q + ra + 1) * p1
+    assert furthest <= plan.smem
+    # the same bound through the descriptor rule: nothing indexes past the buffer
+    buf = torch.zeros(plan.smem // 2)
+    start = fused_block.conv2_a_start(cmid - k, 0, plan.mt2 - 1, 2, 2, d, p1, plan.ldh)
+    fused_block.descriptor_read(buf, 2 * start, 16 * plan.ldh, 128, m)
+
+
+def _w_stage_buf(wt, i, kb, bn, n0, size):
+    """Stage i (k rows [i kb, (i+1) kb), columns [n0, n0 + bn)) of the
+    weight matrix ``wt`` in a weight buffer of ``size`` elements, by 16-byte
+    pieces as ``stage_weights_tc`` copies them, the rest NaN."""
+    buf = torch.full((size,), float("nan"))
+    idx = torch.arange(kb * bn // 8)
+    kr, c0 = fused_block.w_stage_piece(idx, bn)
+    for e in range(8):
+        buf[8 * idx + e] = wt[i * kb + kr, n0 + c0 + e]
+    return buf
+
+
+@pytest.mark.parametrize("n,h,w,cmid,d", CONV2_SHAPES)
+def test_tc_conv2_emulation_equals_the_conv(n, h, w, cmid, d):
+    """The nine shifted products: the window filled through ``h1_offset``
+    (NaN elsewhere), w2 (HWIO as a (9 Cmid, Cmid) matrix) in stages of kb
+    k-rows, each stage's A at its tap's position and shift, read back by
+    the descriptors' lbo/sbo rule, multiplied per warpgroup and m64 tile
+    and gathered through the fragment map, equal at tile rows q P1 + p the
+    dilated 3x3 conv of h1 rows q .. q+2 exactly, for each of the pass's
+    ROWS output rows q (small integers, exact in fp32)."""
+    plan = _tc_plan(n, h, w, cmid, d)
+    rng = np.random.default_rng(11)
+    buf, rows = _conv2_window(plan, cmid, d, rng)
+    p1 = plan.tw + 2 * d
+    w2 = torch.from_numpy(rng.integers(-3, 4, size=(3, 3, cmid, cmid)).astype(np.float32))
+    wt = w2.reshape(9 * cmid, cmid)
+    tile = plan.conv2_tile(cmid)
+    wgs = plan.threads // fused_block.WG_THREADS
+
+    def a_start(i, s, t):
+        tap, kc = divmod(i * plan.kb, cmid)
+        ra, cb = divmod(tap, 3)
+        return fused_block.conv2_a_start(kc, s, t, ra, cb, d, p1, plan.ldh)
+
+    got = _emulate_tc(lambda i: buf, lambda i: _w_stage_buf(wt, i, plan.kb, cmid, 0, plan.wstage),
+                      tile["stages"], plan.kb, cmid, tile["mt"], plan.ldh, a_start, wgs,
+                      tile["nw"])
+    # (1, Cmid, ROWS + 2, P1) rows of h1 → (1, Cmid, ROWS, TW): dilation d
+    # along the row, the window's rows adjacent
+    want = torch.nn.functional.conv2d(
+        rows.double().permute(2, 0, 1)[None], w2.double().permute(3, 2, 0, 1),
+        dilation=(1, d))[0]
+    for q in range(ROWS):
+        assert torch.equal(got[q * p1:q * p1 + plan.tw].double(), want[:, q].T)
 
 
 @pytest.mark.parametrize("cin,cmid", [(64, 16), (384, 96), (1000, 256)])

@@ -205,8 +205,8 @@ def test_plan_tiles_at_shard_heights(hw, sp, dtype):
             chain = math.ceil(h / d)
             assert plan.rs * plan.segs >= chain > plan.rs * (plan.segs - 1)
             assert plan.tw * math.ceil(w / plan.tw) >= w
-            if dtype == torch.bfloat16:  # conv1 and conv3 on wgmma at every shard height
-                assert plan.conv_routes() == {"conv1": "wgmma", "conv2": "fma", "conv3": "wgmma"}
+            if dtype == torch.bfloat16:  # every conv on wgmma at every shard height
+                assert plan.conv_routes() == {"conv1": "wgmma", "conv2": "wgmma", "conv3": "wgmma"}
 
 
 # -- gloo ranks ---------------------------------------------------------------
