@@ -9,7 +9,9 @@ Training (the first checked steps of the window's own step object):
 - ``change_gap``: each leaf's change over the checked steps, by the same
   measure, over the leaves whose first reference gradient is at least a
   thousandth of the median leaf's (a leaf below that moves by round-off
-  and weight decay alone).
+  and weight decay alone); ``change_gap_median``: the median of those
+  leaves' gaps instead of the worst (steady from seed to seed where one
+  leaf's gap swings).
 
 Evaluation and serving (a sample of the window's answers, drawn from the
 seed): the margin by which the reference's score of the class the program
@@ -29,10 +31,11 @@ import statistics
 import torch
 
 
-def leaf_gap(program: dict, ref: dict, keys=None) -> float:
+def leaf_gaps(program: dict, ref: dict, keys=None) -> list[float]:
+    """Each leaf's |norm gap| over max(its reference norm, the median leaf's)."""
     keys = list(ref) if keys is None else list(keys)
     med = statistics.median(ref[k] for k in keys)
-    return max(abs(program[k] - ref[k]) / max(ref[k], med, 1e-30) for k in keys)
+    return [abs(program[k] - ref[k]) / max(ref[k], med, 1e-30) for k in keys]
 
 
 def train_gaps(program: dict, ref: dict) -> dict[str, float]:
@@ -41,9 +44,11 @@ def train_gaps(program: dict, ref: dict) -> dict[str, float]:
     g = ref["grad_norms"]
     med = statistics.median(g.values())
     moving = [k for k in g if g[k] >= 1e-3 * med]
+    changes = leaf_gaps(program["change_norms"], ref["change_norms"], moving)
     return {"loss_gap": loss_gap,
-            "grad_gap": leaf_gap(program["grad_norms"], g),
-            "change_gap": leaf_gap(program["change_norms"], ref["change_norms"], moving),
+            "grad_gap": max(leaf_gaps(program["grad_norms"], g)),
+            "change_gap": max(changes),
+            "change_gap_median": statistics.median(changes),
             "leaves_left_out": len(g) - len(moving)}
 
 

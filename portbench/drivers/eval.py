@@ -7,7 +7,8 @@ on the card from the seed, builds ``make_multiscale_eval_step`` over the
 eval-form model and warms it up on one batch. The window runs the step over
 the pool, cycling, and sums the confusion matrices on the card; a sample
 of ``sample`` batches, drawn from the seed by reservoir sampling, keeps its
-predictions and matrix for the check.
+predictions and matrix for the check. The model is the configuration's
+architecture (``models/<backbone>.py``).
 """
 
 from __future__ import annotations
@@ -16,9 +17,24 @@ import numpy as np
 import torch
 
 from maxsquareloss_torch.train.evaluator import make_multiscale_eval_step
-from portbench import compare, flops, harness, program
-from portbench.reference import deeplabv2 as ref_model
+from portbench import compare, harness, models
 from portbench.reference import evaluate as ref_eval
+from portbench.reference import lowp
+
+CHECKS = ("score_gap_vs_bf16", "cm_entries_wrong", "pixels_missing")
+
+
+def make_pool(cell, seed: int, device):
+    """uint8 images at the eval size and int32 labels at the label size,
+    each (pool, batch, ...), from the seed."""
+    m, ev, t = cell.config["model"], cell.config["eval"], cell.traffic
+    (w, h), (lw, lh) = ev["base_size"], ev["label_size"]
+    g = harness.generator(seed, "inputs", device)
+    n, pool = t["batch"], t["pool"]
+    x = harness.make_images(g, (pool, n, h, w), device)
+    y = harness.make_labels(g, (pool, n, lh, lw), m["num_classes"], t["label_block"],
+                            t["ignore_share"], device)
+    return x, y
 
 
 class Reservoir:
@@ -43,24 +59,19 @@ class Reservoir:
 class Driver:
     def __init__(self, cell, seed: int, device, int8: bool = False):
         self.cell, self.device = cell, device
+        self.arch = models.load(cell.config)
         self.phases = harness.Phases()
-        m, ev, t = cell.config["model"], cell.config["eval"], cell.traffic
-        self.cfg = program.train_config(cell, device)
-        (w, h), (lw, lh) = ev["base_size"], ev["label_size"]
-        self.sd0 = harness.make_weights(m, seed, device)
+        t, pool = cell.traffic, cell.traffic["pool"]
+        self.cfg = self.arch.train_config(cell, device)
+        self.sd0 = self.arch.make_weights(cell.config["model"], seed, device)
         self.phases.mark("weights")
-        g = harness.generator(seed, "inputs", device)
-        n, pool, self.c = t["batch"], t["pool"], m["num_classes"]
-        self.x = harness.make_images(g, (pool, n, h, w), device)
-        self.y = harness.make_labels(g, (pool, n, lh, lw), self.c, t["label_block"],
-                                     t["ignore_share"], device)
+        self.c = cell.config["model"]["num_classes"]
+        self.x, self.y = make_pool(cell, seed, device)
         self.phases.mark("inputs")
         self.scales, self.flip = tuple(t["scales"]), bool(t["flip"])
-        self.model = program.port_model(self.cfg, self.sd0, device, eval_mode=True)
+        self.model = self.arch.port_model(self.cfg, self.sd0, device, eval_mode=True)
         if int8:  # the program's own lower-precision path: the control
-            from maxsquareloss_torch.models.quantize import calibrate, quantize_params
-
-            self.model = quantize_params(self.model, calibrate(self.model, self.cfg, [self.x[0]]))
+            self.model = self.arch.port_int8(self.model, self.cfg, [self.x[0]])
         self.step = make_multiscale_eval_step(self.cfg, self.model, self.scales, self.flip)
         self.phases.mark("model")
         for i in range(t["warmup_units"]):
@@ -88,19 +99,7 @@ class Driver:
         return {"eval_images_per_s": units * self.x.shape[1] / seconds}
 
     def work(self) -> dict:
-        m, ev, t = self.cell.config["model"], self.cell.config["eval"], self.cell.traffic
-        n, peak = t["batch"], self.cell.peaks["flops"][t["dtype"]]
-        hw = tuple(ev["base_size"][::-1])
-        itemsize = 2 if t["dtype"] == "bfloat16" else 4
-        views = 2 if self.flip else 1
-        blocks = [b for s in self.scales
-                  for b in flops.identity_blocks(m["blocks"], n * views,
-                                                 (round(hw[0] * s), round(hw[1] * s)))]
-        return {"model_flops": flops.tta_flops(m["blocks"], m["num_classes"], n, hw,
-                                               self.scales, self.flip),
-                "peak_flops": peak,
-                "identity_blocks": {"launches": [flops.identity_block_work(b, False, itemsize)
-                                                 for b in blocks], "peak_flops": peak}}
+        return self.arch.tta_work(self.cell, self.cell.traffic["batch"])
 
     def measure(self) -> dict:
         sample = [(i, cm, pred) for i, cm, pred in self.sample.items]
@@ -108,15 +107,15 @@ class Driver:
         missing = abs(int(self.cm.sum()) - int((valid * self.done).sum()))
         del self.step, self.model, self.cm
         harness.release()
-        ref_model.set_tf32(False)
+        lowp.set_tf32(False)
         stats, plain, cm_wrong = None, None, 0
         views = len(self.scales) * (2 if self.flip else 1)
         out_hw = tuple(self.cell.config["eval"]["label_size"][::-1])
-        blocks = self.cell.config["model"]["blocks"]
+        forward = self.arch.reference(self.cell.config["model"]).forward
         for i, cm, pred in sample:
             cm_wrong += int((ref_eval.confusion_matrix(self.y[i], pred, self.c) != cm).sum())
             for j in range(pred.shape[0]):
-                args = (self.sd0, blocks, self.x[i, j], self.scales, self.flip, out_hw)
+                args = (self.sd0, forward, self.x[i, j], self.scales, self.flip, out_hw)
                 score = ref_eval.tta_scores(*args)
                 stats = compare.merge_stats(stats, compare.score_stats(score, pred[j], views))
                 bf16 = ref_eval.tta_scores(*args, dtype=torch.bfloat16).argmax(0)

@@ -8,6 +8,7 @@ it up. Each request hands a pool image (in turn) to the card, runs the
 function and copies its int32 trainIds back to the host; its latency runs
 from the hand-over to the trainIds on the host. A sample of ``sample``
 answers, drawn from the seed by reservoir sampling, is kept for the check.
+The model is the configuration's architecture (``models/<backbone>.py``).
 """
 
 from __future__ import annotations
@@ -19,32 +20,40 @@ import numpy as np
 import torch
 
 from maxsquareloss_torch.predict import make_predict_fn
-from portbench import compare, flops, harness, program
+from portbench import compare, harness, models
 from portbench.drivers.eval import Reservoir
-from portbench.reference import deeplabv2 as ref_model
 from portbench.reference import evaluate as ref_eval
+from portbench.reference import lowp
+
+CHECKS = ("score_gap_mean",)
+
+
+def make_pool(cell, seed: int, device) -> np.ndarray:
+    """A host pool of uint8 images at the eval size, made on the device
+    from the seed."""
+    w, h = cell.config["eval"]["base_size"]
+    g = harness.generator(seed, "inputs", device)
+    return harness.make_images(g, (cell.traffic["pool"], h, w), device).cpu().numpy()
 
 
 class Driver:
     def __init__(self, cell, seed: int, device, int8: bool = False):
         self.cell, self.device = cell, device
+        self.arch = models.load(cell.config)
         self.phases = harness.Phases()
-        m, ev, t = cell.config["model"], cell.config["eval"], cell.traffic
-        self.cfg = program.train_config(cell, device)
-        (w, h), (lw, lh) = ev["base_size"], ev["label_size"]
+        t = cell.traffic
+        self.cfg = self.arch.train_config(cell, device)
+        lw, lh = cell.config["eval"]["label_size"]
         self.out_hw = (lh, lw)
-        self.sd0 = harness.make_weights(m, seed, device)
+        self.sd0 = self.arch.make_weights(cell.config["model"], seed, device)
         self.phases.mark("weights")
-        g = harness.generator(seed, "inputs", device)
-        self.pool = harness.make_images(g, (t["pool"], h, w), device).cpu().numpy()
+        self.pool = make_pool(cell, seed, device)
         self.phases.mark("inputs")
         self.scales, self.flip = tuple(t["scales"]), bool(t["flip"])
-        self.model = program.port_model(self.cfg, self.sd0, device, eval_mode=True)
+        self.model = self.arch.port_model(self.cfg, self.sd0, device, eval_mode=True)
         if int8:  # the program's own lower-precision path: the control
-            from maxsquareloss_torch.models.quantize import calibrate, quantize_params
-
             first = torch.from_numpy(self.pool[:1]).to(device)
-            self.model = quantize_params(self.model, calibrate(self.model, self.cfg, [first]))
+            self.model = self.arch.port_int8(self.model, self.cfg, [first])
         self.fn = make_predict_fn(self.cfg, self.model, self.scales, self.flip, self.out_hw)
         self.phases.mark("model")
         for i in range(t["warmup_units"]):
@@ -78,31 +87,20 @@ class Driver:
         return {"serve_p95_ms": float(np.percentile(np.array(self.latency) * 1e3, 95))}
 
     def work(self) -> dict:
-        m, ev, t = self.cell.config["model"], self.cell.config["eval"], self.cell.traffic
-        peak = self.cell.peaks["flops"][t["dtype"]]
-        hw = tuple(ev["base_size"][::-1])
-        itemsize = 2 if t["dtype"] == "bfloat16" else 4
-        views = 2 if self.flip else 1
-        blocks = [b for s in self.scales
-                  for b in flops.identity_blocks(m["blocks"], views,
-                                                 (round(hw[0] * s), round(hw[1] * s)))]
-        return {"model_flops": flops.tta_flops(m["blocks"], m["num_classes"], 1, hw,
-                                               self.scales, self.flip),
-                "peak_flops": peak,
-                "identity_blocks": {"launches": [flops.identity_block_work(b, False, itemsize)
-                                                 for b in blocks], "peak_flops": peak}}
+        return self.arch.tta_work(self.cell, 1)
 
     def measure(self) -> dict:
         sample = list(self.sample.items)
         del self.fn, self.model
         harness.release()
-        ref_model.set_tf32(False)
+        lowp.set_tf32(False)
         stats = None
         views = len(self.scales) * (2 if self.flip else 1)
+        forward = self.arch.reference(self.cell.config["model"]).forward
         for i, ids in sample:
             image = torch.from_numpy(self.pool[i]).to(self.device)
-            score = ref_eval.tta_scores(self.sd0, self.cell.config["model"]["blocks"], image,
-                                        self.scales, self.flip, self.out_hw)
+            score = ref_eval.tta_scores(self.sd0, forward, image, self.scales, self.flip,
+                                        self.out_hw)
             stats = compare.merge_stats(stats, compare.score_stats(score, ids, views))
             del score
         harness.set_precision(self.cell.config)

@@ -1,14 +1,15 @@
-"""The benchmark's general parts: the cell's files, weights and inputs made
-from the seed, the measured window, the trace's per-layer metrics, the
+"""The benchmark's general parts: the cell's files, inputs made from the
+seed, the measured window, the trace's per-layer metrics, the
 check and the result line.
 
 A cell is found by its name in ``BENCHMARK.json``, which names its
-configuration (``configs/<config>.json``) and its traffic
+configuration (``configs/<config>.json``, whose ``model.backbone`` picks
+the architecture's module ``models/<backbone>.py``) and its traffic
 (``traffic/<traffic>.json``, whose ``kind`` picks the driver
 ``drivers/<kind>.py``); the limits of its output check are in
 ``cells/<cell>.json``; each per-layer metric is ``metrics/<metric>.json``,
-read by ``readers/<reader>.py``. A new cell, traffic mix or metric is a new
-file.
+read by ``readers/<reader>.py``. A new cell, traffic mix, metric or
+architecture is a new file.
 """
 
 from __future__ import annotations
@@ -65,8 +66,8 @@ def _listed(metric: dict, cell: str, reported: set | None = None) -> bool:
 
 def load_cell(name: str, patch: dict | None = None, root: Path = ROOT) -> Cell:
     """The cell ``name`` of ``BENCHMARK.json`` with its files; ``patch``
-    ({"config": ..., "traffic": ..., "limits": ...}) overrides their keys
-    (the tests' small sizes)."""
+    ({"config": ..., "traffic": ..., "limits": ..., "chips": ...}) overrides
+    their keys and the cards (the tests' small sizes)."""
     bench = _json(root / "BENCHMARK.json")
     cells = {w["name"]: w for w in bench["workloads"]}
     if name not in cells:
@@ -79,7 +80,7 @@ def load_cell(name: str, patch: dict | None = None, root: Path = ROOT) -> Cell:
     per_layer = [merge(m, _json(HERE / "metrics" / f"{m['name']}.json"))
                  for m in bench["per_layer"] if _listed(m, name, reported)]
     return Cell(
-        name=name, chips=int(w["chips"]),
+        name=name, chips=int(patch.get("chips", w["chips"])),
         config=merge(_json(root / configs[w["config"]]["file"]), patch.get("config")),
         traffic=merge(_json(HERE / "traffic" / f"{w['traffic']}.json"), patch.get("traffic")),
         limits=merge(_json(HERE / "cells" / f"{name}.json")["limits"], patch.get("limits")),
@@ -94,49 +95,6 @@ def sub_seed(seed: int, tag: str) -> int:
 
 def generator(seed: int, tag: str, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(sub_seed(seed, tag))
-
-
-def make_weights(model: dict, seed: int, device) -> dict[str, torch.Tensor]:
-    """Reference-layout float32 weights on ``device`` from the seed, in two
-    draws: trunk convs He-normal (fan out), head convs N(0, 0.01), head
-    biases 0; frozen BN with mean 0, var 1, beta 0 and gamma 1 (bn3's
-    ``init.bn3_gamma``, so that 33 residual blocks keep activations finite)."""
-    from portbench.reference import deeplabv2
-
-    lay = deeplabv2.layout(model["blocks"], model["num_classes"], model["multi"])
-    convs = [(k, s) for k, s in lay if len(s) == 4]
-    rest = [(k, s) for k, s in lay if len(s) != 4]
-
-    def std(key, shape):
-        if key.startswith(("layer5.", "layer6.")):
-            return model["init"]["heads_std"]
-        return (2.0 / (shape[0] * shape[2] * shape[3])) ** 0.5
-
-    def const(key):
-        if key.endswith("running_var"):
-            return 1.0
-        if key.endswith(".weight") and ".bn3." in key:
-            return model["init"]["bn3_gamma"]
-        if key.endswith(".weight"):
-            return 1.0
-        return 0.0
-
-    counts = torch.tensor([torch.Size(s).numel() for _, s in convs], device=device)
-    scale = torch.repeat_interleave(
-        torch.tensor([std(k, s) for k, s in convs], device=device), counts)
-    flat = torch.randn(int(counts.sum()), generator=generator(seed, "weights", device),
-                       device=device).mul_(scale)
-    rcounts = torch.tensor([torch.Size(s).numel() for _, s in rest], device=device)
-    rflat = torch.repeat_interleave(torch.tensor([const(k) for k, _ in rest], device=device),
-                                    rcounts)
-    sd, off, roff = {}, 0, 0
-    for k, s in lay:
-        n = torch.Size(s).numel()
-        if len(s) == 4:
-            sd[k], off = flat[off:off + n].view(s), off + n
-        else:
-            sd[k], roff = rflat[roff:roff + n].view(s), roff + n
-    return sd
 
 
 class Phases:
@@ -228,6 +186,14 @@ def read_per_layer(cell: Cell, trace, ctx: dict) -> dict:
     return out
 
 
+def memory_peak(driver, device) -> int:
+    """The peak of device memory on the fullest card the driver used (one
+    card: this process's)."""
+    if hasattr(driver, "memory_peak_bytes"):
+        return driver.memory_peak_bytes()
+    return torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+
+
 def forbidden_modules() -> list[str]:
     return sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN_MODULES)
 
@@ -258,9 +224,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, t_start: float,
         units, secs = run_window(driver, seconds)
     dev = {"platform": "gpu" if device.type == "cuda" else device.type,
            "kind": torch.cuda.get_device_name(device) if device.type == "cuda" else device.type,
-           "count": cell.chips,
-           "memory_peak_bytes": (torch.cuda.max_memory_allocated(device)
-                                 if device.type == "cuda" else 0)}
+           "count": cell.chips, "memory_peak_bytes": memory_peak(driver, device)}
     breakdown = None
     if trace:
         metrics = read_per_layer(cell, tr, {**driver.work(), "units": units})

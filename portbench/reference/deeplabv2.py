@@ -33,12 +33,6 @@ EXPANSION = 4
 BN_EPS = 1e-5
 
 
-def set_tf32(on: bool) -> None:
-    """TF32 for cuDNN convs and cuBLAS matmuls: off for a float32 reference."""
-    torch.backends.cudnn.allow_tf32 = on
-    torch.backends.cuda.matmul.allow_tf32 = on
-
-
 def needs_downsample(stage: int, block: int, in_ch: int) -> bool:
     return block == 0 and (STRIDES[stage] != 1 or in_ch != PLANES[stage] * EXPANSION
                            or DILATIONS[stage] in (2, 4))
@@ -84,6 +78,11 @@ def is_bn(key: str) -> bool:
 def trainable(key: str) -> bool:
     """Conv weights and head biases train; frozen BN does not."""
     return not is_bn(key)
+
+
+def head_param(key: str) -> bool:
+    """The classifier heads, which train at ``head_lr_mult`` times the LR."""
+    return key.startswith(("layer5.", "layer6."))
 
 
 def _bn(x, sd, prefix):

@@ -1,4 +1,5 @@
-"""Plain multi-scale (+flip) evaluation and serving of DeepLabV2.
+"""Plain multi-scale (+flip) evaluation and serving, through an
+architecture's plain forward (``uda.Plain.forward``).
 
 Per scale the normalized image is resized (bilinear, align_corners) to
 ``round(H * s), round(W * s)``, the main head runs, its logits are upsampled
@@ -16,12 +17,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from portbench.reference import deeplabv2
 from portbench.reference.uda import normalize, upsample
 
 
 @torch.no_grad()
-def tta_scores(sd, blocks, image_uint8: torch.Tensor, scales, flip: bool, out_hw,
+def tta_scores(sd, forward, image_uint8: torch.Tensor, scales, flip: bool, out_hw,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """One uint8 (H, W, 3) image → its (C, H_out, W_out) float32 score.
     ``dtype``: the normalized image, the weights and every op up to the
@@ -37,7 +37,7 @@ def tta_scores(sd, blocks, image_uint8: torch.Tensor, scales, flip: bool, out_hw
                                                    align_corners=True)
         views = [(xi, False)] + ([(xi.flip(-1), True)] if flip else [])
         for v, flipped in views:
-            logits = upsample(deeplabv2.forward(sd, v, blocks, aux=False)[1].float(), out_hw)
+            logits = upsample(forward(sd, v, aux=False)[1].float(), out_hw)
             p = logits if heads == 1 else F.softmax(logits, dim=1)
             if flipped:
                 p = p.flip(-1)

@@ -6,7 +6,7 @@ import time
 
 import pytest
 
-from portbench import calibrate, harness
+from portbench import calibrate, harness, models
 from portbench.tests.small import small
 
 TRAIN_AGREE = {"loss_gap": 1e-5, "grad_gap": 1e-3, "change_gap": 1e-3}
@@ -41,9 +41,10 @@ def test_bf16_train_step_within_its_limits():
 
 def test_same_seed_same_inputs():
     cell = harness.load_cell("gta5_uda_bf16", small())
-    a = harness.make_weights(cell.config["model"], 2**40 + 3, "cpu")
-    b = harness.make_weights(cell.config["model"], 2**40 + 3, "cpu")
-    c = harness.make_weights(cell.config["model"], 2**40 + 4, "cpu")
+    make_weights = models.load(cell.config).make_weights
+    a = make_weights(cell.config["model"], 2**40 + 3, "cpu")
+    b = make_weights(cell.config["model"], 2**40 + 3, "cpu")
+    c = make_weights(cell.config["model"], 2**40 + 4, "cpu")
     assert all((a[k] == b[k]).all() for k in a)
     assert not (a["conv1.weight"] == c["conv1.weight"]).all()
     assert float(a["layer1.1.bn3.weight"][0]) == pytest.approx(0.1)

@@ -1,5 +1,7 @@
 """Every file of the benchmark parses and names only what exists, by the
-rules of its contract."""
+rules of its contract: each driver kind declares the numbers its cells
+compare, each configuration's architecture has its module, and no more
+cells than the rule allows take four cards."""
 
 import importlib
 import json
@@ -12,9 +14,15 @@ ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
-CHECKS = {"train": {"loss_gap", "grad_gap", "change_gap"},
-          "eval": {"score_gap_vs_bf16", "cm_entries_wrong", "pixels_missing"},
-          "serve": {"score_gap_mean"}}
+
+
+def _keys(data) -> set[str]:
+    """Every key of a configuration file, its nested groups' included."""
+    if isinstance(data, dict):
+        return set(data).union(*(_keys(v) for v in data.values()))
+    if isinstance(data, list):
+        return set().union(*(_keys(v) for v in data))
+    return set()
 
 
 def _one_line(s: str) -> bool:
@@ -42,21 +50,23 @@ def test_config(config):
     data = json.loads((ROOT / config["file"]).read_text())
     assert data["name"] == config["name"] and data["source"] == config["source"]
     assert data["assumed"] and data["precision"]["tf32"] is False
-    assert config["reduced"] == []
+    assert len(config["reduced"]) <= 16 and all(NAME.match(k) for k in config["reduced"])
+    assert set(config["reduced"]) <= _keys(data)
+    assert (ROOT / "portbench/models" / f"{data['model']['backbone']}.py").is_file()
     assert any(w["config"] == config["name"] for w in BENCH["workloads"])
 
 
 @pytest.mark.parametrize("cell", BENCH["workloads"], ids=lambda w: w["name"])
 def test_cell(cell):
     assert set(cell) == {"name", "config", "traffic", "chips", "why"}
-    assert cell["chips"] == 1 and _one_line(cell["why"]) and NAME.match(cell["traffic"])
+    assert cell["chips"] in (1, 4) and _one_line(cell["why"]) and NAME.match(cell["traffic"])
     assert cell["config"] in {c["name"] for c in BENCH["configs"]}
     traffic = json.loads((ROOT / "portbench/traffic" / f"{cell['traffic']}.json").read_text())
-    kind = traffic["kind"]
-    assert hasattr(importlib.import_module(f"portbench.drivers.{kind}"), "Driver")
+    driver = importlib.import_module(f"portbench.drivers.{traffic['kind']}")
+    assert hasattr(driver, "Driver")
     assert traffic["dtype"] in ("bfloat16", "float32")
     limits = json.loads((ROOT / "portbench/cells" / f"{cell['name']}.json").read_text())["limits"]
-    assert set(limits) == CHECKS[kind]
+    assert set(limits) == set(driver.CHECKS)
     e2e = [m for m in BENCH["end_to_end"] if cell["name"] in m.get("workloads", [cell["name"]])]
     assert "setup_s" in {m["name"] for m in e2e} and len(e2e) >= 2
     reported = {m["name"] for m in e2e}
@@ -64,6 +74,11 @@ def test_cell(cell):
     assert layer and all(m["moves"] in reported for m in layer)
     pairs = [(w["config"], w["traffic"]) for w in BENCH["workloads"]]
     assert pairs.count((cell["config"], cell["traffic"])) == 1
+
+
+def test_four_card_cells():
+    cells = BENCH["workloads"]
+    assert sum(w["chips"] == 4 for w in cells) <= max(1, len(cells) // 4)
 
 
 @pytest.mark.parametrize("metric", BENCH["end_to_end"] + BENCH["per_layer"],

@@ -2,7 +2,7 @@
 
 import pytest
 
-from portbench.readers import idle, mfu, roofline
+from portbench.readers import exposed, idle, mfu, roofline
 from portbench.trace import Trace
 
 
@@ -39,3 +39,20 @@ def test_readers():
     assert roofline.read(t, ctx, {**spec, "kernels": ["nothing"]}, {"bytes_per_s": 1}) is None
     assert roofline.read(t, ctx, {**spec, "work": "iw_loss"}, {"bytes_per_s": 1}) is None
     assert idle.read(t, ctx, {}, {}) == pytest.approx(55.0)
+
+
+def test_exposed():
+    """NCCL kernels' time with nothing else on the device, a unit."""
+    ev = [{"ph": "X", "cat": "user_annotation", "name": "portbench.window", "ts": 0, "dur": 1000},
+          {"ph": "X", "cat": "kernel", "name": "ncclDevKernel_AllReduce_Sum_f32", "ts": 100,
+           "dur": 300},
+          {"ph": "X", "cat": "kernel", "name": "ncclDevKernel_AllGather", "ts": 350, "dur": 100},
+          {"ph": "X", "cat": "kernel", "name": "wgrad", "ts": 50, "dur": 150},
+          {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy DtoD", "ts": 300, "dur": 20},
+          {"ph": "X", "cat": "kernel", "name": "sgd", "ts": 600, "dur": 100}]
+    t = Trace(ev)
+    spec = {"kernels": ["nccl"]}
+    # NCCL covers [100, 450); others cover [50, 200) and [300, 320): 450 - 100 - 100 - 20 us
+    assert exposed.read(t, {"units": 2}, spec, {}) == pytest.approx(230e-3 / 2)
+    assert exposed.read(t, {"units": 2}, {"kernels": ["absent"]}, {}) is None
+    assert exposed.exposed_us([(0, 10)], [(2, 3), (5, 20)]) == pytest.approx(4)

@@ -16,6 +16,17 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver", "python_function")
 
 
+def union(intervals) -> list[tuple[float, float]]:
+    """The union of (start, end) intervals, as disjoint intervals in order."""
+    out: list[list[float]] = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return [(a, b) for a, b in out]
+
+
 class Trace:
     def __init__(self, events: list[dict]):
         spans = [e for e in events if e.get("name") == WINDOW_SPAN and e.get("ph") == "X"
@@ -49,13 +60,7 @@ class Trace:
         return (self.t1 - self.t0) * 1e-6
 
     def _union(self) -> list[tuple[float, float]]:
-        out: list[list[float]] = []
-        for _, a, b in self.device:
-            if out and a <= out[-1][1]:
-                out[-1][1] = max(out[-1][1], b)
-            else:
-                out.append([a, b])
-        return [(a, b) for a, b in out]
+        return union((a, b) for _, a, b in self.device)
 
     @property
     def busy_s(self) -> float:
